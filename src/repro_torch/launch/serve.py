@@ -1,0 +1,99 @@
+"""Standalone data-plane launcher of the port (``repro.launch.serve
+--real-engine``).
+
+Drives one continuous-batching engine directly — no control plane — with a
+seeded mixed-length request stream and reports measured tokens/s and
+dispatch counts:
+
+    PYTHONPATH=src python -m repro_torch.launch.serve --real-engine --device cuda
+    PYTHONPATH=src python -m repro_torch.launch.serve --real-engine \\
+        --device cpu --reduced
+
+On CUDA the config selects the kernel impls (flash prefill, fused paged
+decode and, with ``--quantize int8``, the int8 GEMM). Weights are random,
+made from a fixed seed on the device. The control plane (``--backend``,
+``--clock`` and the Poisson cluster driver) is not ported yet.
+"""
+from __future__ import annotations
+
+import argparse
+import dataclasses
+import time
+from typing import Optional, Sequence
+
+import numpy as np
+import torch
+
+from repro_torch import resolve_device
+from repro_torch.configs.registry import ARCHS
+from repro_torch.models import build_model
+from repro_torch.models.quantize import quantize_params_dense
+from repro_torch.serving.engine import Request, ServingEngine
+
+
+def _real_engine_demo(arch: str, n_reqs: int, slots: int,
+                      page_size: int = 16, quantize: str = "none",
+                      device="cuda", reduced: bool = False,
+                      max_len: int = 64, seed: int = 0) -> dict:
+    dev = resolve_device(device)
+    base = ARCHS[arch].reduced() if reduced else ARCHS[arch]
+    cfg = dataclasses.replace(base, quantize=quantize).for_device(dev)
+    model = build_model(cfg, dev)
+    params = model.init(seed)
+    if quantize == "int8":
+        # weight-only int8 variant: projections quantized from the fp init
+        params = quantize_params_dense(params)
+    eng = ServingEngine(model, params, max_batch=slots, max_len=max_len,
+                        decode_block=16, page_size=page_size)
+    rng = np.random.default_rng(seed)
+    reqs = [Request(rid=i,
+                    prompt=rng.integers(0, cfg.vocab,
+                                        size=int(rng.integers(4, 29))
+                                        ).astype(np.int32),
+                    max_new_tokens=int(rng.integers(4, 33)))
+            for i in range(n_reqs)]
+    eng.warmup(prompt_lens=[len(r.prompt) for r in reqs])
+    t0 = time.perf_counter()
+    eng.serve(reqs)
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+    wall = time.perf_counter() - t0
+    toks = sum(len(r.tokens) for r in reqs)
+    s = eng.stats
+    where = torch.cuda.get_device_name(dev) if dev.type == "cuda" else "cpu"
+    print(f"real engine [{cfg.name} {cfg.quantize} attn={cfg.attention_impl}"
+          f" on {where}] (paged {eng.n_pages}x{eng.page_size}): "
+          f"{len(reqs)} reqs / {toks} tokens in {wall * 1e3:.1f} ms = "
+          f"{toks / wall:.0f} tok/s ({s['prefill_dispatches']}+"
+          f"{s['decode_dispatches']} dispatches, peak "
+          f"{s['peak_concurrency']} slots, segment occupancy "
+          f"{eng.occupancy['slot_busy_frac']:.2f})")
+    return {"tokens": toks, "wall_s": wall, "stats": dict(s)}
+
+
+def main(argv: Optional[Sequence[str]] = None) -> None:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--arch", default="llama3.2-1b", choices=sorted(ARCHS))
+    ap.add_argument("--real-engine", action="store_true",
+                    help="drive one engine directly (the only mode ported)")
+    ap.add_argument("--real-reqs", type=int, default=32)
+    ap.add_argument("--real-slots", type=int, default=8)
+    ap.add_argument("--page-size", type=int, default=16,
+                    help="paged KV page size in positions (the contiguous "
+                         "layout is not ported)")
+    ap.add_argument("--quantize", choices=["none", "int8"], default="none")
+    ap.add_argument("--device", default="cuda", choices=["cuda", "cpu"])
+    ap.add_argument("--reduced", action="store_true",
+                    help="the CPU-sized config instead of the full width")
+    args = ap.parse_args(argv)
+    resolve_device(args.device)
+    if not args.real_engine:
+        ap.error("only --real-engine is ported; the control plane "
+                 "(--backend/--clock) comes in a later slice")
+    _real_engine_demo(args.arch, args.real_reqs, args.real_slots,
+                      page_size=args.page_size, quantize=args.quantize,
+                      device=args.device, reduced=args.reduced)
+
+
+if __name__ == "__main__":
+    main()

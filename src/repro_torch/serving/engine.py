@@ -1,0 +1,494 @@
+"""Continuous-batching serving engine over a paged KV cache
+(the open-loop core of ``repro.serving.engine``).
+
+The engine owns a shared KV page pool ``(L, n_pages, page_size, K, D)``
+per k/v, a per-slot block table, and per-slot ``tok``/``pos`` device
+tensors. Requests are admitted FIFO while the pool can hold their worst
+case (``ceil((prompt + max_new - 1) / page_size)`` pages); same-bucket
+prompts are prefilled together in one dispatch (admit batches bucketed to
+{1, max_batch}; padding rows carry slot ``max_batch`` and are dropped), and
+their k/v pages are scattered into the pool through the block table.
+Pages are appended to a slot's block table ahead of every decode segment
+and returned the moment its sequence finishes.
+
+**Decode segments.** The JAX engine runs a segment as a device
+``lax.while_loop`` that exits once every slot is done. Here the host
+already knows each slot's remaining budget (this slice has no chunked
+prefill or in-segment admission), so it computes the segment's step count,
+``min(decode_block, max remaining)``, and every step's activity mask
+before the segment starts. The segment is then a Python loop of
+single-token decode steps with no host sync inside; the emitted tokens are
+read back once at its end. ``decode_steps``, ``decode_dispatches`` and
+``busy_slot_steps`` count exactly what the JAX engine counts on the same
+stream.
+
+**Kernel pool layout.** With ``attention_impl="cuda"`` the pool carries
+one extra *trash* page at index ``n_pages``, the block table's sentinel: the
+fused decode kernel has no write suppression, so inactive slots write
+there, and prefill rows past a slot's pages land there too. The plain path
+keeps the exact-size pool and drops those writes instead. Either way no
+write touches a live page.
+
+**In place.** Pools, ``tok`` and ``pos`` are updated in place (the JAX
+engine is functional). ``warmup`` therefore builds the kernels and
+launches them only on scratch tensors, never on live pages.
+
+Knobs of the JAX engine that this slice lacks — the contiguous layout
+(``page_size=None``), ``chunk_threshold``, ``stage_slots``,
+``admission="optimistic"``, ``prefix_cache``, ``swap``, ``speculate`` and
+``stream`` — raise ``NotImplementedError`` rather than being ignored.
+"""
+from __future__ import annotations
+
+import dataclasses
+import time
+from collections import deque
+from typing import Any, Dict, List, Optional, Sequence
+
+import numpy as np
+import torch
+
+from repro_torch.kernels import build
+from repro_torch.models import kvcache as KV
+from repro_torch.models.model import Model
+from repro_torch.models.transformer import DTYPES
+
+
+@dataclasses.dataclass
+class Request:
+    rid: int
+    prompt: np.ndarray                  # (prompt_len,) int32
+    max_new_tokens: int = 8
+    arrival: float = 0.0
+    tokens: Optional[np.ndarray] = None
+    latency: float = 0.0
+    # wall time the request entered a slot; admitted - arrival is queue delay
+    admitted: float = -1.0
+
+
+def bucket_len(n: int, minimum: int = 8, maximum: Optional[int] = None) -> int:
+    """Round ``n`` up to a power of two >= ``minimum`` (clamped to maximum)."""
+    b = max(minimum, 1 << max(int(n) - 1, 0).bit_length())
+    if maximum is not None:
+        if n > maximum:
+            raise ValueError(f"length {n} exceeds engine max_len {maximum}")
+        b = min(b, maximum)
+    return b
+
+
+class PageAllocator:
+    """Host-side accounting for the shared KV page pool.
+
+    Admission reserves a slot's worst case so that ``cover()`` — which hands
+    out physical pages lazily as the slot's position grows — always succeeds
+    within the reservation. No page is held by two slots, and a full drain
+    returns every page to the free list.
+    """
+
+    def __init__(self, n_pages: int, page_size: int):
+        if n_pages < 1 or page_size < 1:
+            raise ValueError(f"bad pool: {n_pages} pages x {page_size}")
+        self.n_pages = n_pages
+        self.page_size = page_size
+        self._free: List[int] = list(range(n_pages))[::-1]
+        self._pages: Dict[Any, List[int]] = {}
+        self._reserved: Dict[Any, int] = {}
+
+    def pages_needed(self, n_positions: int) -> int:
+        return max(0, -(-int(n_positions) // self.page_size))
+
+    @property
+    def committed(self) -> int:
+        """Pages promised to live slots (held now or claimable later)."""
+        return sum(self._reserved.values())
+
+    @property
+    def n_free(self) -> int:
+        return len(self._free)
+
+    def pages_of(self, slot: Any) -> List[int]:
+        return list(self._pages.get(slot, ()))
+
+    def can_reserve(self, n_positions: int) -> bool:
+        return self.committed + self.pages_needed(n_positions) <= self.n_pages
+
+    def reserve(self, slot: Any, n_positions: int) -> None:
+        """Admit ``slot``: commit its worst-case page count (no pages yet)."""
+        if slot in self._reserved:
+            raise ValueError(f"slot {slot} already live")
+        need = self.pages_needed(n_positions)
+        if self.committed + need > self.n_pages:
+            raise ValueError(f"over-committed: {self.committed}+{need} "
+                             f"> {self.n_pages}")
+        self._reserved[slot] = need
+        self._pages[slot] = []
+
+    def cover(self, slot: Any, n_positions: int) -> List[int]:
+        """Grow ``slot`` to cover positions [0, n); returns the new pages."""
+        held = self._pages[slot]
+        target = min(self.pages_needed(n_positions), self._reserved[slot])
+        grown = []
+        while len(held) < target:
+            page = self._free.pop()
+            grown.append(page)
+            held.append(page)
+        return grown
+
+    def release(self, slot: Any) -> List[int]:
+        """Return all of ``slot``'s pages to the free list."""
+        pages = self._pages.pop(slot)
+        del self._reserved[slot]
+        self._free.extend(pages)
+        return pages
+
+
+class ServingEngine:
+    """Continuous-batching engine over one model + params (greedy decode)."""
+
+    def __init__(self, model: Model, params: Any, max_batch: int = 8,
+                 max_len: int = 128, decode_block: int = 16,
+                 min_bucket: int = 8, page_size: Optional[int] = 16,
+                 n_pages: Optional[int] = None,
+                 chunk_threshold: Optional[int] = None,
+                 stage_slots: int = 0, admission: str = "worstcase",
+                 prefix_cache: bool = False, swap: Optional[str] = None,
+                 speculate: Optional[Any] = None, stream: bool = False):
+        unported = {
+            "page_size=None (the contiguous KV layout)": page_size is None,
+            "chunk_threshold (chunked prefill)": chunk_threshold is not None,
+            "stage_slots > 0 (in-segment admission)": bool(stage_slots),
+            "admission='optimistic' (preemption)": admission == "optimistic",
+            "prefix_cache": bool(prefix_cache),
+            "swap": swap is not None,
+            "speculate": speculate is not None,
+            "stream": bool(stream),
+        }
+        missing = [k for k, on in unported.items() if on]
+        if missing:
+            raise NotImplementedError(
+                "not ported yet: " + ", ".join(missing))
+        if admission != "worstcase":
+            raise ValueError(f"unknown admission mode {admission!r}")
+        if max_len % page_size != 0:
+            raise ValueError(f"max_len {max_len} not a multiple of "
+                             f"page_size {page_size}")
+        cfg = model.cfg
+        self.model = model
+        self.params = params
+        self.device = model.device
+        self.max_batch = max_batch
+        self.max_len = max_len
+        self.decode_block = decode_block
+        self.min_bucket = min_bucket
+        self.page_size = page_size
+        self.pages_per_slot = max_len // page_size
+        self.n_pages = (max_batch * self.pages_per_slot if n_pages is None
+                        else n_pages)
+        self._alloc = PageAllocator(self.n_pages, page_size)
+        # the fused kernel writes inactive slots' rows into a trash page at
+        # the sentinel index; the plain path drops those writes instead
+        self._pool_pages = self.n_pages + (
+            1 if cfg.attention_impl == "cuda" else 0)
+        shape = (cfg.n_layers, self._pool_pages, page_size, cfg.n_kv_heads,
+                 cfg.head_dim)
+        dtype = DTYPES[cfg.dtype]
+        self._cache = {n: torch.zeros(shape, dtype=dtype, device=self.device)
+                       for n in ("k", "v")}
+        self._bt = KV.sentinel_block_table(max_batch, self.pages_per_slot,
+                                           self.n_pages)
+        self._bt_dev: Optional[torch.Tensor] = None
+        self._tok = torch.zeros((max_batch, 1), dtype=torch.int32,
+                                device=self.device)
+        self._pos = torch.zeros((max_batch,), dtype=torch.int32,
+                                device=self.device)
+        # tokens each slot still owes: host-side, which is what lets a
+        # segment's length and activity masks be known before it runs
+        self._rem = np.zeros((max_batch,), np.int64)
+        self.stats: Dict[str, int] = {
+            "prefill_dispatches": 0, "decode_dispatches": 0,
+            "decode_steps": 0, "tokens_generated": 0, "admitted": 0,
+            "peak_concurrency": 0, "busy_slot_steps": 0,
+            "bubble_slot_steps": 0,
+        }
+        # host wall seconds spent in prefill dispatches and decode
+        # segments, each ending in its host sync
+        self.timing: Dict[str, float] = {"prefill_s": 0.0, "decode_s": 0.0}
+        self._pending: deque = deque()
+        self._slot_req: List[Optional[Request]] = [None] * max_batch
+        self._gen: Dict[int, List[int]] = {}
+        self._free: List[int] = list(range(max_batch))[::-1]
+        self._slot_pos = np.zeros((max_batch,), np.int64)
+        self._completed: List[Request] = []
+
+    def _n_positions(self, r: Request) -> int:
+        """KV positions a request writes: the prompt plus one per generated
+        token except the last (never fed back)."""
+        return len(r.prompt) + max(r.max_new_tokens, 1) - 1
+
+    def _bt_device(self) -> torch.Tensor:
+        """The block table on the device, uploaded only after a change."""
+        if self._bt_dev is None:
+            self._bt_dev = torch.from_numpy(self._bt).to(self.device)
+        return self._bt_dev
+
+    # ------------------------------------------------------------------
+    def warmup(self, prompt_lens: Sequence[int] = ()) -> None:
+        """Build the kernels (on CUDA) and run one prefill on scratch.
+
+        The JAX engine compiles its programs here; the port builds its
+        kernel libraries and warms the device allocator and libraries with
+        a prefill whose outputs are discarded. Nothing touches the live
+        pools or slot state.
+        """
+        cfg = self.model.cfg
+        if cfg.attention_impl == "cuda" or cfg.quantize == "int8_cuda":
+            build.build_all()
+        b = bucket_len(max([1, *prompt_lens]), self.min_bucket, self.max_len)
+        with torch.no_grad():
+            tokens = torch.zeros((1, b), dtype=torch.int32, device=self.device)
+            self.model.prefill(self.params, {"tokens": tokens})
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+
+    def _page_rows_for(self, bucket: int) -> int:
+        """Block-table rows a bucket-wide prefill slice spans."""
+        return -(-bucket // self.page_size)
+
+    def _grow_slot(self, slot: int, n_positions: int) -> None:
+        """Extend ``slot``'s block table to cover positions [0, n)."""
+        held = len(self._alloc.pages_of(slot))
+        new = self._alloc.cover(slot, n_positions)
+        if new:
+            self._bt[slot, held:held + len(new)] = new
+            self._bt_dev = None
+
+    def _insert_pages(self, pcache, page_rows: np.ndarray) -> None:
+        """Scatter bucket-wide prefill k/v into the pool, page by page.
+
+        Rows whose page is the sentinel land in the trash page when the pool
+        has one and are dropped otherwise (JAX's ``mode="drop"``): they are
+        the padding rows of the admit batch and bucket padding past a slot's
+        pages, and never reach a live page.
+        """
+        ps = self.page_size
+        ids = page_rows.reshape(-1)
+        keep = np.nonzero(ids < self._pool_pages)[0]
+        if keep.size == 0:
+            return
+        dst = torch.from_numpy(ids[keep].astype(np.int64)).to(self.device)
+        src = torch.from_numpy(keep.astype(np.int64)).to(self.device)
+        n_rows = page_rows.shape[1]
+        for name in ("k", "v"):
+            new = pcache[name]                          # (L, nb, S, K, D)
+            L, nb, S = new.shape[:3]
+            new = torch.nn.functional.pad(new, (0, 0, 0, 0, 0, n_rows * ps - S))
+            new = new.reshape((L, nb * n_rows, ps) + tuple(new.shape[3:]))
+            pool = self._cache[name]
+            pool[:, dst] = new[:, src].to(pool.dtype)
+
+    def _admit_group(self, bucket: int, rs: List[Request],
+                     slots: List[int]) -> np.ndarray:
+        """One prefill dispatch admitting same-bucket requests into slots."""
+        m = len(rs)
+        nb = 1 if m == 1 else self.max_batch
+        tokens = np.zeros((nb, bucket), np.int32)
+        lengths = np.ones((nb,), np.int32)
+        for j, r in enumerate(rs):
+            tokens[j, :len(r.prompt)] = r.prompt        # right-pad
+            lengths[j] = len(r.prompt)
+        n_rows = self._page_rows_for(bucket)
+        page_rows = np.full((nb, n_rows), self.n_pages, np.int32)
+        for j, (r, s) in enumerate(zip(rs, slots)):
+            self._grow_slot(s, len(r.prompt))
+            page_rows[j] = self._bt[s, :n_rows]
+        t0 = time.perf_counter()
+        dev = self.device
+        len_t = torch.from_numpy(lengths).to(dev)
+        with torch.no_grad():
+            logits, pcache = self.model.prefill(
+                self.params, {"tokens": torch.from_numpy(tokens).to(dev),
+                              "length": len_t})
+            firsts = torch.argmax(logits[:, -1], dim=-1).to(torch.int32)
+            self._insert_pages(pcache, page_rows)
+        slot_t = torch.as_tensor(slots, dtype=torch.long, device=dev)
+        self._tok[slot_t] = firsts[:m, None]
+        self._pos[slot_t] = len_t[:m]
+        firsts_np = firsts[:m].cpu().numpy()            # the one host sync
+        self.timing["prefill_s"] += time.perf_counter() - t0
+        for r, s in zip(rs, slots):
+            self._rem[s] = max(r.max_new_tokens, 1) - 1
+        self.stats["prefill_dispatches"] += 1
+        self.stats["admitted"] += m
+        return firsts_np
+
+    # ------------------------------------------------------------------
+    # open-loop core: submit / step / drain_completions
+    @property
+    def busy(self) -> bool:
+        """True while any request is pending admission or mid-decode."""
+        return bool(self._pending) or \
+            any(r is not None for r in self._slot_req)
+
+    def _validate(self, r: Request) -> None:
+        if len(r.prompt) + r.max_new_tokens > self.max_len:
+            raise ValueError(
+                f"request {r.rid}: prompt_len {len(r.prompt)} + max_new "
+                f"{r.max_new_tokens} exceeds engine max_len {self.max_len}")
+        need = self._alloc.pages_needed(self._n_positions(r))
+        if need > self.n_pages:
+            raise ValueError(
+                f"request {r.rid}: needs {need} pages but the pool holds "
+                f"{self.n_pages}; it could never be admitted")
+
+    def submit(self, r: Request) -> None:
+        """Enqueue a request (it joins at the next ``step()``). The latency
+        clock starts at ``r.arrival`` (stamped now if unset)."""
+        self._validate(r)
+        if r.arrival == 0.0:
+            r.arrival = time.perf_counter()
+        self._pending.append(r)
+
+    def _admit_pending(self) -> None:
+        """Fill free slots FIFO while the pool holds each head's worst case,
+        then prefill them grouped by prompt bucket."""
+        now = time.perf_counter()
+        prefills = []
+        while self._pending and self._free:
+            r = self._pending[0]
+            npos = self._n_positions(r)
+            if not self._alloc.can_reserve(npos):
+                break                       # FIFO: nothing jumps the line
+            self._pending.popleft()
+            slot = self._free.pop()
+            self._alloc.reserve(slot, npos)
+            r.admitted = now
+            prefills.append((r, slot))
+        groups: Dict[int, list] = {}
+        for r, s in prefills:
+            b = bucket_len(len(r.prompt), self.min_bucket, self.max_len)
+            groups.setdefault(b, []).append((r, s))
+        for b, pairs in sorted(groups.items()):
+            rs = [r for r, _ in pairs]
+            slots = [s for _, s in pairs]
+            firsts = self._admit_group(b, rs, slots)
+            for r, s, f in zip(rs, slots, firsts):
+                self._gen[s] = [int(f)]
+                self._slot_req[s] = r
+                self._slot_pos[s] = len(r.prompt)
+
+    def _retire_slot(self, slot: int, r: Request, now: float) -> None:
+        r.tokens = np.asarray(self._gen.pop(slot)[: r.max_new_tokens],
+                              np.int32)
+        r.latency = now - r.arrival
+        self.stats["tokens_generated"] += len(r.tokens)
+        self._slot_req[slot] = None
+        self._rem[slot] = 0
+        self._alloc.release(slot)
+        self._bt[slot, :] = self.n_pages
+        self._bt_dev = None
+        self._completed.append(r)
+
+    def _decode_segment(self, n_steps: int) -> np.ndarray:
+        """Run ``n_steps`` single-token decode steps over every slot and
+        return the emitted tokens (B, n_steps), -1 where a slot was idle.
+
+        Activity masks are host-known, so they upload once; the emitted
+        tokens come back once, at the end — the segment's one host sync.
+        """
+        dev = self.device
+        steps = np.arange(n_steps)[:, None]
+        active = torch.from_numpy(self._rem[None, :] > steps).to(dev)
+        out = torch.full((self.max_batch, n_steps), -1, dtype=torch.int32,
+                         device=dev)
+        cache = {"k": self._cache["k"], "v": self._cache["v"],
+                 "bt": self._bt_device()}
+        tok, pos = self._tok, self._pos
+        with torch.no_grad():
+            for i in range(n_steps):
+                logits, _ = self.model.decode(self.params, cache, tok, pos)
+                nxt = torch.argmax(logits[:, -1], dim=-1).to(torch.int32)
+                act = active[i]
+                out[:, i] = torch.where(act, nxt, torch.full_like(nxt, -1))
+                tok = torch.where(act[:, None], nxt[:, None], tok)
+                pos = torch.where(act, pos + 1, pos)
+        self._tok, self._pos = tok, pos
+        return out.cpu().numpy()
+
+    def step(self) -> int:
+        """One engine step: admit pending requests into free slots, run one
+        decode segment, harvest finished slots. Returns the number of decode
+        steps executed (0 when idle)."""
+        self._admit_pending()
+        live = [s for s, r in enumerate(self._slot_req) if r is not None]
+        if not live:
+            return 0
+        self.stats["peak_concurrency"] = max(
+            self.stats["peak_concurrency"], len(live))
+        # append pages ahead of the segment: a slot's pos advances by at
+        # most decode_block before the next host boundary (the worst-case
+        # reservation pre-funds every cover)
+        for s in live:
+            self._grow_slot(s, min(int(self._slot_pos[s]) + self.decode_block,
+                                   self._n_positions(self._slot_req[s])))
+        n_steps = int(min(self.decode_block, int(self._rem.max())))
+        self.stats["decode_dispatches"] += 1
+        out = np.zeros((self.max_batch, 0), np.int32)
+        if n_steps:
+            t0 = time.perf_counter()
+            out = self._decode_segment(n_steps)
+            self.timing["decode_s"] += time.perf_counter() - t0
+        busy = 0
+        finished = []
+        for s in live:
+            n = int(min(self._rem[s], n_steps))
+            if n == 0:
+                continue
+            self._gen[s].extend(int(x) for x in out[s, :n])
+            self._rem[s] -= n
+            self._slot_pos[s] += n
+            busy += n
+            if self._rem[s] == 0:
+                finished.append((n - 1, s))     # (finishing step, slot)
+        self.stats["decode_steps"] += n_steps
+        self.stats["busy_slot_steps"] += busy
+        self.stats["bubble_slot_steps"] += n_steps * self.max_batch - busy
+        now = time.perf_counter()
+        for _step, s in sorted(finished):
+            self._retire_slot(s, self._slot_req[s], now)
+            self._free.append(s)
+        # a prefilled request with max_new == 1 is complete at admission
+        for s, r in enumerate(self._slot_req):
+            if r is not None and self._rem[s] == 0:
+                self._retire_slot(s, r, now)
+                self._free.append(s)
+        return n_steps
+
+    def drain_completions(self) -> List[Request]:
+        """Return (and clear) the requests completed since the last drain."""
+        out, self._completed = self._completed, []
+        return out
+
+    @property
+    def occupancy(self) -> Dict[str, float]:
+        """Slot-busy fraction over all decode segments so far."""
+        busy = self.stats["busy_slot_steps"]
+        bubble = self.stats["bubble_slot_steps"]
+        total = busy + bubble
+        return {"slot_busy_frac": busy / total if total else 0.0,
+                "bubble_slot_steps": float(bubble),
+                "segments": float(self.stats["decode_dispatches"])}
+
+    def serve(self, reqs: Sequence[Request]) -> List[Request]:
+        """Serve requests to completion: submit all, step until done.
+
+        Completions of requests submitted by other callers stay queued for
+        their ``drain_completions()``."""
+        for r in reqs:
+            self._validate(r)
+        for r in reqs:
+            self.submit(r)
+        while self.busy and any(r.tokens is None for r in reqs):
+            self.step()
+        mine = {id(r) for r in reqs}
+        self._completed = [r for r in self._completed if id(r) not in mine]
+        return list(reqs)

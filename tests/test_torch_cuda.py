@@ -1,0 +1,156 @@
+"""The port's CUDA kernels and kernel-path engine on the card.
+
+These tests import no JAX, so they run on a machine that has only the
+port's dependencies:
+
+    PYTHONPATH=src python -m pytest -q tests/test_torch_cuda.py
+
+Each test that needs a GPU carries the ``cuda`` marker and skips, with its
+reason, where ``torch.cuda.is_available()`` is false; the decision is made
+inside the test. TF32 is off for every f32 product compared.
+"""
+import dataclasses
+
+import numpy as np
+import pytest
+import torch
+
+from repro_torch.configs.registry import ARCHS
+from repro_torch.kernels import ref
+from repro_torch.kernels.decode_attention import fused_paged_decode_attention
+from repro_torch.kernels.flash_attention import (flash_attention,
+                                                 flash_attention_plain)
+from repro_torch.kernels.int8_matmul import int8_matmul, int8_splits
+from repro_torch.models import build_model
+from repro_torch.models.quantize import quantize_params_dense
+from repro_torch.serving.engine import Request, ServingEngine
+
+KW = dict(max_batch=3, max_len=64, decode_block=4, min_bucket=4,
+          page_size=8, n_pages=12)
+
+
+def _need_cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels have no CPU mode")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    return torch.device("cuda")
+
+
+def test_kernel_pool_layout_has_a_trash_page():
+    """With the CUDA attention impl the pool carries one extra page at the
+    sentinel index; the plain impl keeps the exact-size pool."""
+    cfg = ARCHS["llama3.2-1b"].reduced()
+    eng = ServingEngine(build_model(cfg, device="cpu"), None, **KW)
+    assert eng._cache["k"].shape[1] == KW["n_pages"] == eng._pool_pages
+    if not torch.cuda.is_available():
+        return
+    kcfg = cfg.for_device("cuda")
+    eng = ServingEngine(build_model(kcfg, device="cuda"), None, **KW)
+    assert eng._cache["k"].shape[1] == KW["n_pages"] + 1
+
+
+@pytest.mark.cuda
+def test_cuda_flash_attention_matches_plain():
+    dev = _need_cuda()
+    gen = torch.Generator(device=dev).manual_seed(0)
+    q = torch.randn((2, 37, 2, 4, 64), generator=gen, device=dev)
+    k = torch.randn((2, 37, 2, 64), generator=gen, device=dev)
+    v = torch.randn((2, 37, 2, 64), generator=gen, device=dev)
+    for kw in (dict(causal=True), dict(causal=True, valid_len=30),
+               dict(causal=False, valid_len=5)):
+        np.testing.assert_allclose(
+            flash_attention(q, k, v, **kw).cpu().numpy(),
+            flash_attention_plain(q, k, v, **kw).cpu().numpy(),
+            rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.cuda
+def test_cuda_fused_paged_decode_matches_plain():
+    """A trash-page pool with a first-token slot, a page-boundary slot and
+    an all-sentinel slot: live outputs agree, and every pool row but the
+    trash page is bit-equal to the plain scatter's."""
+    dev = _need_cuda()
+    rng = np.random.default_rng(1)
+    B, K, G, n_logical, ps, P, D = 3, 2, 4, 12, 8, 4, 64
+    sent = n_logical
+    q = torch.from_numpy(rng.standard_normal((B, K, G, D)).astype(np.float32))
+    kp = torch.from_numpy(rng.standard_normal(
+        (n_logical + 1, ps, K, D)).astype(np.float32))
+    vp = torch.from_numpy(rng.standard_normal(kp.shape).astype(np.float32))
+    kn = torch.from_numpy(rng.standard_normal((B, K, D)).astype(np.float32))
+    vn = torch.from_numpy(rng.standard_normal((B, K, D)).astype(np.float32))
+    pos = torch.tensor([0, ps, 5], dtype=torch.int32)
+    bt = torch.full((B, P), sent, dtype=torch.int32)
+    bt[0, 0] = 4
+    bt[1, :2] = torch.tensor([7, 2])
+    q, kp, vp, kn, vn, pos, bt = (t.to(dev) for t in (q, kp, vp, kn, vn, pos,
+                                                      bt))
+    kp_ref, vp_ref = kp.clone(), vp.clone()
+    out, kp2, vp2 = fused_paged_decode_attention(q, kn, vn, kp, vp, bt, pos)
+    o_ref, kp_ref, vp_ref = ref.fused_paged_decode_attention_ref(
+        q, kn, vn, kp_ref, vp_ref, bt, pos)
+    np.testing.assert_allclose(out[:2].cpu().numpy(), o_ref[:2].cpu().numpy(),
+                               rtol=1e-4, atol=1e-4)
+    assert torch.equal(kp2[:sent], kp_ref[:sent])
+    assert torch.equal(vp2[:sent], vp_ref[:sent])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(5, 300, 70), (3, 1024, 70),
+                                   (40, 256, 96)])
+def test_cuda_int8_matmul_matches_plain(shape):
+    """Unsplit, split-K (small M) and the large-M tiling, ragged edges."""
+    dev = _need_cuda()
+    M, Kd, N = shape
+    gen = torch.Generator(device=dev).manual_seed(M)
+    x = torch.randn((M, Kd), generator=gen, device=dev)
+    w_q, s = ref.quantize_int8(torch.randn((Kd, N), generator=gen,
+                                           device=dev))
+    for xx in (x, x.bfloat16()):
+        np.testing.assert_allclose(
+            int8_matmul(xx, w_q, s).cpu().numpy(),
+            ref.int8_matmul_ref(xx.float(), w_q, s).cpu().numpy(),
+            rtol=1e-4, atol=1e-3)
+
+
+@pytest.mark.cuda
+def test_int8_split_k_fills_the_card_only_at_small_m():
+    """The split policy lives in the CUDA source beside the tile it sizes
+    (16 x 32 at M <= 16): about two blocks per SM, each split at least 256
+    deep, and no split at prefill."""
+    _need_cuda()
+    dev = torch.device("cuda", torch.cuda.current_device())
+    n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
+    assert int8_splits(2048, 2048, 2048, dev) == 1          # prefill
+    assert int8_splits(5, 70, 300, dev) == 1                # Kd < 512
+    assert int8_splits(8, 512, 2048, dev) == min(2 * n_sm // 16, 8)
+    assert int8_splits(8, 2048, 8192, dev) == \
+        max(1, min(2 * n_sm // 64, 32))
+    if n_sm == 132:                                         # H100 SXM
+        assert int8_splits(8, 8192, 2048, dev) == 1         # 256 tiles
+        assert int8_splits(8, 2048, 8192, dev) == 4
+
+
+@pytest.mark.cuda
+def test_cuda_engine_matches_plain_engine_on_card():
+    """Kernel impls vs plain impls on the card, f32 reduced int8 config:
+    same dispatch counts and the same greedy tokens on a mixed stream."""
+    dev = _need_cuda()
+    rng = np.random.default_rng(3)
+    stream = [(rng.integers(0, 256, size=n).astype(np.int32), m)
+              for n, m in ((5, 6), (6, 1), (7, 9), (29, 4), (12, 12))]
+    outs = []
+    for kernels in (False, True):
+        cfg = dataclasses.replace(ARCHS["llama3.2-1b"].reduced(),
+                                  quantize="int8")
+        if kernels:
+            cfg = cfg.for_device(dev)
+        m = build_model(cfg, device=dev)
+        eng = ServingEngine(m, quantize_params_dense(m.init(0)), **KW)
+        reqs = [Request(rid=i, prompt=p, max_new_tokens=n)
+                for i, (p, n) in enumerate(stream)]
+        eng.serve(reqs)
+        outs.append(([r.tokens for r in reqs], dict(eng.stats)))
+    for a, b in zip(outs[0][0], outs[1][0]):
+        np.testing.assert_array_equal(a, b)
+    assert outs[0][1] == outs[1][1]

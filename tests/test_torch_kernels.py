@@ -1,0 +1,188 @@
+"""The port's kernel modules against the JAX kernels and their oracles.
+
+On the CPU each wrapper computes its plain PyTorch version; these tests
+hold that version to the Pallas kernel run in interpret mode and to
+``repro.kernels.ref`` on the same numpy inputs, in f32 at atol/rtol 2e-5.
+The CUDA kernels themselves run only on the card: ``test_torch_cuda.py``
+compares each one with its plain version there.
+"""
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.kernels import ref as jref
+from repro.kernels.decode_attention import \
+    fused_paged_decode_attention as j_fused
+from repro.kernels.flash_attention import flash_attention as j_flash
+from repro.kernels.int8_matmul import int8_matmul as j_int8
+from repro.kernels.ops import flash_attention_grouped as j_grouped
+from repro_torch.kernels import build, ops
+from repro_torch.kernels import ref as tref
+from repro_torch.kernels.decode_attention import fused_paged_decode_attention
+from repro_torch.kernels.flash_attention import flash_attention
+from repro_torch.kernels.int8_matmul import int8_matmul
+
+TOL = dict(rtol=2e-5, atol=2e-5)
+
+
+def _randn(rng, *shape):
+    return rng.standard_normal(shape).astype(np.float32)
+
+
+def _t(a):
+    return torch.from_numpy(np.array(a))
+
+
+FLASH_CASES = [
+    # (B, H, K, S, T, causal, q_offset, valid_len)
+    (1, 4, 4, 128, 128, True, 0, None),
+    (2, 8, 2, 128, 128, True, 0, 100),
+    (1, 4, 1, 128, 256, False, 0, None),
+    (1, 2, 2, 128, 256, True, 128, 200),
+]
+
+
+@pytest.mark.parametrize("case", FLASH_CASES)
+def test_flash_plain_matches_pallas_and_ref(case):
+    B, H, K, S, T, causal, q_off, vlen = case
+    D = 16
+    rng = np.random.default_rng(abs(hash(case)) % 2**31)
+    q, k, v = _randn(rng, B, H, S, D), _randn(rng, B, K, T, D), \
+        _randn(rng, B, K, T, D)
+    got = tref.flash_attention_ref(_t(q), _t(k), _t(v), causal=causal,
+                                   q_offset=q_off, kv_valid_len=vlen).numpy()
+    want_ref = jref.flash_attention_ref(jnp.asarray(q), jnp.asarray(k),
+                                        jnp.asarray(v), causal=causal,
+                                        q_offset=q_off, kv_valid_len=vlen)
+    want_kernel = j_flash(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+                          None if vlen is None else jnp.int32(vlen),
+                          causal=causal, q_offset=q_off, interpret=True)
+    np.testing.assert_allclose(got, np.asarray(want_ref), **TOL)
+    np.testing.assert_allclose(got, np.asarray(want_kernel), **TOL)
+
+
+@pytest.mark.parametrize("S", [1, 37, 128])
+def test_flash_wrapper_model_layout_matches_jax_adapter(S):
+    """The wrapper (plain on CPU) in the model layout == the JAX adapter,
+    including a ragged S that the Pallas kernel itself cannot take."""
+    B, K, G, D = 2, 2, 2, 16
+    T = S
+    rng = np.random.default_rng(S)
+    q, k, v = _randn(rng, B, S, K, G, D), _randn(rng, B, T, K, D), \
+        _randn(rng, B, T, K, D)
+    got = flash_attention(_t(q), _t(k), _t(v), causal=True).numpy()
+    qh = jnp.asarray(q).transpose(0, 2, 3, 1, 4).reshape(B, K * G, S, D)
+    want = jref.flash_attention_ref(qh, jnp.asarray(k).transpose(0, 2, 1, 3),
+                                    jnp.asarray(v).transpose(0, 2, 1, 3),
+                                    causal=True)
+    want = np.asarray(want).reshape(B, K, G, S, D).transpose(0, 3, 1, 2, 4)
+    np.testing.assert_allclose(got, want, **TOL)
+    if S % 8 == 0:
+        want_k = j_grouped(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+                           causal=True, interpret=True)
+        np.testing.assert_allclose(got, np.asarray(want_k), **TOL)
+
+
+FUSED_CASES = [
+    # (B, K, G, n_logical, page_size, pages_per_slot, D)
+    (3, 2, 4, 12, 8, 4, 16),
+    (4, 2, 2, 16, 16, 2, 16),
+    (2, 1, 8, 16, 8, 8, 32),
+]
+
+
+def _fused_inputs(case, seed):
+    B, K, G, n_logical, ps, P, D = case
+    rng = np.random.default_rng(seed)
+    n_phys = n_logical + 1             # + trash page == sentinel index
+    sent = n_logical
+    q = _randn(rng, B, K, G, D)
+    k_pool, v_pool = _randn(rng, n_phys, ps, K, D), _randn(rng, n_phys, ps, K, D)
+    k_new, v_new = _randn(rng, B, K, D), _randn(rng, B, K, D)
+    perm = rng.permutation(n_logical)[: B * P].reshape(B, P)
+    pos = rng.integers(0, P * ps, size=B).astype(np.int32)
+    pos[0] = 0                         # first-token slot
+    if B > 2:
+        pos[1] = ps                    # on a page boundary
+    n_alloc = pos // ps + 1
+    bt = np.where(np.arange(P)[None, :] < n_alloc[:, None], perm, sent)
+    bt[B - 1] = sent                   # inactive slot: all-sentinel row
+    return q, k_new, v_new, k_pool, v_pool, bt.astype(np.int32), pos, sent
+
+
+@pytest.mark.parametrize("case", FUSED_CASES)
+def test_fused_paged_plain_matches_pallas(case):
+    """Plain fused decode (scatter, then masked attend) == the Pallas kernel
+    in interpret mode: output of every live slot and both updated pools,
+    trash page included."""
+    q, kn, vn, kp, vp, bt, pos, sent = _fused_inputs(case, sum(case))
+    kp_t, vp_t = _t(kp), _t(vp)
+    out, kp2, vp2 = fused_paged_decode_attention(
+        _t(q), _t(kn), _t(vn), kp_t, vp_t, _t(bt), _t(pos))
+    assert kp2 is kp_t and vp2 is vp_t          # updated in place
+    jo, jkp, jvp = j_fused(jnp.asarray(q), jnp.asarray(kn), jnp.asarray(vn),
+                           jnp.asarray(kp), jnp.asarray(vp), jnp.asarray(bt),
+                           jnp.asarray(pos), interpret=True)
+    B = q.shape[0]
+    np.testing.assert_array_equal(kp2.numpy(), np.asarray(jkp))
+    np.testing.assert_array_equal(vp2.numpy(), np.asarray(jvp))
+    np.testing.assert_allclose(out.numpy()[:B - 1], np.asarray(jo)[:B - 1],
+                               **TOL)
+
+
+@pytest.mark.parametrize("case", FUSED_CASES[:2])
+def test_fused_paged_plain_matches_jax_ref_composition(case):
+    """Plain fused decode == repro's XLA composition: paged scatter, then
+    the gathered masked attend (``layers.paged_update_attend``)."""
+    from repro.models.layers import paged_update_attend as j_update_attend
+    q, kn, vn, kp, vp, bt, pos, sent = _fused_inputs(case, 7 + sum(case))
+    out, kp2, vp2 = fused_paged_decode_attention(
+        _t(q), _t(kn), _t(vn), _t(kp), _t(vp), _t(bt), _t(pos))
+    jo, jkp, jvp = j_update_attend(
+        jnp.asarray(q)[:, None], jnp.asarray(kn)[:, None],
+        jnp.asarray(vn)[:, None], jnp.asarray(kp), jnp.asarray(vp),
+        jnp.asarray(bt), jnp.asarray(pos), impl="xla")
+    np.testing.assert_array_equal(kp2.numpy(), np.asarray(jkp))
+    np.testing.assert_allclose(out.numpy(), np.asarray(jo)[:, 0], **TOL)
+
+
+MM_CASES = [(1, 256, 128), (8, 512, 384), (128, 256, 128)]
+
+
+@pytest.mark.parametrize("case", MM_CASES)
+def test_int8_plain_matches_pallas_and_ref(case):
+    M, Kd, N = case
+    rng = np.random.default_rng(M + Kd + N)
+    x = _randn(rng, M, Kd)
+    w = _randn(rng, Kd, N)
+    w_q, s = tref.quantize_int8(_t(w))
+    jw_q, js = jref.quantize_int8(jnp.asarray(w))
+    np.testing.assert_array_equal(w_q.numpy(), np.asarray(jw_q))
+    np.testing.assert_array_equal(s.numpy(), np.asarray(js))
+    got = int8_matmul(_t(x), w_q, s)
+    assert got.dtype == torch.float32
+    want_ref = jref.int8_matmul_ref(jnp.asarray(x), jw_q, js)
+    mp = -(-M // 8) * 8                # the Pallas kernel wants M % block == 0
+    xp = np.zeros((mp, Kd), np.float32)
+    xp[:M] = x
+    want_kernel = j_int8(jnp.asarray(xp), jw_q, js, block_m=min(128, mp),
+                         interpret=True)[:M]
+    np.testing.assert_allclose(got.numpy(), np.asarray(want_ref),
+                               rtol=1e-4, atol=1e-4)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want_kernel),
+                               rtol=1e-4, atol=1e-4)
+
+
+def test_wrappers_on_cpu_launch_nothing():
+    """On a CPU tensor a wrapper computes its plain version and counts no
+    launch; a kernel impl asked for a CPU tensor raises instead."""
+    build.reset_launch_counts()
+    q = torch.zeros((1, 8, 1, 2, 16))
+    k = torch.zeros((1, 8, 1, 16))
+    flash_attention(q, k, k)
+    int8_matmul(torch.zeros((2, 4)), torch.zeros((4, 4), dtype=torch.int8),
+                torch.ones(4))
+    assert all(n == 0 for n in build.launch_counts.values())
+    with pytest.raises(ValueError, match="CUDA kernel impl"):
+        ops.flash_attention_grouped(q, k, k, impl="cuda")
