@@ -9,28 +9,41 @@ fails:
 1. **Build** every CUDA kernel from ``src/repro_torch/csrc`` (one ``nvcc``
    per source, all started together) and print each kernel's ``-Xptxas -v``
    registers, shared memory and spills.
-2. **Per-kernel**: each kernel against its plain PyTorch version on the
-   card, in bf16, at the main path's full-width shapes plus edge cases
-   (ragged S, valid_len < T, q_offset > 0; an all-sentinel slot, pos on a
-   page boundary, pos = 0; M in {1, 8, 8 x bucket} and N not a multiple of
-   the tile). Each attention kernel is held twice: to the plain version on
-   the bf16 inputs, and, tightly, to the plain version on the same inputs
-   widened to f32 (probabilities in f32, as the kernels and the Pallas
-   bodies keep them): within one bf16 ulp of each element plus 1e-5. The
-   fused decode kernel's written rows must be bit-equal to
-   the new rows and every other page row, trash page aside, bitwise
-   untouched. Each kernel is timed with CUDA events after warmup beside its
-   bound, its plain version and, where one PyTorch call computes the same
+2. **Per-kernel**: each of the five kernels against its plain PyTorch
+   version on the card, in bf16, at the main paths' full-width shapes plus
+   edge cases (flash: ragged S, valid_len < T, q_offset > 0, and at the
+   vision config's D = 128, G = 8 causal and non-causal over T = 1601;
+   fused decode: an all-sentinel slot, pos on a page boundary, pos = 0, at
+   D = 64 and at D = 128, G = 8; paged decode: valid_len 0, a length on a
+   page boundary, sentinel and out-of-pool entries, stale rows past a
+   length; contiguous decode: ragged T = 1601, valid_len < T and 0; the
+   int8 GEMM at M in {1, 8, 8 x bucket} and N not a multiple of the tile).
+   Each attention kernel is held twice: to the plain version on the bf16
+   inputs, and, tightly, to the plain version on the same inputs widened
+   to f32 (probabilities in f32, as the kernels and the Pallas bodies keep
+   them): within one bf16 ulp of each element plus 1e-5. The fused decode
+   kernel's written rows must be bit-equal to the new rows and every other
+   page row, trash page aside, bitwise untouched; the paged decode
+   kernel's output must not move when stale rows past a length change.
+   Each kernel is timed with CUDA events after warmup beside its bound,
+   its plain version and, where one PyTorch call computes the same
    function, that call (``library_ms``; the port never calls it).
-3. **Main path**: full-width llama3.2-1b (16 layers, d_model 2048, 32/8
-   heads, vocab 128256, random weights from a seed) serves a seeded
-   16-request stream through ``ServingEngine.serve`` as the bf16 variant
-   and then as the int8 variant, with every kernel launch counted. Each
-   variant serves the stream ``SERVE_REPEATS`` times on one warm engine;
-   tokens/s is the median, with its quartiles as the spread.
-4. **Teacher-forced check**: the same model in f32, one seeded token stream
-   forced through prefill and decode with the kernel impls and with the
-   plain impls; the logits must agree at every prefill and decode position.
+3. **Main paths**, each served through ``ServingEngine.serve`` with every
+   kernel launch counted (counts set to 0 just before a path, read just
+   after), random weights from a seed, the same seeded 16-request stream:
+   llama3.2-1b at full width as the bf16 and the int8 variant;
+   whisper-base at its published size; llama-3.2-vision-90b at full width
+   with its depth cut from 100 to 20 layers (two groups of 9 self layers
+   and 1 cross layer). The engine feeds the audio and vlm families
+   all-zero stub encoder inputs, as the JAX engine does. Each path serves
+   the stream several times on one warm engine; tokens/s is the median,
+   with its quartiles as the spread.
+4. **Teacher-forced check**: llama3.2-1b, whisper-base and the vision
+   model at 10 layers (one group) in f32, one seeded token stream (and,
+   for whisper and vision, seeded non-zero frames / image embeddings)
+   forced through prefill and paged decode with the kernel impls and with
+   the plain impls; the logits must agree at every prefill and decode
+   position.
 
 The last lines are the card's ``name, power.limit``, one JSON line with
 every kernel's numbers, and the result line
@@ -46,6 +59,8 @@ import sys
 import time
 from pathlib import Path
 
+import numpy as np
+
 ROOT = Path(__file__).resolve().parent
 SRC = ROOT / "src"
 
@@ -54,10 +69,14 @@ HBM_BYTES_PER_S = 3.35e12
 BF16_FLOPS = 989e12
 
 SEED = 0
-# Timed serves of the stream per variant. The serve is host-bound and the
+# Timed serves of the stream per path. The serve is host-bound and the
 # host's cores are shared, so one serve's tok/s varies by tens of percent
 # while its device time does not; the median of many serves is reported.
-SERVE_REPEATS = 15
+# The larger models serve fewer times to keep the run inside its limit.
+SERVE_REPEATS = {"llama3.2-1b": 15, "whisper-base": 9,
+                 "llama-3.2-vision-90b": 5}
+VISION_LAYERS = 20          # serve depth of llama-3.2-vision-90b (of 100)
+VISION_TF_LAYERS = 10       # its f32 teacher-forced depth: one group
 
 
 def card_line() -> str:
@@ -115,29 +134,59 @@ def bound(n_bytes: float, n_flops: float, peak_flops: float):
 # phase 2: per-kernel comparisons and timings
 
 
-def phase_flash(torch, dev, gen, K=8, G=4, D=64):
+def time_flash(torch, gen, dev, B, S, T, K, G, D, causal):
+    """Kernel, plain version and SDPA at one shape, beside the bound."""
+    from repro_torch.kernels.flash_attention import (flash_attention,
+                                                     flash_attention_plain)
+    H = K * G
+    q = torch.randn((B, S, K, G, D), generator=gen, device=dev).bfloat16()
+    k = torch.randn((B, T, K, D), generator=gen, device=dev).bfloat16()
+    v = torch.randn((B, T, K, D), generator=gen, device=dev).bfloat16()
+    ms = cuda_ms(lambda: flash_attention(q, k, v, causal=causal))
+    plain_ms = cuda_ms(lambda: flash_attention_plain(q, k, v, causal=causal))
+    qh = q.permute(0, 2, 3, 1, 4).reshape(B, H, S, D).contiguous()
+    kh, vh = k.transpose(1, 2).contiguous(), v.transpose(1, 2).contiguous()
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    lib_ms = cuda_ms(lambda: sdpa(qh, kh, vh, is_causal=causal,
+                                  enable_gqa=True))
+    pairs = S * (S + 1) // 2 if causal else S * T  # live (query, key) pairs
+    n_bytes = 2 * (2 * q.numel() + k.numel() + v.numel())
+    n_flops = 4 * B * H * D * pairs
+    b_ms, b_by = bound(n_bytes, n_flops, BF16_FLOPS)
+    shape = (f"B={B} S={S} T={T} H={H} K={K} D={D} "
+             f"{'causal' if causal else 'non-causal'}")
+    print(f"  flash_attention {shape} bf16: {ms:.4f} ms (plain "
+          f"{plain_ms:.4f}, SDPA {lib_ms:.4f}, bound {b_ms:.4f} by {b_by})")
+    return dict(shape=shape, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+                bound_by=b_by, library_ms=lib_ms)
+
+
+def phase_flash(torch, dev, gen):
     from repro_torch.kernels.flash_attention import (flash_attention,
                                                      flash_attention_plain)
     tol = 3e-2   # bf16: the plain version rounds probabilities to bf16
-    cases = [  # (label, B, S, T, q_offset, valid_len)
-        ("B=8 bucket 256", 8, 256, 256, 0, None),
-        ("B=1 bucket 512", 1, 512, 512, 0, None),
-        ("ragged S=300", 1, 300, 300, 0, None),
-        ("valid_len 100 < T 128", 2, 128, 128, 0, 100),
-        ("q_offset 448 > 0", 1, 64, 512, 448, None),
+    cases = [  # (label, B, S, T, K, G, D, causal, q_offset, valid_len)
+        ("B=8 bucket 256", 8, 256, 256, 8, 4, 64, True, 0, None),
+        ("B=1 bucket 512", 1, 512, 512, 8, 4, 64, True, 0, None),
+        ("ragged S=300", 1, 300, 300, 8, 4, 64, True, 0, None),
+        ("valid_len 100 < T 128", 2, 128, 128, 8, 4, 64, True, 0, 100),
+        ("q_offset 448 > 0", 1, 64, 512, 8, 4, 64, True, 448, None),
+        # the vision config: self prefill and cross prefill over the
+        # ragged 1601 image tokens
+        ("D=128 G=8 causal bucket 256", 2, 256, 256, 8, 8, 128, True, 0,
+         None),
+        ("D=128 G=8 non-causal T=1601", 2, 256, 1601, 8, 8, 128, False, 0,
+         None),
     ]
     worst = 0.0
-    for label, B, S, T, q_off, vlen in cases:
+    for label, B, S, T, K, G, D, causal, q_off, vlen in cases:
         q = torch.randn((B, S, K, G, D), generator=gen, device=dev).bfloat16()
         k = torch.randn((B, T, K, D), generator=gen, device=dev).bfloat16()
         v = torch.randn((B, T, K, D), generator=gen, device=dev).bfloat16()
-        got = flash_attention(q, k, v, causal=True, q_offset=q_off,
-                              valid_len=vlen)
-        want = flash_attention_plain(q, k, v, causal=True, q_offset=q_off,
-                                     valid_len=vlen)
-        want32 = flash_attention_plain(q.float(), k.float(), v.float(),
-                                       causal=True, q_offset=q_off,
-                                       valid_len=vlen)
+        kw = dict(causal=causal, q_offset=q_off, valid_len=vlen)
+        got = flash_attention(q, k, v, **kw)
+        want = flash_attention_plain(q, k, v, **kw)
+        want32 = flash_attention_plain(q.float(), k.float(), v.float(), **kw)
         torch.cuda.synchronize()
         err = (got.float() - want.float()).abs().max().item()
         print(f"  flash_attention [{label}]: max_abs_err {err:.3e} "
@@ -145,31 +194,18 @@ def phase_flash(torch, dev, gen, K=8, G=4, D=64):
         check(err <= tol, f"flash_attention {label}: err {err}")
         check_f32_ulps(torch, got, want32, f"flash_attention [{label}]")
         worst = max(worst, err)
-    # time at the main path's grouped-prefill shape
-    B, S = 8, 256
-    H = K * G
-    q = torch.randn((B, S, K, G, D), generator=gen, device=dev).bfloat16()
-    k = torch.randn((B, S, K, D), generator=gen, device=dev).bfloat16()
-    v = torch.randn((B, S, K, D), generator=gen, device=dev).bfloat16()
-    ms = cuda_ms(lambda: flash_attention(q, k, v, causal=True))
-    plain_ms = cuda_ms(lambda: flash_attention_plain(q, k, v, causal=True))
-    qh = q.permute(0, 2, 3, 1, 4).reshape(B, H, S, D).contiguous()
-    kh, vh = k.transpose(1, 2).contiguous(), v.transpose(1, 2).contiguous()
-    sdpa = torch.nn.functional.scaled_dot_product_attention
-    lib_ms = cuda_ms(lambda: sdpa(qh, kh, vh, is_causal=True,
-                                  enable_gqa=True))
-    pairs = S * (S + 1) // 2                    # live (query, key) pairs
-    n_bytes = 2 * (2 * q.numel() + k.numel() + v.numel())
-    n_flops = 4 * B * H * D * pairs
-    b_ms, b_by = bound(n_bytes, n_flops, BF16_FLOPS)
-    print(f"  flash_attention B={B} S=T={S} H={H} K={K} D={D} bf16: "
-          f"{ms:.4f} ms (plain {plain_ms:.4f}, SDPA {lib_ms:.4f}, bound "
-          f"{b_ms:.4f} by {b_by})")
+    # times at the main paths' grouped-prefill shapes: llama3.2-1b (the
+    # reported one), then the vision self and cross prefill
+    main = time_flash(torch, gen, dev, 8, 256, 256, 8, 4, 64, True)
+    extra = [time_flash(torch, gen, dev, 8, 256, 256, 8, 8, 128, True),
+             time_flash(torch, gen, dev, 8, 256, 1601, 8, 8, 128, False)]
     return dict(name="flash_attention", route="cuda",
                 source="src/repro_torch/csrc/flash_attention.cu",
                 replaces="src/repro/kernels/flash_attention.py:106",
-                max_abs_err=worst, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
-                bound_by=b_by, library_ms=lib_ms)
+                max_abs_err=worst, ms=main["ms"], plain_ms=main["plain_ms"],
+                bound_ms=main["bound_ms"], bound_by=main["bound_by"],
+                library_ms=main["library_ms"], shape=main["shape"],
+                other_shapes=extra)
 
 
 def phase_fused_decode(torch, dev, gen, B=8, K=8, G=4, D=64, ps=16, P=32):
@@ -204,12 +240,12 @@ def phase_fused_decode(torch, dev, gen, B=8, K=8, G=4, D=64, ps=16, P=32):
         q.float(), kn.float(), vn.float(), k0.float(), v0.float(), bt, pos)
     torch.cuda.synchronize()
     err = (out[:live].float() - o_ref[:live].float()).abs().max().item()
-    print(f"  fused_paged_decode_attention [pos 0, page boundary, last row, "
-          f"max_len-1, all-sentinel slot]: max_abs_err {err:.3e} "
-          f"(tol {tol})")
+    print(f"  fused_paged_decode_attention [G={G} D={D}; pos 0, page "
+          f"boundary, last row, max_len-1, all-sentinel slot]: max_abs_err "
+          f"{err:.3e} (tol {tol})")
     check(err <= tol, f"fused decode output err {err}")
     check_f32_ulps(torch, out[:live], o_32[:live],
-                   "fused_paged_decode_attention")
+                   f"fused_paged_decode_attention [G={G} D={D}]")
     wpage = bt[torch.arange(B, device=dev), pos.long() // ps].long()
     woff = pos.long() % ps
     check(torch.equal(kp2[wpage[:live], woff[:live]], kn[:live])
@@ -241,7 +277,127 @@ def phase_fused_decode(torch, dev, gen, B=8, K=8, G=4, D=64, ps=16, P=32):
                 source="src/repro_torch/csrc/fused_paged_decode.cu",
                 replaces="src/repro/kernels/decode_attention.py:328",
                 max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
-                bound_by=b_by, library_ms=None)
+                bound_by=b_by, library_ms=None,
+                shape=f"B={B} K={K} G={G} D={D} ps={ps} P={P}")
+
+
+def phase_paged_decode(torch, dev, gen, B=8, K=8, G=1, D=64, ps=16, P=32):
+    """The attend-only paged decode kernel at whisper-base's cross-attention
+    shape: 8 slots, 8 heads of 64, encoder pools of 16-row pages."""
+    from repro_torch.kernels.decode_attention import paged_decode_attention
+    from repro_torch.kernels.ref import paged_decode_attention_ref
+    tol = 3e-2   # bf16: the plain version rounds probabilities to bf16
+    n_pages = B * P
+    n_phys = n_pages + 1                        # trash page == sentinel
+    sent = n_pages
+    perm = torch.randperm(n_pages, generator=gen, device=dev).reshape(B, P)
+    # slot 0 has nothing to attend (valid_len 0), slot 1 ends on a page
+    # boundary, slot 4 spans all P pages, slot 7 has an entry far outside
+    # the pool past its length
+    vlen = torch.tensor([0, 32, 300, 1, P * ps, 47, 203, 100],
+                        dtype=torch.int32, device=dev)
+    n_alloc = (vlen.long() + ps - 1) // ps
+    bt = torch.where(torch.arange(P, device=dev)[None, :] < n_alloc[:, None],
+                     perm, torch.full_like(perm, sent)).to(torch.int32)
+    bt[7, -1] = n_phys + 9
+    kp = torch.randn((n_phys, ps, K, D), generator=gen, device=dev).bfloat16()
+    vp = torch.randn((n_phys, ps, K, D), generator=gen, device=dev).bfloat16()
+    q = torch.randn((B, K, G, D), generator=gen, device=dev).bfloat16()
+    out = paged_decode_attention(q, kp, vp, bt, vlen)
+    want = paged_decode_attention_ref(q, kp, vp, bt, vlen)
+    want32 = paged_decode_attention_ref(q.float(), kp.float(), vp.float(),
+                                        bt, vlen)
+    # stale rows: every row at or past a slot's length in its live pages,
+    # and the trash page, rewritten; the output must not move by a bit
+    kp2, vp2 = kp.clone(), vp.clone()
+    for b in range(B):
+        n = int(vlen[b])
+        for t in range(n, int(n_alloc[b]) * ps):
+            page = int(bt[b, t // ps])
+            kp2[page, t % ps] = 1e4
+            vp2[page, t % ps] = -1e4
+    kp2[sent], vp2[sent] = 1e4, -1e4
+    out2 = paged_decode_attention(q, kp2, vp2, bt, vlen)
+    torch.cuda.synchronize()
+    err = (out.float() - want.float()).abs().max().item()
+    print(f"  paged_decode_attention [valid_len 0, page boundary, full span, "
+          f"sentinel and out-of-pool entries]: max_abs_err {err:.3e} "
+          f"(tol {tol})")
+    check(err <= tol, f"paged decode err {err}")
+    check(not out[0].any(), "paged decode: valid_len 0 did not give zeros")
+    check_f32_ulps(torch, out, want32, "paged_decode_attention")
+    check(torch.equal(out, out2), "paged decode: stale rows past a length "
+          "or the trash page moved the output")
+    print("  paged_decode_attention: output bitwise unchanged with every "
+          "stale row and the trash page rewritten")
+    # time at enc_len 300 in every slot (a 300-frame encoder output)
+    vt = torch.full((B,), 300, dtype=torch.int32, device=dev)
+    bt_t = perm.to(torch.int32)
+    ms = cuda_ms(lambda: paged_decode_attention(q, kp, vp, bt_t, vt))
+    plain_ms = cuda_ms(lambda: paged_decode_attention_ref(q, kp, vp, bt_t,
+                                                          vt))
+    rows = int(vt.sum())
+    n_bytes = (2 * (2 * rows * K * D + 2 * q.numel())   # live k/v rows, q, out
+               + 4 * (B * -(-300 // ps) + B))           # live bt entries, vlen
+    n_flops = 4 * K * G * D * rows
+    b_ms, b_by = bound(n_bytes, n_flops, BF16_FLOPS)
+    shape = f"B={B} K={K} G={G} D={D} ps={ps} P={P} valid_len 300"
+    print(f"  paged_decode_attention {shape} bf16: {ms:.4f} ms (plain "
+          f"{plain_ms:.4f}, bound {b_ms:.5f} by {b_by})")
+    return dict(name="paged_decode_attention", route="cuda",
+                source="src/repro_torch/csrc/paged_decode.cu",
+                replaces="src/repro/kernels/decode_attention.py:201",
+                max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+                bound_by=b_by, library_ms=None, shape=shape)
+
+
+def phase_decode(torch, dev, gen, B=8, K=8, G=8, D=128, T=1601):
+    """The contiguous decode kernel at the vision config's cross-attention
+    shape: 8 slots, 64 query heads over 8 KV heads of 128, 1601 image
+    tokens in the model layout (B, T, K, D)."""
+    from repro_torch.kernels.decode_attention import (decode_attention,
+                                                      decode_attention_plain)
+    tol = 3e-2   # bf16: the plain version rounds probabilities to bf16
+    worst = 0.0
+    cases = [("T=1601 ragged, valid_len T", B, G, T, None),
+             ("valid_len 777 < T", 2, G, T, 777),
+             ("G=1, valid_len 0", 2, 1, 37, 0)]
+    for label, b, g, t, vlen in cases:
+        q = torch.randn((b, K, g, D), generator=gen, device=dev).bfloat16()
+        k = torch.randn((b, t, K, D), generator=gen, device=dev).bfloat16()
+        v = torch.randn((b, t, K, D), generator=gen, device=dev).bfloat16()
+        out = decode_attention(q, k, v, vlen)
+        want = decode_attention_plain(q, k, v, vlen)
+        want32 = decode_attention_plain(q.float(), k.float(), v.float(), vlen)
+        torch.cuda.synchronize()
+        err = (out.float() - want.float()).abs().max().item()
+        print(f"  decode_attention [{label}]: max_abs_err {err:.3e} "
+              f"(tol {tol})")
+        check(err <= tol, f"decode_attention {label}: err {err}")
+        check_f32_ulps(torch, out, want32, f"decode_attention [{label}]")
+        if vlen == 0:
+            check(not out.any(), "decode_attention: valid_len 0 not zeros")
+        worst = max(worst, err)
+    q = torch.randn((B, K, G, D), generator=gen, device=dev).bfloat16()
+    k = torch.randn((B, T, K, D), generator=gen, device=dev).bfloat16()
+    v = torch.randn((B, T, K, D), generator=gen, device=dev).bfloat16()
+    ms = cuda_ms(lambda: decode_attention(q, k, v))
+    plain_ms = cuda_ms(lambda: decode_attention_plain(q, k, v))
+    qh = q.reshape(B, K * G, 1, D)
+    kh, vh = k.transpose(1, 2).contiguous(), v.transpose(1, 2).contiguous()
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    lib_ms = cuda_ms(lambda: sdpa(qh, kh, vh, enable_gqa=True))
+    n_bytes = 2 * (2 * q.numel() + k.numel() + v.numel())
+    n_flops = 4 * B * K * G * D * T
+    b_ms, b_by = bound(n_bytes, n_flops, BF16_FLOPS)
+    shape = f"B={B} K={K} G={G} D={D} T={T}"
+    print(f"  decode_attention {shape} bf16: {ms:.4f} ms (plain "
+          f"{plain_ms:.4f}, SDPA {lib_ms:.4f}, bound {b_ms:.5f} by {b_by})")
+    return dict(name="decode_attention", route="cuda",
+                source="src/repro_torch/csrc/decode_attention.cu",
+                replaces="src/repro/kernels/decode_attention.py:109",
+                max_abs_err=worst, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+                bound_by=b_by, library_ms=lib_ms, shape=shape)
 
 
 def phase_int8(torch, dev, gen):
@@ -292,14 +448,13 @@ def phase_int8(torch, dev, gen):
 
 
 def make_stream(vocab: int, n: int = 16, seed: int = 1):
-    import numpy as np
     rng = np.random.default_rng(seed)
     return [(rng.integers(0, vocab, size=int(rng.integers(16, 301))
                           ).astype(np.int32), int(rng.integers(16, 65)))
             for _ in range(n)]
 
 
-def serve_variant(torch, dev, model, params, stream, label):
+def serve_variant(torch, dev, model, params, stream, label, repeats):
     from repro_torch.kernels import build
     from repro_torch.serving.engine import Request, ServingEngine
     eng = ServingEngine(model, params, max_batch=8, max_len=512,
@@ -309,7 +464,7 @@ def serve_variant(torch, dev, model, params, stream, label):
     vocab = model.cfg.vocab
     rates, first = [], None
     build.reset_launch_counts()
-    for rep in range(SERVE_REPEATS):
+    for rep in range(repeats):
         reqs = [Request(rid=i, prompt=p, max_new_tokens=m)
                 for i, (p, m) in enumerate(stream)]
         t0 = time.perf_counter()
@@ -333,7 +488,7 @@ def serve_variant(torch, dev, model, params, stream, label):
     q1, med, q3 = statistics.quantiles(rates, n=4)
     spread = (q3 - q1) / med
     print(f"  {label}: {len(stream)} reqs / {toks} tokens per serve, "
-          f"{SERVE_REPEATS} serves: median {med:.1f} tok/s (quartiles "
+          f"{repeats} serves: median {med:.1f} tok/s (quartiles "
           f"{q1:.1f}-{q3:.1f}, spread (q3 - q1) / median {spread:.3f}; min "
           f"{min(rates):.1f}, max {max(rates):.1f}; each "
           f"{', '.join(f'{x:.1f}' for x in rates)})")
@@ -394,7 +549,9 @@ def phase_main_path(torch, dev):
     print(f"  llama3.2-1b full width: {base.param_count() / 1e9:.3f} B "
           f"params, bf16, init {time.perf_counter() - t0:.1f} s")
     stream = make_stream(cfg.vocab)
-    bf16 = serve_variant(torch, dev, model, params, stream, "bf16 variant")
+    reps = SERVE_REPEATS["llama3.2-1b"]
+    bf16 = serve_variant(torch, dev, model, params, stream, "bf16 variant",
+                         reps)
     profile_variant(torch, dev, model, params, stream, "bf16 variant")
     qcfg = dataclasses.replace(base, quantize="int8").for_device(dev)
     check(qcfg.quantize == "int8_cuda", "config did not select the int8 GEMM")
@@ -402,7 +559,8 @@ def phase_main_path(torch, dev):
     del params
     torch.cuda.empty_cache()
     qmodel = build_model(qcfg, dev)
-    int8 = serve_variant(torch, dev, qmodel, qparams, stream, "int8 variant")
+    int8 = serve_variant(torch, dev, qmodel, qparams, stream, "int8 variant",
+                         reps)
     profile_variant(torch, dev, qmodel, qparams, stream, "int8 variant")
     del qparams
     torch.cuda.empty_cache()
@@ -414,34 +572,74 @@ def phase_main_path(torch, dev):
     return bf16, int8
 
 
+def phase_family(torch, dev, arch, n_layers=None):
+    """Serve the stream through one audio or vlm path at full width (depth
+    cut to ``n_layers`` when given) and check that its kernels ran: flash
+    prefill and fused decode everywhere, and the cross-attention decode
+    kernel of the family."""
+    from repro_torch.configs.registry import ARCHS
+    from repro_torch.models import build_model
+    base = ARCHS[arch]
+    if n_layers is not None:
+        base = dataclasses.replace(base, n_layers=n_layers)
+    cfg = base.for_device(dev)
+    check(cfg.attention_impl == "cuda", "config did not select the kernels")
+    model = build_model(cfg, dev)
+    t0 = time.perf_counter()
+    params = model.init(SEED)
+    torch.cuda.synchronize(dev)
+    print(f"  {arch}: {cfg.n_layers} layers, {base.param_count() / 1e9:.3f} "
+          f"B params, bf16, init {time.perf_counter() - t0:.1f} s")
+    stream = make_stream(cfg.vocab)
+    res = serve_variant(torch, dev, model, params, stream, arch,
+                        SERVE_REPEATS[arch])
+    profile_variant(torch, dev, model, params, stream, arch)
+    del params
+    torch.cuda.empty_cache()
+    cross = {"audio": "paged_decode_attention",
+             "vlm": "decode_attention"}[cfg.family]
+    for name in ("flash_attention", "fused_paged_decode_attention", cross):
+        check(res["launches"][name] > 0,
+              f"{name} was not launched on the {arch} path")
+    return res
+
+
 # ---------------------------------------------------------------------------
 # phase 4: teacher-forced logits, kernel impls vs plain impls, f32
 
 
 def teacher_forced(torch, dev, model, params, prompts, lengths, forced,
-                   ps=16, max_len=512):
+                   stub, ps=16, max_len=512):
     """Logits at each request's last prompt position and at every forced
-    decode position, through ``model.prefill`` and ``model.decode``."""
-    cfg = model.cfg
+    decode position, through ``model.prefill`` and ``model.decode``.
+
+    Every cache leaf with a sequence axis becomes a page pool (with the
+    kernel layout's trash page) filled through an identity block table;
+    per-slot leaves pass as they are. ``stub`` holds the family's encoder
+    input, if any."""
+    from repro_torch.models import kvcache as KV
     B, S = prompts.shape
     P = max_len // ps
-    n_pages = B * P
-    shape = (cfg.n_layers, n_pages + 1, ps, cfg.n_kv_heads, cfg.head_dim)
-    pools = {n: torch.zeros(shape, dtype=torch.float32, device=dev)
-             for n in ("k", "v")}
-    bt = torch.arange(n_pages, dtype=torch.int32, device=dev).reshape(B, P)
+    bt = np.arange(B * P, dtype=np.int32).reshape(B, P)
+    rows = -(-S // ps)
+    shapes = model.cache_shapes(B, max_len, enc_len=max_len)
+    axes = KV.leaf_axes(model.cache_shapes, max_len)
     out = []
     with torch.no_grad():
-        logits, pc = model.prefill(params, {"tokens": prompts,
-                                            "length": lengths})
+        logits, pc = model.prefill(params, dict(stub, tokens=prompts,
+                                                length=lengths))
         out.append(logits[:, -1])
-        rows = -(-S // ps)
-        for n in ("k", "v"):
-            new = torch.nn.functional.pad(pc[n], (0, 0, 0, 0, 0, rows * ps - S))
-            new = new.reshape((cfg.n_layers, B * rows, ps)
-                              + tuple(new.shape[3:]))
-            pools[n][:, bt[:, :rows].reshape(-1).long()] = new
-        cache = dict(pools, bt=bt)
+        cache = {"bt": torch.from_numpy(bt).to(dev)}
+        for name, (dims, dtype) in shapes.items():
+            bax, sax = axes[name]
+            if sax == -1:
+                cache[name] = pc[name]
+                continue
+            pool = torch.zeros(KV.pool_shape(dims, bax, sax, B * P + 1, ps),
+                               dtype=dtype, device=dev)
+            KV.scatter_pages(pool, pc[name], bt[:, :rows], bax, sax)
+            cache[name] = pool
+        del pc
         for i in range(forced.shape[1]):
             logits, cache = model.decode(params, cache, forced[:, i:i + 1],
                                          lengths + i)
@@ -449,46 +647,80 @@ def teacher_forced(torch, dev, model, params, prompts, lengths, forced,
     return torch.stack(out)                      # (1 + n_dec, B, V)
 
 
+def compare_forced(torch, dev, label, cfg, params, inputs, tol):
+    """Teacher-forced logits of ``cfg`` with the plain impls and with the
+    kernel impls on the same params and inputs; returns the worst gap."""
+    from repro_torch.models import build_model
+    runs = [teacher_forced(torch, dev, build_model(c, dev), params, *inputs)
+            for c in (cfg, cfg.for_device(dev))]
+    plain, kern = runs
+    check(bool(torch.isfinite(kern).all()), f"{label}: non-finite logits")
+    d = (kern - plain).abs().amax(dim=(1, 2))
+    worst = d.max().item()
+    print(f"  teacher-forced {label}: {kern.shape[0]} positions x "
+          f"{kern.shape[1]} requests x {kern.shape[2]} logits; max "
+          f"|kernel - plain| {worst:.3e} (prefill {d[0].item():.3e}, decode "
+          f"max {d[1:].max().item():.3e}; max |logit| "
+          f"{plain.abs().max().item():.3f}; tol {tol})")
+    check(worst <= tol, f"teacher-forced {label}: {worst} > {tol}")
+    return worst
+
+
+def forced_inputs(torch, dev, cfg, rng):
+    """Seeded prompts of 17, 64, 100 and 250 tokens right-padded to 256,
+    16 forced tokens each, and the family's encoder input: non-zero frames
+    or image embeddings, so that the cross-attention computes something
+    (the engine's all-zero stub inputs make it exactly zero)."""
+    lens = np.array([17, 64, 100, 250], np.int32)
+    B, S = len(lens), 256
+    prompts = np.zeros((B, S), np.int32)
+    for b, n in enumerate(lens):
+        prompts[b, :n] = rng.integers(0, cfg.vocab, size=n)
+    forced = rng.integers(0, cfg.vocab, size=(B, 16)).astype(np.int32)
+    stub = {}
+    if cfg.family == "audio":
+        stub["frames"] = rng.standard_normal((B, S, cfg.d_model))
+    if cfg.family == "vlm":
+        stub["image_embeds"] = rng.standard_normal(
+            (B, cfg.n_image_tokens, cfg.d_model))
+    to = lambda a: torch.from_numpy(a).to(dev)   # noqa: E731
+    return (to(prompts), to(lens), to(forced),
+            {k: to(v.astype(np.float32)) for k, v in stub.items()})
+
+
 def phase_teacher_forced(torch, dev):
-    import numpy as np
     from repro_torch.configs.registry import ARCHS
     from repro_torch.models import build_model
     from repro_torch.models.quantize import quantize_params_dense
     # f32 everywhere, TF32 off: kernel and plain differ only in the order
-    # of f32 sums, compounded over 16 layers
+    # of f32 sums (and, in the split decode kernels, of the span combine),
+    # compounded over the layers; logits are of order 1-10
     tol = 5e-3
-    base = dataclasses.replace(ARCHS["llama3.2-1b"], dtype="float32",
-                               param_dtype="float32")
+    f32 = dict(dtype="float32", param_dtype="float32")
     rng = np.random.default_rng(2)
-    lens = np.array([17, 64, 100, 250], np.int32)
-    S = 256
-    prompts = np.zeros((len(lens), S), np.int32)
-    for b, n in enumerate(lens):
-        prompts[b, :n] = rng.integers(0, base.vocab, size=n)
-    forced = rng.integers(0, base.vocab, size=(len(lens), 16)).astype(np.int32)
-    to = lambda a: torch.from_numpy(a).to(dev)   # noqa: E731
-    params = build_model(base, dev).init(SEED)
     diffs = {}
-    for variant in ("fp32", "int8"):
-        quant = "int8" if variant == "int8" else "none"
-        p = quantize_params_dense(params) if variant == "int8" else params
-        plain_cfg = dataclasses.replace(base, quantize=quant)
-        runs = []
-        for cfg in (plain_cfg, plain_cfg.for_device(dev)):
-            runs.append(teacher_forced(torch, dev, build_model(cfg, dev), p,
-                                       to(prompts), to(lens), to(forced)))
-        plain, kern = runs
-        check(bool(torch.isfinite(kern).all()), f"{variant}: non-finite logits")
-        d = (kern - plain).abs().amax(dim=(1, 2))
-        diffs[variant] = d.max().item()
-        print(f"  teacher-forced {variant}: {kern.shape[0]} positions x "
-              f"{kern.shape[1]} requests x {kern.shape[2]} logits; max "
-              f"|kernel - plain| {diffs[variant]:.3e} (prefill "
-              f"{d[0].item():.3e}, decode max {d[1:].max().item():.3e}; "
-              f"max |logit| {plain.abs().max().item():.3f}; tol {tol})")
-        check(diffs[variant] <= tol, f"teacher-forced {variant}: "
-              f"{diffs[variant]} > {tol}")
-        del p, runs, plain, kern
+    base = dataclasses.replace(ARCHS["llama3.2-1b"], **f32)
+    inputs = forced_inputs(torch, dev, base, rng)
+    params = build_model(base, dev).init(SEED)
+    diffs["llama3.2-1b fp32"] = compare_forced(
+        torch, dev, "llama3.2-1b fp32", base, params, inputs, tol)
+    qcfg = dataclasses.replace(base, quantize="int8")
+    diffs["llama3.2-1b int8"] = compare_forced(
+        torch, dev, "llama3.2-1b int8", qcfg, quantize_params_dense(params),
+        inputs, tol)
+    del params
+    torch.cuda.empty_cache()
+    for arch, n_layers in (("whisper-base", None),
+                           ("llama-3.2-vision-90b", VISION_TF_LAYERS)):
+        cfg = dataclasses.replace(ARCHS[arch], **f32)
+        if n_layers is not None:
+            cfg = dataclasses.replace(cfg, n_layers=n_layers)
+        label = f"{arch} ({cfg.n_layers} layers) fp32"
+        params = build_model(cfg, dev).init(SEED)
+        diffs[label] = compare_forced(torch, dev, label, cfg, params,
+                                      forced_inputs(torch, dev, cfg, rng),
+                                      tol)
+        del params
         torch.cuda.empty_cache()
     return diffs
 
@@ -526,22 +758,46 @@ def main() -> int:
             if any(w in line for w in ("Compiling entry", "Used", "spill")):
                 print(f"  [{name}] {line.strip()}")
 
+    print(f"  phase 1 took {time.perf_counter() - t_start:.1f} s")
+
+    t0 = time.perf_counter()
     print("phase 2: per-kernel comparisons (bf16, full-width shapes)")
     gen = torch.Generator(device=dev).manual_seed(SEED)
-    kernels = [phase_flash(torch, dev, gen),
-               phase_fused_decode(torch, dev, gen),
-               phase_int8(torch, dev, gen)]
-    print("phase 3: main path (ServingEngine.serve, full width)")
+    fused = phase_fused_decode(torch, dev, gen)
+    fused128 = phase_fused_decode(torch, dev, gen, G=8, D=128)
+    fused["other_shapes"] = [{k: fused128[k] for k in (
+        "shape", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")}]
+    fused["max_abs_err"] = max(fused["max_abs_err"], fused128["max_abs_err"])
+    kernels = [phase_flash(torch, dev, gen), fused,
+               phase_int8(torch, dev, gen),
+               phase_paged_decode(torch, dev, gen),
+               phase_decode(torch, dev, gen)]
+    print(f"  phase 2 took {time.perf_counter() - t0:.1f} s")
+
+    t0 = time.perf_counter()
+    print("phase 3: main paths (ServingEngine.serve, full width)")
     bf16, int8 = phase_main_path(torch, dev)
-    for k in kernels:
-        k["launches"] = bf16["launches"][k["name"]] + \
-            int8["launches"][k["name"]]
-    print(f"  main path: bf16 {bf16['tok_s']:.1f} tok/s (quartile spread "
+    print(f"  llama3.2-1b: bf16 {bf16['tok_s']:.1f} tok/s (quartile spread "
           f"{bf16['spread']:.3f}), int8 {int8['tok_s']:.1f} tok/s (spread "
-          f"{int8['spread']:.3f}), medians of {SERVE_REPEATS} serves on "
-          f"{card}")
+          f"{int8['spread']:.3f}), medians of "
+          f"{SERVE_REPEATS['llama3.2-1b']} serves on {card}")
+    whisper = phase_family(torch, dev, "whisper-base")
+    vision = phase_family(torch, dev, "llama-3.2-vision-90b", VISION_LAYERS)
+    paths = [bf16, int8, whisper, vision]
+    for k in kernels:
+        k["launches"] = sum(r["launches"][k["name"]] for r in paths)
+    for label, r in (("whisper-base", whisper),
+                     (f"llama-3.2-vision-90b ({VISION_LAYERS} layers)",
+                      vision)):
+        print(f"  {label}: {r['tok_s']:.1f} tok/s (quartile spread "
+              f"{r['spread']:.3f}), decode segment {r['seg_ms']:.2f} ms, "
+              f"peak memory {r['peak_gb']:.2f} GB on {card}")
+    print(f"  phase 3 took {time.perf_counter() - t0:.1f} s")
+
+    t0 = time.perf_counter()
     print("phase 4: teacher-forced logits, kernels vs plain (f32)")
     phase_teacher_forced(torch, dev)
+    print(f"  phase 4 took {time.perf_counter() - t0:.1f} s")
     print(f"all phases passed in {time.perf_counter() - t_start:.1f} s")
     for k in kernels:
         print(f"kernel {k['name']}: {k['launches']} main-path launches, "

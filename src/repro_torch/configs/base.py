@@ -1,10 +1,11 @@
 """Architecture configuration (the port's own copy of ``repro.configs.base``).
 
-Only the fields, defaults, ``reduced()`` and ``param_count`` of the dense
-family come across in this slice. The kernel-dispatch names are the port's:
+The fields, defaults and ``reduced()`` of the dense, audio (enc-dec) and
+vlm (cross-attention) families come across; the MoE, SSM and hybrid fields
+join with their model code. The kernel-dispatch names are the port's:
 
 * ``attention_impl``: ``"torch"`` (plain PyTorch) or ``"cuda"`` (the
-  hand-written flash-prefill and fused paged-decode kernels);
+  hand-written flash-prefill and decode-attention kernels);
 * ``quantize``: ``"none"``, ``"int8"`` (plain dequant matmul) or
   ``"int8_cuda"`` (the int8 GEMM kernel).
 
@@ -35,6 +36,11 @@ class ArchConfig:
     vocab: int
     head_dim: Optional[int] = None   # default: d_model // n_heads
     rope_theta: float = 500_000.0
+    # --- audio (enc-dec) ---
+    n_encoder_layers: int = 0
+    # --- vlm ---
+    cross_attn_every: int = 0        # 0 = no cross attention
+    n_image_tokens: int = 0          # stub patch-embedding count
     dtype: str = "bfloat16"
     param_dtype: str = "bfloat16"
     attention_impl: str = "torch"
@@ -59,14 +65,25 @@ class ArchConfig:
         return self.n_heads // self.n_kv_heads
 
     def param_count(self) -> int:
-        """Analytic parameter count (dense family: untied embed + head)."""
-        if self.family != "dense":
+        """Weights that ``init`` makes, norm scales aside (untied embed and
+        head).
+
+        ``repro``'s formula counts the audio decoder's cross blocks without
+        their MLPs and adds the vlm cross layers' attention once more; the
+        count here is that of the initialised tree, which the launcher
+        turns into weight bytes.
+        """
+        if self.family not in ("dense", "audio", "vlm"):
             raise NotImplementedError(
                 f"param_count for family {self.family!r} is not ported")
         d, hd = self.d_model, self.head_dim
         attn = (d * self.n_heads * hd + 2 * d * self.n_kv_heads * hd
                 + self.n_heads * hd * d)
-        return 2 * self.vocab * d + self.n_layers * (attn + 3 * d * self.d_ff)
+        block = attn + 3 * d * self.d_ff
+        n_blocks = self.n_layers   # vlm: self and cross layers together
+        if self.family == "audio":
+            n_blocks = self.n_encoder_layers + 2 * self.n_layers
+        return 2 * self.vocab * d + n_blocks * block
 
     def reduced(self) -> "ArchConfig":
         """Tiny same-family config for CPU tests (``repro``'s ``reduced``)."""
@@ -81,6 +98,11 @@ class ArchConfig:
             head_dim=16,
             d_ff=128,
             vocab=256,
+            n_encoder_layers=min(self.n_encoder_layers, 2),
+            cross_attn_every=(min(self.cross_attn_every, 2)
+                              if self.cross_attn_every else 0),
+            n_image_tokens=(min(self.n_image_tokens, 16)
+                            if self.n_image_tokens else 0),
             dtype="float32",
             param_dtype="float32",
         )

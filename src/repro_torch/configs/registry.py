@@ -1,16 +1,19 @@
 """Registry of the ported architectures, selectable by ``--arch <id>``.
 
-Only llama3.2-1b is ported so far; the other families join with their
+The dense (llama3.2-1b), audio (whisper-base) and vlm
+(llama-3.2-vision-90b) families are ported; the others join with their
 model code.
 """
 from __future__ import annotations
 
 from typing import Dict
 
-from repro_torch.configs import llama3_2_1b
+from repro_torch.configs import llama3_2_1b, llama3_2_vision_90b, whisper_base
 from repro_torch.configs.base import ArchConfig
 
-ARCHS: Dict[str, ArchConfig] = {c.name: c for c in (llama3_2_1b.CONFIG,)}
+ARCHS: Dict[str, ArchConfig] = {
+    c.name: c for c in (llama3_2_1b.CONFIG, whisper_base.CONFIG,
+                        llama3_2_vision_90b.CONFIG)}
 
 
 def get_arch(name: str) -> ArchConfig:

@@ -45,6 +45,13 @@ KERNELS = {
     "int8_matmul": (
         "int8_matmul.cu", "int8_matmul_fwd",
         [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P]),
+    "paged_decode_attention": (
+        "paged_decode.cu", "paged_decode_fwd",
+        [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I,
+         _P]),
+    "decode_attention": (
+        "decode_attention.cu", "decode_attention_fwd",
+        [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P]),
 }
 
 # host-side helpers a library exports beside its kernel:

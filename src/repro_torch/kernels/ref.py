@@ -79,6 +79,57 @@ def fused_paged_decode_attention_ref(q, k_new, v_new, k_pool, v_pool,
     return out, k_pool, v_pool
 
 
+def _masked_decode(q, k, v, valid_len):
+    """q (B, K, G, D); k/v (B, T, K, D); valid_len (B,) long. Rows ``>=``
+    valid_len mask out; a slot with valid_len 0 gets zeros, as the kernels
+    give (they divide by ``max(l, 1e-30)`` with ``l = 0``)."""
+    D = q.shape[-1]
+    T = k.shape[1]
+    scores = torch.einsum("bkgd,btkd->bkgt", q.float(), k.float()) \
+        * (D ** -0.5)
+    live = torch.arange(T, device=q.device)[None, :] < valid_len[:, None]
+    scores = torch.where(live[:, None, None, :], scores,
+                         torch.full_like(scores, NEG_INF))
+    probs = torch.softmax(scores, dim=-1).to(q.dtype)
+    out = torch.einsum("bkgt,btkd->bkgd", probs, v.to(q.dtype))
+    return torch.where((valid_len > 0)[:, None, None, None], out,
+                       torch.zeros_like(out))
+
+
+def _per_slot(valid_len, B: int, default: int, device) -> torch.Tensor:
+    if valid_len is None:
+        return torch.full((B,), default, dtype=torch.long, device=device)
+    return torch.as_tensor(valid_len, device=device).long().expand(B)
+
+
+def decode_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                         valid_len=None) -> torch.Tensor:
+    """One-token decode over a contiguous cache (``repro``'s
+    ``decode_attention_ref``). q: (B, K, G, D); k/v: (B, K, T, D);
+    valid_len a scalar (default T). Returns (B, K, G, D) in q.dtype."""
+    B, T = q.shape[0], k.shape[2]
+    vlen = _per_slot(valid_len, B, T, q.device)
+    return _masked_decode(q, k.transpose(1, 2), v.transpose(1, 2), vlen)
+
+
+def paged_decode_attention_ref(q, k_pool, v_pool, block_table,
+                               valid_len=None) -> torch.Tensor:
+    """One-token decode through a block table, attend only.
+
+    q: (B, K, G, D); pools (n_phys, ps, K, D); block_table (B, P), entries
+    clamped into the pool; valid_len a scalar or (B,) per-slot lengths over
+    the slot's logical P * ps positions (default all of them). Returns
+    (B, K, G, D) in q.dtype.
+    """
+    B, P = block_table.shape
+    n_phys, ps = k_pool.shape[:2]
+    pages = torch.clamp(block_table.long(), 0, n_phys - 1)
+    kc = k_pool[pages].reshape((B, P * ps) + tuple(k_pool.shape[2:]))
+    vc = v_pool[pages].reshape((B, P * ps) + tuple(v_pool.shape[2:]))
+    vlen = _per_slot(valid_len, B, P * ps, q.device)
+    return _masked_decode(q, kc, vc, vlen)
+
+
 def int8_matmul_ref(x: torch.Tensor, w_q: torch.Tensor,
                     scales: torch.Tensor) -> torch.Tensor:
     """x: (M, Kd); w_q: (Kd, N) int8; scales: (N,) f32. Returns x.dtype."""

@@ -7,12 +7,17 @@ dispatch counts:
 
     PYTHONPATH=src python -m repro_torch.launch.serve --real-engine --device cuda
     PYTHONPATH=src python -m repro_torch.launch.serve --real-engine \\
-        --device cpu --reduced
+        --arch whisper-base --device cpu --reduced
 
-On CUDA the config selects the kernel impls (flash prefill, fused paged
-decode and, with ``--quantize int8``, the int8 GEMM). Weights are random,
-made from a fixed seed on the device. The control plane (``--backend``,
-``--clock`` and the Poisson cluster driver) is not ported yet.
+``--arch`` takes llama3.2-1b (dense), whisper-base (audio) and
+llama-3.2-vision-90b (vlm). On CUDA the config selects the kernel impls
+(flash prefill, fused paged decode, the paged and contiguous decode kernels
+of the cross-attention and, with ``--quantize int8``, the int8 GEMM; int8
+is dense-only, as in ``repro``). A config whose weights do not fit the card
+is refused before anything is allocated: the published 100-layer
+llama-3.2-vision-90b takes 175 GB in bf16. Weights are random, made from a
+fixed seed on the device. The control plane (``--backend``, ``--clock`` and
+the Poisson cluster run) is not ported yet.
 """
 from __future__ import annotations
 
@@ -28,7 +33,18 @@ from repro_torch import resolve_device
 from repro_torch.configs.registry import ARCHS
 from repro_torch.models import build_model
 from repro_torch.models.quantize import quantize_params_dense
+from repro_torch.models.transformer import DTYPES
 from repro_torch.serving.engine import Request, ServingEngine
+
+
+def check_weights_fit(cfg, capacity_bytes: int, where: str) -> None:
+    """Refuse a config whose weights alone exceed the device's memory."""
+    need = cfg.param_count() * DTYPES[cfg.param_dtype].itemsize
+    if need > capacity_bytes:
+        raise ValueError(
+            f"{cfg.name}: its weights take {need / 1e9:.1f} GB "
+            f"({cfg.param_count()} parameters in {cfg.param_dtype}) but "
+            f"{where} holds {capacity_bytes / 1e9:.1f} GB")
 
 
 def _real_engine_demo(arch: str, n_reqs: int, slots: int,
@@ -37,7 +53,13 @@ def _real_engine_demo(arch: str, n_reqs: int, slots: int,
                       max_len: int = 64, seed: int = 0) -> dict:
     dev = resolve_device(device)
     base = ARCHS[arch].reduced() if reduced else ARCHS[arch]
+    if quantize != "none" and base.family != "dense":
+        raise ValueError(f"--quantize {quantize}: the int8 variants are "
+                         f"dense-only; {arch} is {base.family}")
     cfg = dataclasses.replace(base, quantize=quantize).for_device(dev)
+    if dev.type == "cuda":
+        check_weights_fit(cfg, torch.cuda.get_device_properties(
+            dev).total_memory, torch.cuda.get_device_name(dev))
     model = build_model(cfg, dev)
     params = model.init(seed)
     if quantize == "int8":

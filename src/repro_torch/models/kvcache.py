@@ -1,4 +1,6 @@
-"""Paged KV cache primitives (the paged part of ``repro.models.kvcache``).
+"""Paged KV cache primitives (the paged part of ``repro.models.kvcache``)
+and the leaf layout helpers the serving engine pages any family's cache
+with.
 
 A shared page pool ``(n_pages, page_size, K, D)`` per layer plus a per-slot
 block table ``(B, P)`` of page indices: logical position ``p`` of slot ``b``
@@ -12,7 +14,7 @@ masks and clamps. Unlike the JAX versions they update pools in place.
 """
 from __future__ import annotations
 
-from typing import Any, Tuple
+from typing import Any, Callable, Dict, Tuple
 
 import numpy as np
 import torch
@@ -64,3 +66,55 @@ def gather_block_kv(pool: torch.Tensor,
     ps = pool.shape[1]
     idx = torch.clamp(block_table.long(), 0, pool.shape[0] - 1)
     return pool[idx].reshape((B, P * ps) + tuple(pool.shape[2:]))
+
+
+def first_diff(a, b) -> int:
+    """The first axis where two shapes differ, -1 where none does."""
+    return next((i for i, (x, y) in enumerate(zip(a, b)) if x != y), -1)
+
+
+def leaf_axes(cache_shapes: Callable[..., Dict[str, Any]],
+              max_len: int) -> Dict[str, Tuple[int, int]]:
+    """name -> (batch axis, sequence axis) of each cache leaf, found by
+    diffing ``cache_shapes`` at two batch sizes and at two lengths, as the
+    JAX engine does (``repro/serving/engine.py:782-800``). The sequence
+    axis is -1 for a leaf without one (per-slot state)."""
+    s2 = cache_shapes(2, max_len, enc_len=max_len)
+    s3 = cache_shapes(3, max_len, enc_len=max_len)
+    l2 = cache_shapes(2, max_len + 8, enc_len=max_len + 8)
+    return {n: (first_diff(s2[n][0], s3[n][0]), first_diff(s2[n][0], l2[n][0]))
+            for n in s2}
+
+
+def pool_shape(dims, bax: int, sax: int, n_pages: int,
+               page_size: int) -> Tuple[int, ...]:
+    """Contiguous leaf shape -> shared-pool shape: the batch axis dropped,
+    the sequence axis split into ``(n_pages, page_size)``."""
+    if not 0 <= bax < sax:
+        raise ValueError(f"leaf {tuple(dims)}: batch axis {bax}, sequence "
+                         f"axis {sax}")
+    return (tuple(dims[:bax]) + tuple(dims[bax + 1:sax])
+            + (n_pages, page_size) + tuple(dims[sax + 1:]))
+
+
+def scatter_pages(pool: torch.Tensor, new: torch.Tensor,
+                  page_rows: np.ndarray, bax: int, sax: int) -> None:
+    """Write prefill leaf ``new`` (batch at ``bax``, sequence at ``sax``)
+    into its pool, in place, page by page: page ``j`` of row ``b`` goes to
+    ``page_rows[b, j]`` (host-side, so no device sync). Pages outside the
+    pool are dropped, as JAX's ``mode="drop"`` does."""
+    nb, n_rows = page_rows.shape
+    ps = pool.shape[sax]
+    ids = page_rows.reshape(-1)
+    keep = np.nonzero((ids >= 0) & (ids < pool.shape[sax - 1]))[0]
+    if keep.size == 0:
+        return
+    dst = torch.from_numpy(ids[keep].astype(np.int64)).to(pool.device)
+    src = torch.from_numpy(keep.astype(np.int64)).to(pool.device)
+    new = new.movedim(bax, 0)                       # (nb, ..., S@sax, ...)
+    pad = [0, 0] * (new.ndim - 1 - sax) + [0, n_rows * ps - new.shape[sax]]
+    new = torch.nn.functional.pad(new, pad)
+    new = new.reshape(new.shape[:sax] + (n_rows, ps) + new.shape[sax + 1:])
+    new = new.movedim(sax, 1).reshape((nb * n_rows,) + new.shape[1:sax]
+                                      + new.shape[sax + 1:])
+    pool.movedim(sax - 1, 0)[dst] = new[src].to(pool.dtype)

@@ -1,4 +1,4 @@
-"""Shared dense-model layers (the ported part of ``repro.models.layers``).
+"""Shared model layers (the ported part of ``repro.models.layers``).
 
 Plain functions over explicit parameter dicts. Attention uses the grouped
 layout throughout: q is (B, S, K, G, D) with K = n_kv_heads and G =
@@ -118,11 +118,24 @@ def attention_core(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     return torch.einsum("bkgst,btkd->bskgd", probs, v.to(q.dtype))
 
 
-def paged_attention_core(q, k_pool, v_pool, block_table, *,
-                         kv_valid_len) -> torch.Tensor:
-    """Plain decode attention over a paged KV cache: gather each slot's
-    logical view (entries clamped into the pool) and run the masked
-    ``attention_core``."""
+def paged_attention_core(q, k_pool, v_pool, block_table, *, kv_valid_len,
+                         impl: str = "torch") -> torch.Tensor:
+    """One-token decode attention over a paged KV cache, attend only.
+
+    q (B, 1, K, G, D); pools (n_phys, ps, K, D); block_table (B, P) int32;
+    ``kv_valid_len`` a (B,) int32 tensor of per-slot lengths (or a scalar
+    on the plain path). ``impl="cuda"`` runs the paged decode kernel, which
+    walks the block table itself; the plain path gathers each slot's
+    logical view (entries clamped into the pool) and runs the masked
+    ``attention_core``.
+    """
+    if impl == "cuda":
+        kops.require_cuda(q, "paged_attention_core")
+        return kops.paged_decode_attention(
+            q[:, 0].contiguous(), k_pool, v_pool, block_table,
+            kv_valid_len)[:, None]
+    if impl != "torch":
+        raise ValueError(f"unknown attention impl {impl!r}")
     kc = KV.gather_block_kv(k_pool, block_table)
     vc = KV.gather_block_kv(v_pool, block_table)
     return attention_core(q, kc, vc, causal=False, kv_valid_len=kv_valid_len,

@@ -1,13 +1,25 @@
 """Continuous-batching serving engine over a paged KV cache
 (the open-loop core of ``repro.serving.engine``).
 
-The engine owns a shared KV page pool ``(L, n_pages, page_size, K, D)``
-per k/v, a per-slot block table, and per-slot ``tok``/``pos`` device
-tensors. Requests are admitted FIFO while the pool can hold their worst
-case (``ceil((prompt + max_new - 1) / page_size)`` pages); same-bucket
-prompts are prefilled together in one dispatch (admit batches bucketed to
-{1, max_batch}; padding rows carry slot ``max_batch`` and are dropped), and
-their k/v pages are scattered into the pool through the block table.
+The engine owns the model's cache leaves, a per-slot block table, and
+per-slot ``tok``/``pos`` device tensors. As in the JAX engine, each leaf's
+batch and sequence axes are found by diffing ``model.cache_shapes`` at two
+batch sizes and at two lengths. A leaf with a sequence axis is *paged*: it
+becomes a shared page pool (the batch axis dropped, the sequence axis split
+into ``(n_pages, page_size)``) read and written through the block table —
+dense and vlm self k/v, audio self and encoder k/v. A leaf without one is
+*per-slot state*, indexed by slot — vlm's image k/v, audio's ``enc_len``.
+
+Requests are admitted FIFO while the pool can hold their worst case
+(``ceil((prompt + max_new - 1) / page_size)`` pages); same-bucket prompts
+are prefilled together in one dispatch (admit batches bucketed to
+{1, max_batch}; padding rows carry slot ``max_batch`` and are dropped),
+their paged leaves are scattered into the pools through the block table
+and their state rows are written by slot. The audio and vlm families get
+all-zero stub encoder inputs at prefill, exactly as the JAX engine feeds
+them (``frames`` of the prompt's bucket width, ``image_embeds`` of
+``n_image_tokens``). A slot never admitted keeps ``enc_len`` 0 and a freed
+slot a stale one; both are inactive, and what they compute is discarded.
 Pages are appended to a slot's block table ahead of every decode segment
 and returned the moment its sequence finishes.
 
@@ -22,10 +34,11 @@ read back once at its end. ``decode_steps``, ``decode_dispatches`` and
 ``busy_slot_steps`` count exactly what the JAX engine counts on the same
 stream.
 
-**Kernel pool layout.** With ``attention_impl="cuda"`` the pool carries
+**Kernel pool layout.** With ``attention_impl="cuda"`` every pool carries
 one extra *trash* page at index ``n_pages``, the block table's sentinel: the
 fused decode kernel has no write suppression, so inactive slots write
-there, and prefill rows past a slot's pages land there too. The plain path
+there, and prefill rows past a slot's pages land there too; the paged
+decode kernel's clamped sentinel reads land there as well. The plain path
 keeps the exact-size pool and drops those writes instead. Either way no
 write touches a live page.
 
@@ -189,11 +202,16 @@ class ServingEngine:
         # the sentinel index; the plain path drops those writes instead
         self._pool_pages = self.n_pages + (
             1 if cfg.attention_impl == "cuda" else 0)
-        shape = (cfg.n_layers, self._pool_pages, page_size, cfg.n_kv_heads,
-                 cfg.head_dim)
-        dtype = DTYPES[cfg.dtype]
-        self._cache = {n: torch.zeros(shape, dtype=dtype, device=self.device)
-                       for n in ("k", "v")}
+        shapes = model.cache_shapes(max_batch, max_len, enc_len=max_len)
+        self._axes = KV.leaf_axes(model.cache_shapes, max_len)
+        self._cache = {}
+        for name, (dims, dtype) in shapes.items():
+            bax, sax = self._axes[name]
+            if sax != -1:
+                dims = KV.pool_shape(dims, bax, sax, self._pool_pages,
+                                     page_size)
+            self._cache[name] = torch.zeros(dims, dtype=dtype,
+                                            device=self.device)
         self._bt = KV.sentinel_block_table(max_batch, self.pages_per_slot,
                                            self.n_pages)
         self._bt_dev: Optional[torch.Tensor] = None
@@ -245,8 +263,8 @@ class ServingEngine:
             build.build_all()
         b = bucket_len(max([1, *prompt_lens]), self.min_bucket, self.max_len)
         with torch.no_grad():
-            tokens = torch.zeros((1, b), dtype=torch.int32, device=self.device)
-            self.model.prefill(self.params, {"tokens": tokens})
+            self.model.prefill(self.params, self._prefill_batch(
+                np.zeros((1, b), np.int32)))
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
 
@@ -262,29 +280,43 @@ class ServingEngine:
             self._bt[slot, held:held + len(new)] = new
             self._bt_dev = None
 
-    def _insert_pages(self, pcache, page_rows: np.ndarray) -> None:
-        """Scatter bucket-wide prefill k/v into the pool, page by page.
+    def _prefill_batch(self, tokens: np.ndarray,
+                       lengths: Optional[np.ndarray] = None):
+        """A prefill batch on the device, with the family's stub encoder
+        input: all zeros, as the JAX engine feeds it."""
+        cfg, dev = self.model.cfg, self.device
+        nb, bucket = tokens.shape
+        batch = {"tokens": torch.from_numpy(tokens).to(dev)}
+        if lengths is not None:
+            batch["length"] = torch.from_numpy(lengths).to(dev)
+        dtype = DTYPES[cfg.dtype]
+        if cfg.family == "audio":
+            batch["frames"] = torch.zeros((nb, bucket, cfg.d_model),
+                                          dtype=dtype, device=dev)
+        if cfg.family == "vlm":
+            batch["image_embeds"] = torch.zeros(
+                (nb, cfg.n_image_tokens, cfg.d_model), dtype=dtype,
+                device=dev)
+        return batch
 
-        Rows whose page is the sentinel land in the trash page when the pool
-        has one and are dropped otherwise (JAX's ``mode="drop"``): they are
-        the padding rows of the admit batch and bucket padding past a slot's
-        pages, and never reach a live page.
+    def _insert_prefill(self, pcache, page_rows: np.ndarray,
+                        slot_t: torch.Tensor) -> None:
+        """Write an admit batch's prefill cache into the engine's leaves.
+
+        Paged leaves go page by page through ``page_rows``. Rows whose page
+        is the sentinel land in the trash page when the pool has one and are
+        dropped otherwise (JAX's ``mode="drop"``): they are the padding rows
+        of the admit batch and bucket padding past a slot's pages, and never
+        reach a live page. State leaves take their first ``len(slot_t)`` rows
+        by slot; the padding rows after them are dropped.
         """
-        ps = self.page_size
-        ids = page_rows.reshape(-1)
-        keep = np.nonzero(ids < self._pool_pages)[0]
-        if keep.size == 0:
-            return
-        dst = torch.from_numpy(ids[keep].astype(np.int64)).to(self.device)
-        src = torch.from_numpy(keep.astype(np.int64)).to(self.device)
-        n_rows = page_rows.shape[1]
-        for name in ("k", "v"):
-            new = pcache[name]                          # (L, nb, S, K, D)
-            L, nb, S = new.shape[:3]
-            new = torch.nn.functional.pad(new, (0, 0, 0, 0, 0, n_rows * ps - S))
-            new = new.reshape((L, nb * n_rows, ps) + tuple(new.shape[3:]))
-            pool = self._cache[name]
-            pool[:, dst] = new[:, src].to(pool.dtype)
+        for name, leaf in self._cache.items():
+            bax, sax = self._axes[name]
+            if sax == -1:
+                rows = pcache[name].movedim(bax, 0)[:len(slot_t)]
+                leaf.movedim(bax, 0)[slot_t] = rows.to(leaf.dtype)
+            else:
+                KV.scatter_pages(leaf, pcache[name], page_rows, bax, sax)
 
     def _admit_group(self, bucket: int, rs: List[Request],
                      slots: List[int]) -> np.ndarray:
@@ -303,16 +335,14 @@ class ServingEngine:
             page_rows[j] = self._bt[s, :n_rows]
         t0 = time.perf_counter()
         dev = self.device
-        len_t = torch.from_numpy(lengths).to(dev)
-        with torch.no_grad():
-            logits, pcache = self.model.prefill(
-                self.params, {"tokens": torch.from_numpy(tokens).to(dev),
-                              "length": len_t})
-            firsts = torch.argmax(logits[:, -1], dim=-1).to(torch.int32)
-            self._insert_pages(pcache, page_rows)
+        batch = self._prefill_batch(tokens, lengths)
         slot_t = torch.as_tensor(slots, dtype=torch.long, device=dev)
+        with torch.no_grad():
+            logits, pcache = self.model.prefill(self.params, batch)
+            firsts = torch.argmax(logits[:, -1], dim=-1).to(torch.int32)
+            self._insert_prefill(pcache, page_rows, slot_t)
         self._tok[slot_t] = firsts[:m, None]
-        self._pos[slot_t] = len_t[:m]
+        self._pos[slot_t] = batch["length"][:m]
         firsts_np = firsts[:m].cpu().numpy()            # the one host sync
         self.timing["prefill_s"] += time.perf_counter() - t0
         for r, s in zip(rs, slots):
@@ -400,8 +430,7 @@ class ServingEngine:
         active = torch.from_numpy(self._rem[None, :] > steps).to(dev)
         out = torch.full((self.max_batch, n_steps), -1, dtype=torch.int32,
                          device=dev)
-        cache = {"k": self._cache["k"], "v": self._cache["v"],
-                 "bt": self._bt_device()}
+        cache = dict(self._cache, bt=self._bt_device())
         tok, pos = self._tok, self._pos
         with torch.no_grad():
             for i in range(n_steps):

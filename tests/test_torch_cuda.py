@@ -17,7 +17,9 @@ import torch
 
 from repro_torch.configs.registry import ARCHS
 from repro_torch.kernels import ref
-from repro_torch.kernels.decode_attention import fused_paged_decode_attention
+from repro_torch.kernels.decode_attention import (
+    decode_attention, decode_attention_plain, fused_paged_decode_attention,
+    paged_decode_attention)
 from repro_torch.kernels.flash_attention import (flash_attention,
                                                  flash_attention_plain)
 from repro_torch.kernels.int8_matmul import int8_matmul, int8_splits
@@ -96,6 +98,59 @@ def test_cuda_fused_paged_decode_matches_plain():
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_cuda_paged_decode_matches_plain(dtype):
+    """Attend-only paged decode: valid_len 0 (zeros), a length on a page
+    boundary, a length past a stale page, sentinel and out-of-pool entries,
+    G = 1 and G = 8 with D = 128."""
+    dev = _need_cuda()
+    dt = getattr(torch, dtype)
+    tol = 1e-4 if dtype == "float32" else 3e-2   # bf16 probabilities
+    gen = torch.Generator(device=dev).manual_seed(4)
+    for B, K, G, D, ps, P in ((5, 8, 1, 64, 16, 32), (3, 2, 8, 128, 8, 6)):
+        n_phys = B * P + 1
+        kp = torch.randn((n_phys, ps, K, D), generator=gen, device=dev).to(dt)
+        vp = torch.randn((n_phys, ps, K, D), generator=gen, device=dev).to(dt)
+        q = torch.randn((B, K, G, D), generator=gen, device=dev).to(dt)
+        bt = torch.randperm(B * P, generator=gen, device=dev).reshape(B, P)
+        bt = bt.to(torch.int32)
+        vlen = torch.tensor([0, 2 * ps, P * ps - 3, ps + 1, 300][:B],
+                            dtype=torch.int32, device=dev)
+        bt[0] = n_phys - 1                      # all-sentinel slot
+        bt[1, 2:] = n_phys + 5                  # past the pool, masked
+        bt[2, 0] = -1                           # clamps to page 0
+        out = paged_decode_attention(q, kp, vp, bt, vlen)
+        want = ref.paged_decode_attention_ref(q, kp, vp, bt, vlen)
+        torch.cuda.synchronize()
+        assert not out[0].any()
+        np.testing.assert_allclose(out.float().cpu().numpy(),
+                                   want.float().cpu().numpy(), rtol=tol,
+                                   atol=tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_cuda_decode_attention_matches_plain(dtype):
+    """Contiguous decode in the model layout: ragged T = 1601 (the vision
+    config's image tokens), valid_len < T, valid_len 0, G in {1, 8}."""
+    dev = _need_cuda()
+    dt = getattr(torch, dtype)
+    tol = 1e-4 if dtype == "float32" else 3e-2   # bf16 probabilities
+    gen = torch.Generator(device=dev).manual_seed(5)
+    for B, K, G, D, T, vlen in ((2, 8, 8, 128, 1601, None),
+                                (3, 2, 1, 64, 37, 30), (2, 2, 4, 64, 200, 0)):
+        q = torch.randn((B, K, G, D), generator=gen, device=dev).to(dt)
+        k = torch.randn((B, T, K, D), generator=gen, device=dev).to(dt)
+        v = torch.randn((B, T, K, D), generator=gen, device=dev).to(dt)
+        out = decode_attention(q, k, v, vlen)
+        want = decode_attention_plain(q, k, v, vlen)
+        torch.cuda.synchronize()
+        np.testing.assert_allclose(out.float().cpu().numpy(),
+                                   want.float().cpu().numpy(), rtol=tol,
+                                   atol=tol)
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("shape", [(5, 300, 70), (3, 1024, 70),
                                    (40, 256, 96)])
 def test_cuda_int8_matmul_matches_plain(shape):
@@ -150,6 +205,38 @@ def test_cuda_engine_matches_plain_engine_on_card():
         reqs = [Request(rid=i, prompt=p, max_new_tokens=n)
                 for i, (p, n) in enumerate(stream)]
         eng.serve(reqs)
+        outs.append(([r.tokens for r in reqs], dict(eng.stats)))
+    for a, b in zip(outs[0][0], outs[1][0]):
+        np.testing.assert_array_equal(a, b)
+    assert outs[0][1] == outs[1][1]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["whisper-base", "llama-3.2-vision-90b"])
+def test_cuda_family_engine_matches_plain_engine_on_card(arch):
+    """Kernel impls vs plain impls on the card, f32 reduced audio and vlm
+    configs: same dispatch counts and the same greedy tokens, every page
+    back at drain; the cross-attention decode kernel ran."""
+    from repro_torch.kernels import build
+    dev = _need_cuda()
+    rng = np.random.default_rng(3)
+    stream = [(rng.integers(0, 256, size=n).astype(np.int32), m)
+              for n, m in ((5, 6), (6, 1), (7, 9), (29, 4), (12, 12))]
+    cross = {"whisper-base": "paged_decode_attention",
+             "llama-3.2-vision-90b": "decode_attention"}[arch]
+    outs = []
+    for kernels in (False, True):
+        cfg = ARCHS[arch].reduced()
+        if kernels:
+            cfg = cfg.for_device(dev)
+        m = build_model(cfg, device=dev)
+        eng = ServingEngine(m, m.init(0), **KW)
+        reqs = [Request(rid=i, prompt=p, max_new_tokens=n)
+                for i, (p, n) in enumerate(stream)]
+        build.reset_launch_counts()
+        eng.serve(reqs)
+        assert (build.launch_counts[cross] > 0) == kernels
+        assert eng._alloc.n_free == eng.n_pages
         outs.append(([r.tokens for r in reqs], dict(eng.stats)))
     for a, b in zip(outs[0][0], outs[1][0]):
         np.testing.assert_array_equal(a, b)

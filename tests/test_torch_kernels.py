@@ -12,14 +12,18 @@ import pytest
 import torch
 
 from repro.kernels import ref as jref
+from repro.kernels.decode_attention import decode_attention as j_decode
 from repro.kernels.decode_attention import \
     fused_paged_decode_attention as j_fused
+from repro.kernels.decode_attention import \
+    paged_decode_attention as j_paged
 from repro.kernels.flash_attention import flash_attention as j_flash
 from repro.kernels.int8_matmul import int8_matmul as j_int8
 from repro.kernels.ops import flash_attention_grouped as j_grouped
 from repro_torch.kernels import build, ops
 from repro_torch.kernels import ref as tref
-from repro_torch.kernels.decode_attention import fused_paged_decode_attention
+from repro_torch.kernels.decode_attention import (
+    decode_attention, fused_paged_decode_attention, paged_decode_attention)
 from repro_torch.kernels.flash_attention import flash_attention
 from repro_torch.kernels.int8_matmul import int8_matmul
 
@@ -147,6 +151,99 @@ def test_fused_paged_plain_matches_jax_ref_composition(case):
     np.testing.assert_allclose(out.numpy(), np.asarray(jo)[:, 0], **TOL)
 
 
+DECODE_CASES = [
+    # (B, K, G, T, valid_len, dtype); T ragged (the Pallas kernel takes any
+    # T <= 512 as one block), valid_len < T or None (all of T)
+    (2, 2, 4, 37, 30, "float32"),
+    (3, 1, 1, 200, None, "float32"),
+    (2, 2, 1, 200, 123, "float32"),
+    (2, 2, 4, 37, None, "bfloat16"),
+    (1, 2, 4, 200, 77, "bfloat16"),
+]
+# bf16: the plain versions (torch and repro's ref) round probabilities to
+# bf16 before the PV product, the Pallas kernel keeps them in f32, and the
+# frameworks round the bf16 output at other places: a few bf16 ulps of
+# values of order 1
+BF16_TOL = dict(rtol=2e-2, atol=2e-2)
+
+
+@pytest.mark.parametrize("case", DECODE_CASES)
+def test_decode_attention_plain_matches_pallas_and_ref(case):
+    """The plain contiguous decode in the model layout (B, T, K, D) ==
+    repro's Pallas decode kernel (interpret mode) and its ref, which take
+    (B, K, T, D)."""
+    B, K, G, T, vlen, dt = case
+    D = 16
+    rng = np.random.default_rng(B * 1000 + T + G)
+    q, k, v = _randn(rng, B, K, G, D), _randn(rng, B, T, K, D), \
+        _randn(rng, B, T, K, D)
+    tdt, jdt = getattr(torch, dt), getattr(jnp, dt)
+    got = decode_attention(_t(q).to(tdt), _t(k).to(tdt), _t(v).to(tdt),
+                           vlen).float().numpy()
+    jq, jk, jv = (jnp.asarray(a, jdt) for a in
+                  (q, k.transpose(0, 2, 1, 3), v.transpose(0, 2, 1, 3)))
+    want_kernel = j_decode(jq, jk, jv, vlen, interpret=True)
+    want_ref = jref.decode_attention_ref(jq, jk, jv, T if vlen is None
+                                         else vlen)
+    tol = TOL if dt == "float32" else BF16_TOL
+    for want in (want_kernel, want_ref):
+        np.testing.assert_allclose(got, np.asarray(want, np.float32), **tol)
+
+
+def _paged_decode_inputs(seed, B=5, K=2, G=1, ps=8, P=4, n_pages=14, D=16):
+    rng = np.random.default_rng(seed)
+    q = _randn(rng, B, K, G, D)
+    kp, vp = _randn(rng, n_pages, ps, K, D), _randn(rng, n_pages, ps, K, D)
+    bt = rng.integers(0, n_pages, size=(B, P)).astype(np.int32)
+    # slot 0: valid_len 0; slot 1: exactly on a page boundary (2 pages);
+    # slot 2: mid page with sentinel entries after its pages; slot 3: an
+    # entry far outside the pool and a negative one past its length;
+    # slot 4: the whole logical span
+    vlen = np.array([0, 2 * ps, ps + 3, ps - 2, P * ps], np.int32)[:B]
+    bt[2, 2:] = n_pages                     # the sentinel
+    bt[3, 1] = n_pages + 7
+    bt[3, 2] = -3
+    return q, kp, vp, bt, vlen
+
+
+@pytest.mark.parametrize("G", [1, 2])
+def test_paged_decode_plain_matches_pallas(G):
+    """Plain attend-only paged decode == repro's Pallas paged decode kernel
+    (interpret mode): valid_len 0 gives zeros, pages past a slot's length
+    are skipped, sentinel and out-of-pool entries clamp into the pool."""
+    q, kp, vp, bt, vlen = _paged_decode_inputs(10 + G, G=G)
+    got = paged_decode_attention(_t(q), _t(kp), _t(vp), _t(bt),
+                                 _t(vlen)).numpy()
+    want = j_paged(jnp.asarray(q), jnp.asarray(kp), jnp.asarray(vp),
+                   jnp.asarray(bt), jnp.asarray(vlen), interpret=True)
+    np.testing.assert_allclose(got, np.asarray(want), **TOL)
+    assert not np.any(got[0]), "valid_len 0 must give exact zeros"
+    # repro's XLA composition (gather, then masked attend) agrees on every
+    # slot with something to attend
+    from repro.models.layers import paged_attention_core as j_core
+    want_xla = j_core(jnp.asarray(q)[:, None], jnp.asarray(kp),
+                      jnp.asarray(vp), jnp.asarray(bt),
+                      kv_valid_len=jnp.asarray(vlen), impl="xla")[:, 0]
+    np.testing.assert_allclose(got[1:], np.asarray(want_xla)[1:], **TOL)
+
+
+@pytest.mark.parametrize("vlen", [None, 21])
+def test_grouped_adapter_at_one_query_routes_to_decode(vlen):
+    """``flash_attention_grouped`` at S == 1 == repro's adapter, which sends
+    that shape to the Pallas decode kernel (interpret mode), with a scalar
+    ``kv_valid_len`` and with none; ``causal`` does not apply there."""
+    B, K, G, T, D = 2, 2, 2, 29, 16
+    rng = np.random.default_rng(T + (vlen or 0))
+    q, k, v = _randn(rng, B, 1, K, G, D), _randn(rng, B, T, K, D), \
+        _randn(rng, B, T, K, D)
+    got = ops.flash_attention_grouped(_t(q), _t(k), _t(v), causal=True,
+                                      kv_valid_len=vlen, impl="torch")
+    want = j_grouped(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+                     causal=True, kv_valid_len=vlen, interpret=True)
+    assert got.shape == (B, 1, K, G, D)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
+
+
 MM_CASES = [(1, 256, 128), (8, 512, 384), (128, 256, 128)]
 
 
@@ -181,8 +278,15 @@ def test_wrappers_on_cpu_launch_nothing():
     q = torch.zeros((1, 8, 1, 2, 16))
     k = torch.zeros((1, 8, 1, 16))
     flash_attention(q, k, k)
+    decode_attention(q[:, 0], k, k)
+    paged_decode_attention(q[:, 0], torch.zeros((2, 4, 1, 16)),
+                           torch.zeros((2, 4, 1, 16)),
+                           torch.zeros((1, 2), dtype=torch.int32),
+                           torch.ones((1,), dtype=torch.int32))
     int8_matmul(torch.zeros((2, 4)), torch.zeros((4, 4), dtype=torch.int8),
                 torch.ones(4))
     assert all(n == 0 for n in build.launch_counts.values())
     with pytest.raises(ValueError, match="CUDA kernel impl"):
         ops.flash_attention_grouped(q, k, k, impl="cuda")
+    with pytest.raises(ValueError, match="CUDA kernel impl"):
+        ops.flash_attention_grouped(q[:, :1], k, k, impl="cuda")
