@@ -8,11 +8,16 @@ fails:
 
 1. **Build** every CUDA kernel from ``src/repro_torch/csrc`` (one ``nvcc``
    per source, all started together) and print each kernel's ``-Xptxas -v``
-   registers, shared memory and spills.
+   registers, shared memory and spills; for flash's tensor-core body also
+   its dynamic shared memory and the ``HGMMA`` (wgmma) and ``UTMALDG`` (TMA
+   load) instruction counts of its library's SASS, both of which must be
+   above 0, and no spills.
 2. **Per-kernel**: each of the five kernels against its plain PyTorch
    version on the card, in bf16, at the main paths' full-width shapes plus
-   edge cases (flash: ragged S, valid_len < T, q_offset > 0, and at the
-   vision config's D = 128, G = 8 causal and non-causal over T = 1601;
+   edge cases (flash: ragged S, valid_len < T, q_offset > 0, whisper's
+   G = 1 self prefill at a ragged 300, and at the vision config's D = 128,
+   G = 8 causal and non-causal over T = 1601, with a ragged S, valid_len <
+   T and q_offset > 0;
    fused decode: an all-sentinel slot, pos on a page boundary, pos = 0, at
    D = 64 and at D = 128, G = 8; paged decode: valid_len 0, a length on a
    page boundary, sentinel and out-of-pool entries, stale rows past a
@@ -53,6 +58,7 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import re
 import statistics
 import subprocess
 import sys
@@ -112,12 +118,10 @@ def check_f32_ulps(torch, got, want32, what: str) -> float:
     """Hold a bf16 kernel result to the plain version run in f32 on the same
     (widened) inputs: every element within one bf16 ulp of the reference
     (rounding the f32 result to bf16 costs at most half of one) plus 1e-5
-    for f32 sums taken in another order. Returns the worst ratio of error
-    to that limit."""
-    ref = want32.float()
-    ulp = torch.exp2(torch.floor(torch.log2(ref.abs().clamp_min(2.0 ** -60)))
-                     - 7)
-    ratio = ((got.float() - ref).abs() / (ulp + 1e-5)).max().item()
+    for f32 sums taken in another order (``ref.bf16_ulp_ratio``). Returns
+    the worst ratio of error to that limit."""
+    from repro_torch.kernels.ref import bf16_ulp_ratio
+    ratio = bf16_ulp_ratio(got, want32)
     print(f"  {what} vs f32 plain: worst error / (1 bf16 ulp + 1e-5) "
           f"{ratio:.3f} (limit 1)")
     check(ratio <= 1.0, f"{what}: {ratio} of the f32 limit")
@@ -128,6 +132,47 @@ def bound(n_bytes: float, n_flops: float, peak_flops: float):
     t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
     t_ops = n_flops / peak_flops * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def flash_build_report(log: str) -> dict:
+    """The flash library's tensor-core body: its ptxas registers and spills
+    and its dynamic shared memory per head dim, and the count of ``HGMMA``
+    (wgmma) and ``UTMALDG`` (TMA load) instructions in the library's SASS.
+    Fails if the body spills or either count is 0."""
+    from repro_torch.kernels import build
+    lines = log.splitlines()
+    bodies = {}
+    for i, line in enumerate(lines):
+        hit = re.search(r"flash_fwd_wgmmaILi(\d+)E", line)
+        if "Compiling entry" not in line or hit is None:
+            continue
+        rest = lines[i + 1:i + 6]
+        regs = next(int(m.group(1)) for m in (
+            re.search(r"Used (\d+) registers", x) for x in rest) if m)
+        spill = next(tuple(map(int, m.groups())) for m in (
+            re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      x) for x in rest) if m)
+        D = int(hit.group(1))
+        smem = build.helper_fn("flash_attention_wgmma_smem_bytes")(D)
+        print(f"  flash_attention wgmma body D={D}: {regs} registers, "
+              f"{smem} bytes dynamic smem per block, spill stores/loads "
+              f"{spill[0]}/{spill[1]} bytes")
+        check(spill == (0, 0), f"flash wgmma body D={D} spills {spill}")
+        bodies[D] = dict(registers=regs, smem_bytes=smem)
+    check(sorted(bodies) == [64, 128],
+          f"flash wgmma bodies built: {sorted(bodies)}")
+    lib = build._lib_path(build.KERNELS["flash_attention"][0])
+    cuobjdump = Path(build.nvcc_path()).with_name("cuobjdump")
+    sass = subprocess.run([str(cuobjdump), "-sass", str(lib)],
+                          capture_output=True, text=True, timeout=300,
+                          check=True).stdout
+    counts = {op: len(re.findall(rf"\b{op}\b", sass))
+              for op in ("HGMMA", "UTMALDG")}
+    print(f"  flash_attention SASS ({lib.name}): {counts['HGMMA']} HGMMA, "
+          f"{counts['UTMALDG']} UTMALDG instructions")
+    check(counts["HGMMA"] > 0 and counts["UTMALDG"] > 0,
+          f"flash library lacks wgmma or TMA instructions: {counts}")
+    return dict(wgmma_bodies=bodies, sass=counts)
 
 
 # ---------------------------------------------------------------------------
@@ -176,6 +221,13 @@ def phase_flash(torch, dev, gen):
         ("D=128 G=8 causal bucket 256", 2, 256, 256, 8, 8, 128, True, 0,
          None),
         ("D=128 G=8 non-causal T=1601", 2, 256, 1601, 8, 8, 128, False, 0,
+         None),
+        # whisper-base's decoder self prefill (G = 1), then the vision
+        # widths with a ragged S, valid_len < T and q_offset > 0
+        ("K=8 G=1 ragged S=T=300", 2, 300, 300, 8, 1, 64, True, 0, None),
+        ("D=128 G=8 ragged S=300 valid_len 250 < T 320", 1, 300, 320, 8, 8,
+         128, True, 0, 250),
+        ("D=128 G=8 q_offset 448 > 0", 1, 64, 512, 8, 8, 128, True, 448,
          None),
     ]
     worst = 0.0
@@ -533,6 +585,15 @@ def profile_variant(torch, dev, model, params, stream, label):
     top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:8]
     for name, (us, n) in top:
         print(f"    {us / 1e3:9.2f} ms {n:6d} calls  {name[:90]}")
+    # the served paths send bf16 to flash prefill: its tensor-core body
+    # must run, and never the f32 SIMT body
+    flash = {name: v for name, v in by_name.items() if "flash_fwd" in name}
+    for name, (us, n) in sorted(flash.items()):
+        print(f"    flash prefill: {us / 1e3:9.2f} ms {n:6d} calls  "
+              f"{name[:90]}")
+    check(any("flash_fwd_wgmma" in name for name in flash)
+          and not any("flash_fwd_simt" in name for name in flash),
+          f"{label}: flash prefill bodies in the profile: {sorted(flash)}")
 
 
 def phase_main_path(torch, dev):
@@ -757,6 +818,7 @@ def main() -> int:
         for line in log.splitlines():
             if any(w in line for w in ("Compiling entry", "Used", "spill")):
                 print(f"  [{name}] {line.strip()}")
+    flash_build = flash_build_report(reports["flash_attention"])
 
     print(f"  phase 1 took {time.perf_counter() - t_start:.1f} s")
 
@@ -768,7 +830,7 @@ def main() -> int:
     fused["other_shapes"] = [{k: fused128[k] for k in (
         "shape", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")}]
     fused["max_abs_err"] = max(fused["max_abs_err"], fused128["max_abs_err"])
-    kernels = [phase_flash(torch, dev, gen), fused,
+    kernels = [dict(phase_flash(torch, dev, gen), **flash_build), fused,
                phase_int8(torch, dev, gen),
                phase_paged_decode(torch, dev, gen),
                phase_decode(torch, dev, gen)]

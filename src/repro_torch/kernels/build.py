@@ -59,6 +59,7 @@ KERNELS = {
 HELPERS = {
     "int8_matmul_splits": ("int8_matmul",
                            [_I, _I, _I, _I, ctypes.POINTER(_I)]),
+    "flash_attention_wgmma_smem_bytes": ("flash_attention", [_I]),
 }
 
 launch_counts: Dict[str, int] = {name: 0 for name in KERNELS}

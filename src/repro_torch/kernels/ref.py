@@ -17,6 +17,17 @@ import torch
 NEG_INF = -1e30
 
 
+def bf16_ulp_ratio(got: torch.Tensor, want32: torch.Tensor) -> float:
+    """Worst error of a bf16 kernel result against the plain version run in
+    f32 on the same (widened) inputs, over one bf16 ulp of the reference
+    (rounding the f32 result to bf16 costs at most half of one) plus 1e-5
+    for f32 sums taken in another order. The kernels are held to <= 1."""
+    ref = want32.float()
+    ulp = torch.exp2(torch.floor(torch.log2(ref.abs().clamp_min(2.0 ** -60)))
+                     - 7)
+    return ((got.float() - ref).abs() / (ulp + 1e-5)).max().item()
+
+
 def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                         causal: bool = True, q_offset: int = 0,
                         kv_valid_len: Optional[int] = None) -> torch.Tensor:

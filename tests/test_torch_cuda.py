@@ -66,6 +66,49 @@ def test_cuda_flash_attention_matches_plain():
             rtol=1e-4, atol=1e-4)
 
 
+FLASH_BF16_CASES = [
+    # (B, S, T, K, G, D, causal, q_offset, valid_len)
+    (2, 300, 300, 8, 1, 64, True, 0, None),     # whisper self prefill
+    (1, 300, 320, 8, 8, 128, True, 0, 250),     # ragged S, valid_len < T
+    (1, 64, 512, 8, 8, 128, True, 448, None),   # q_offset > 0
+    (2, 256, 1601, 8, 8, 128, False, 0, None),  # vision cross prefill
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", FLASH_BF16_CASES)
+def test_cuda_flash_wgmma_bf16_within_f32_ulp_rule(case):
+    """The tensor-core body on bf16 inputs against the plain version on the
+    same inputs widened to f32: within one bf16 ulp + 1e-5 everywhere."""
+    dev = _need_cuda()
+    B, S, T, K, G, D, causal, q_off, vlen = case
+    gen = torch.Generator(device=dev).manual_seed(S + D)
+    q = torch.randn((B, S, K, G, D), generator=gen, device=dev).bfloat16()
+    k = torch.randn((B, T, K, D), generator=gen, device=dev).bfloat16()
+    v = torch.randn((B, T, K, D), generator=gen, device=dev).bfloat16()
+    kw = dict(causal=causal, q_offset=q_off, valid_len=vlen)
+    got = flash_attention(q, k, v, **kw)
+    want32 = flash_attention_plain(q.float(), k.float(), v.float(), **kw)
+    torch.cuda.synchronize()
+    assert got.dtype == torch.bfloat16 and got.shape == q.shape
+    assert ref.bf16_ulp_ratio(got, want32) <= 1.0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("D", [16, 32])
+def test_cuda_flash_bf16_small_head_dim_raises(D):
+    """bf16 at D in {16, 32} has no tensor-core body: the wrapper raises and
+    launches nothing."""
+    from repro_torch.kernels import build
+    dev = _need_cuda()
+    q = torch.zeros((1, 8, 1, 1, D), device=dev, dtype=torch.bfloat16)
+    k = torch.zeros((1, 8, 1, D), device=dev, dtype=torch.bfloat16)
+    launches = build.launch_counts["flash_attention"]
+    with pytest.raises(ValueError, match="wgmma body"):
+        flash_attention(q, k, k)
+    assert build.launch_counts["flash_attention"] == launches
+
+
 @pytest.mark.cuda
 def test_cuda_fused_paged_decode_matches_plain():
     """A trash-page pool with a first-token slot, a page-boundary slot and

@@ -24,7 +24,7 @@ from repro_torch.kernels import build, ops
 from repro_torch.kernels import ref as tref
 from repro_torch.kernels.decode_attention import (
     decode_attention, fused_paged_decode_attention, paged_decode_attention)
-from repro_torch.kernels.flash_attention import flash_attention
+from repro_torch.kernels.flash_attention import flash_attention, flash_body
 from repro_torch.kernels.int8_matmul import int8_matmul
 
 TOL = dict(rtol=2e-5, atol=2e-5)
@@ -86,6 +86,103 @@ def test_flash_wrapper_model_layout_matches_jax_adapter(S):
         want_k = j_grouped(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
                            causal=True, interpret=True)
         np.testing.assert_allclose(got, np.asarray(want_k), **TOL)
+
+
+def _emulate_wgmma_body(q, k, v, *, causal, q_offset, valid_len,
+                        split=True, bk=64):
+    """The arithmetic of ``flash_attention.cu``'s bf16 tensor-core body in
+    torch, in the model layout: 64-key tiles in order, f32 S = Q.K^T, the
+    online softmax in f32 (row sum of the f32 p), P split into bf16 hi and
+    lo halves (``split=False`` drops lo) and O += hi.V + lo.V in f32, the
+    result rounded to bf16. Rows that see none of a tile get p = 0 and
+    alpha = 1 from it, so walking every row over the last row's tiles
+    equals the kernel's per-query-tile walk."""
+    B, S, K, G, D = q.shape
+    qh = q.permute(0, 2, 3, 1, 4)                       # (B, K, G, S, D)
+    kh = k.permute(0, 2, 1, 3)[:, :, None]              # (B, K, 1, T, D)
+    vh = v.permute(0, 2, 1, 3)[:, :, None]
+    m = torch.full(qh.shape[:-1], tref.NEG_INF)
+    l = torch.zeros(qh.shape[:-1])
+    acc = torch.zeros(qh.shape)
+    kv_end = min(valid_len, S + q_offset) if causal else valid_len
+    rows = torch.arange(S)[:, None] + q_offset
+    for k0 in range(0, kv_end, bk):
+        kt, vt = kh[..., k0:k0 + bk, :], vh[..., k0:k0 + bk, :]
+        t = torch.arange(k0, k0 + kt.shape[-2])[None, :]
+        s = (qh @ kt.transpose(-1, -2)) * torch.tensor(D ** -0.5)
+        live = (t < valid_len) & ((t <= rows) if causal else True)
+        s = torch.where(live, s, torch.full_like(s, tref.NEG_INF))
+        mx = torch.maximum(m, s.amax(-1))
+        alpha = torch.exp(m - mx)
+        p = torch.exp(s - mx[..., None])
+        l = l * alpha + p.sum(-1)
+        hi = p.bfloat16().float()
+        acc = acc * alpha[..., None] + hi @ vt
+        if split:
+            acc = acc + (p - hi).bfloat16().float() @ vt
+        m = mx
+    out = (acc / l.clamp_min(1e-30)[..., None]).bfloat16()
+    return out.permute(0, 3, 1, 2, 4)
+
+
+def _bf16_flash_inputs(D, causal, S=128, T=200, K=2, G=2):
+    """bf16-valued f32 inputs; causal cases attend from the last S of T
+    positions (q_offset = T - S), non-causal ones mask valid_len = 180."""
+    rng = np.random.default_rng(D + 2 * causal)
+
+    def bf(*shape):
+        return torch.from_numpy(_randn(rng, *shape)).bfloat16().float()
+
+    q, k, v = bf(1, S, K, G, D), bf(1, T, K, D), bf(1, T, K, D)
+    kw = dict(causal=causal, q_offset=T - S if causal else 0,
+              valid_len=T if causal else 180)
+    return q, k, v, kw
+
+
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("D", [64, 128])
+def test_flash_wgmma_arithmetic_meets_the_f32_ulp_rule(D, causal):
+    """With P split into bf16 hi + lo the tensor-core body's arithmetic is
+    within the f32 rule of the plain version, and of the JAX reference, in
+    f32 on the same inputs."""
+    q, k, v, kw = _bf16_flash_inputs(D, causal)
+    got = _emulate_wgmma_body(q, k, v, **kw)
+    want = flash_attention(q, k, v, **kw)       # plain on the CPU, f32
+    assert tref.bf16_ulp_ratio(got, want) <= 1.0
+    B, S, K, G, _ = q.shape
+    qh = jnp.asarray(q.numpy()).transpose(0, 2, 3, 1, 4).reshape(
+        B, K * G, S, D)
+    want_j = jref.flash_attention_ref(
+        qh, jnp.asarray(k.numpy()).transpose(0, 2, 1, 3),
+        jnp.asarray(v.numpy()).transpose(0, 2, 1, 3), causal=kw["causal"],
+        q_offset=kw["q_offset"], kv_valid_len=kw["valid_len"])
+    want_j = np.asarray(want_j).reshape(B, K, G, S, D).transpose(0, 3, 1, 2,
+                                                                 4)
+    assert tref.bf16_ulp_ratio(got, _t(want_j)) <= 1.0
+
+
+@pytest.mark.parametrize("D", [64, 128])
+def test_flash_wgmma_without_p_lo_misses_the_f32_ulp_rule(D):
+    """The reason for the split: rounding P to bf16 alone (the textbook
+    tensor-core flash) breaks the rule by far more than its limit."""
+    q, k, v, kw = _bf16_flash_inputs(D, True)
+    got = _emulate_wgmma_body(q, k, v, split=False, **kw)
+    assert tref.bf16_ulp_ratio(got, flash_attention(q, k, v, **kw)) > 4.0
+
+
+@pytest.mark.parametrize("dtype,D,body", [
+    (torch.bfloat16, 64, "wgmma"), (torch.bfloat16, 128, "wgmma"),
+    (torch.float32, 16, "simt"), (torch.float32, 128, "simt"),
+    (torch.bfloat16, 16, None), (torch.bfloat16, 32, None),
+    (torch.float16, 64, None)])
+def test_flash_body_dispatch_by_dtype_and_head_dim(dtype, D, body):
+    """bf16 runs the tensor-core body at D in {64, 128} only, f32 the SIMT
+    body; any other pair raises (no fallback between the bodies)."""
+    if body is None:
+        with pytest.raises((ValueError, TypeError)):
+            flash_body(dtype, D)
+    else:
+        assert flash_body(dtype, D) == body
 
 
 FUSED_CASES = [
