@@ -57,6 +57,7 @@ every kernel's numbers, and the result line
 from __future__ import annotations
 
 import dataclasses
+import itertools
 import json
 import re
 import statistics
@@ -83,6 +84,9 @@ SERVE_REPEATS = {"llama3.2-1b": 15, "whisper-base": 9,
                  "llama-3.2-vision-90b": 5}
 VISION_LAYERS = 20          # serve depth of llama-3.2-vision-90b (of 100)
 VISION_TF_LAYERS = 10       # its f32 teacher-forced depth: one group
+# (Kd, N) of llama3.2-1b's int8 projections: q and o, k and v, gate and up,
+# down
+INT8_SHAPES = [(2048, 2048), (2048, 512), (2048, 8192), (8192, 2048)]
 
 
 def card_line() -> str:
@@ -98,20 +102,55 @@ def check(cond: bool, msg: str) -> None:
         raise RuntimeError(f"check failed: {msg}")
 
 
-def cuda_ms(fn, iters: int = 20, warmup: int = 3) -> float:
-    """Mean device time of ``fn()`` over ``iters`` launches (CUDA events)."""
+def cuda_ms(fn, iters: int = 20, warmup: int = 3, hold: bool = True
+            ) -> float:
+    """Mean device time of ``fn()`` over ``iters`` launches (CUDA events).
+
+    With ``hold`` (every kernel's ``ms``) the timed launches queue up
+    behind a spin kernel that outlasts their host-side enqueue, so the
+    device runs them back to back: the time is device time even where a
+    call's host overhead exceeds its kernel's. Without it (the earlier
+    timer, kept for comparison) each launch starts when the host has
+    enqueued it, so a call whose enqueue outlasts its kernel reads as its
+    enqueue time."""
     import torch
     for _ in range(warmup):
         fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(warmup):
+        fn()
+    host_s = (time.perf_counter() - t0) / warmup    # enqueue, at most
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
     torch.cuda.synchronize()
+    if hold:
+        # four times the enqueue time and 1 ms more (a slow host call must
+        # not let the queue run dry), at most 0.5 s, in cycles at 2e9 a
+        # second (above the card's top clock, so it lasts at least that)
+        torch.cuda._sleep(int(min(4 * iters * host_s + 1e-3, 0.5) * 2e9))
     start.record()
     for _ in range(iters):
         fn()
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def host_us(fn, calls: int = 50) -> float:
+    """Host time of one ``fn()`` call in microseconds: its enqueue alone,
+    as the calls go into a queue that a spin kernel holds, so that none
+    waits for the device."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    torch.cuda._sleep(int(0.05 * 2e9))     # 50 ms or more, past 50 enqueues
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    t = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return t / calls * 1e6
 
 
 def check_f32_ulps(torch, got, want32, what: str) -> float:
@@ -173,6 +212,59 @@ def flash_build_report(log: str) -> dict:
     check(counts["HGMMA"] > 0 and counts["UTMALDG"] > 0,
           f"flash library lacks wgmma or TMA instructions: {counts}")
     return dict(wgmma_bodies=bodies, sass=counts)
+
+
+def int8_build_report(log: str) -> dict:
+    """The int8 library's two bodies: the ptxas registers and spills of
+    every instantiation, and the launch (column tile, cluster, dynamic
+    shared memory) at the main paths' shapes. Fails if a body is missing
+    or an instantiation that those shapes run spills."""
+    import torch
+    from repro_torch.kernels.int8_matmul import int8_plan
+    lines = log.splitlines()
+    built = {}
+    for i, line in enumerate(lines):
+        hit = re.search(r"int8_(gemv|mma)_kernelI(f|13__nv_bfloat16)"
+                        r"((?:Li\d+E)*)E", line)
+        if "Compiling entry" not in line or hit is None:
+            continue
+        rest = lines[i + 1:i + 6]
+        regs = next(int(m.group(1)) for m in (
+            re.search(r"Used (\d+) registers", x) for x in rest) if m)
+        spill = next(tuple(map(int, m.groups())) for m in (
+            re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      x) for x in rest) if m)
+        dt = "f32" if hit.group(2) == "f" else "bf16"
+        ints = re.findall(r"Li(\d+)E", hit.group(3))
+        key = (f"gemv {dt} MT={ints[0]} BN={ints[1]}"
+               if hit.group(1) == "gemv" else f"mma {dt}")
+        built[key] = dict(registers=regs, spill_bytes=spill)
+    for key, v in sorted(built.items()):
+        print(f"  int8_matmul {key}: {v['registers']} registers, spill "
+              f"stores/loads {v['spill_bytes'][0]}/{v['spill_bytes'][1]} B")
+    check(any(k.startswith("gemv") for k in built)
+          and any(k.startswith("mma") for k in built),
+          f"int8 bodies built: {sorted(built)}")
+    main = {}
+    for M in (8, 2048):
+        for (Kd, N), dt in ((s, torch.bfloat16) for s in INT8_SHAPES):
+            main[(M, Kd, N, dt)] = int8_plan(M, N, Kd, dt)
+        main[(M, 8192, 2048, torch.float32)] = int8_plan(M, 2048, 8192,
+                                                         torch.float32)
+    runs = {}
+    for (M, Kd, N, dt), plan in main.items():
+        d = "f32" if dt == torch.float32 else "bf16"
+        key = (f"gemv {d} MT={M} BN={plan['block_n']}"
+               if plan["body"] == "gemv" else f"mma {d}")
+        print(f"  int8_matmul M={M} K={Kd} N={N} {d} x: {plan['body']} "
+              f"body, {plan['block_n']} columns per block, cluster "
+              f"{plan['cluster']}, {plan['smem_bytes']} B dynamic smem "
+              f"({key})")
+        check(key in built and built[key]["spill_bytes"] == (0, 0),
+              f"int8 body {key} missing or spills")
+        runs[key] = dict(built[key], smem_bytes=plan["smem_bytes"],
+                         cluster=plan["cluster"])
+    return dict(bodies=runs)
 
 
 # ---------------------------------------------------------------------------
@@ -452,18 +544,98 @@ def phase_decode(torch, dev, gen, B=8, K=8, G=8, D=128, T=1601):
                 bound_by=b_by, library_ms=lib_ms, shape=shape)
 
 
+def time_int8(torch, x, w_q, s):
+    """Kernel, plain version and ``torch.mm`` on the dequantised weight in
+    x's dtype (TF32 off for f32) at one shape, beside the bound, under two
+    timers. ``ms``: launches held back to back (``cuda_ms``), each timed
+    call taking the next of enough weight copies to pass 100 MB, twice the
+    L2 cache, as a decode step streams its 994 MB of weights cold.
+    ``ms_paced``: the earlier timer, launches paced by the host, one weight
+    copy (warm in L2). ``host_us``: the host time of one call. f32 x costs the
+    tensor-core body three bf16 passes (x split into hi, mid and lo), so its
+    operations count three times."""
+    from repro_torch.kernels.int8_matmul import int8_matmul
+    from repro_torch.kernels.ref import int8_matmul_ref
+    M, Kd = x.shape
+    N = w_q.shape[1]
+    n_copies = min(64, max(2, -(-100_000_000 // (Kd * N))))
+    ws = [(w_q.clone(), s.clone()) for _ in range(n_copies)]
+    w_deq = [((q.float() * sc).to(x.dtype),) for q, sc in ws]
+
+    def cycle(fn, args):
+        it = itertools.cycle(args)
+        return lambda: fn(*next(it))
+
+    def kernel(q, sc):
+        return int8_matmul(x, q, sc)
+
+    def library(wd):
+        return torch.mm(x, wd)
+
+    ms = cuda_ms(cycle(kernel, ws))
+    plain_ms = cuda_ms(cycle(lambda q, sc: int8_matmul_ref(x.float(), q, sc),
+                             ws))
+    lib_ms = cuda_ms(cycle(library, w_deq))
+    ms_paced = cuda_ms(lambda: kernel(*ws[0]), hold=False)
+    lib_paced = cuda_ms(lambda: library(*w_deq[0]), hold=False)
+    h_us = host_us(cycle(kernel, ws))
+    lib_h_us = host_us(cycle(library, w_deq))
+    del ws, w_deq
+    f32 = x.dtype == torch.float32
+    n_bytes = x.element_size() * M * Kd + Kd * N + 4 * N + 4 * M * N
+    b_ms, b_by = bound(n_bytes, (3 if f32 else 1) * 2 * M * N * Kd,
+                       BF16_FLOPS)
+    dt = "f32" if f32 else "bf16"
+    shape = f"M={M} K={Kd} N={N} {dt} x"
+    print(f"  int8_matmul {shape}: {ms:.4f} ms held, cold (plain "
+          f"{plain_ms:.4f}, torch.mm {dt} {lib_ms:.4f}, bound {b_ms:.5f} "
+          f"by {b_by}; {n_copies} weight copies); paced, warm {ms_paced:.4f}"
+          f" (torch.mm {lib_paced:.4f}); host {h_us:.1f} us a call "
+          f"(torch.mm {lib_h_us:.1f})")
+    return dict(shape=shape, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+                bound_by=b_by, library_ms=lib_ms, ms_paced=ms_paced,
+                library_ms_paced=lib_paced, host_us=h_us,
+                library_host_us=lib_h_us)
+
+
+# f32 x's second limit, as a share of max|ref|. The first (2e-3) passes
+# x rounded to bf16 once, the shortcut that the three-term split avoids.
+# Set from readings (chip_smoke.py on an NVIDIA H100 80GB HBM3, 700 W): the
+# split body's worst error 2.6e-6 / 2.4e-5 at M = 8 / 2048 (max|ref| about
+# 4-5); the one-pass control's, 1e-3 to 4e-3.
+F32_X_RTOL = 2e-5
+
+
+def check_f32_x(torch, x, w_q, s, got, want) -> None:
+    """Hold the kernel on f32 x within ``F32_X_RTOL`` of max|ref|, and show
+    that the limit catches the kernel run on x rounded to bf16 once."""
+    from repro_torch.kernels.int8_matmul import int8_matmul
+    lim = F32_X_RTOL * want.abs().max().item()
+    err = (got - want).abs().max().item()
+    err1 = (int8_matmul(x.bfloat16(), w_q, s) - want).abs().max().item()
+    print(f"    f32 x M={x.shape[0]}: max_abs_err {err:.3e}, one bf16 pass "
+          f"{err1:.3e}, limit {lim:.3e} ({F32_X_RTOL} x max|ref|)")
+    check(err <= lim, f"int8_matmul f32 x M={x.shape[0]}: err {err} > {lim}")
+    check(err1 > lim, f"int8_matmul f32 x M={x.shape[0]}: one bf16 pass "
+          f"within the limit ({err1} <= {lim})")
+
+
 def phase_int8(torch, dev, gen):
     from repro_torch.kernels.int8_matmul import int8_matmul
     from repro_torch.kernels.ref import int8_matmul_ref, quantize_int8
     # f32 accumulation in another order than the plain f32 product
     rtol = atol = 2e-3
-    shapes = [(2048, 2048), (2048, 512), (2048, 8192), (8192, 2048)]
-    cases = [(m, kd, n) for kd, n in shapes for m in (1, 8, 8 * 256)]
-    cases += [(5, 2048, 1000), (77, 300, 130)]    # N not a tile multiple
+    shapes = INT8_SHAPES
+    cases = [(m, kd, n, torch.bfloat16) for kd, n in shapes
+             for m in (1, 8, 8 * 256)]
+    cases += [(5, 2048, 1000, torch.bfloat16),     # N not a tile multiple
+              (77, 300, 130, torch.bfloat16)]
+    # the down projection's x is f32 (silu(g) * u of two f32 products)
+    cases += [(m, 8192, 2048, torch.float32) for m in (8, 8 * 256)]
     worst = 0.0
     timed = {}
-    for M, Kd, N in cases:
-        x = torch.randn((M, Kd), generator=gen, device=dev).bfloat16()
+    for M, Kd, N, dt in cases:
+        x = torch.randn((M, Kd), generator=gen, device=dev).to(dt)
         w = torch.randn((Kd, N), generator=gen, device=dev) / Kd ** 0.5
         w_q, s = quantize_int8(w)
         got = int8_matmul(x, w_q, s)
@@ -472,27 +644,25 @@ def phase_int8(torch, dev, gen):
         err = (got - want).abs().max().item()
         lim = atol + rtol * want.abs().max().item()
         check(got.dtype == torch.float32, "int8_matmul output dtype")
-        check(err <= lim, f"int8_matmul M={M} K={Kd} N={N}: err {err}")
+        check(err <= lim, f"int8_matmul M={M} K={Kd} N={N} {dt}: err {err}")
         worst = max(worst, err)
+        if dt == torch.float32:
+            check_f32_x(torch, x, w_q, s, got, want)
         if (Kd, N) in shapes and M in (8, 8 * 256):
-            w_deq = (w_q.float() * s).bfloat16()
-            ms = cuda_ms(lambda: int8_matmul(x, w_q, s))
-            plain_ms = cuda_ms(lambda: int8_matmul_ref(x.float(), w_q, s))
-            lib_ms = cuda_ms(lambda: torch.mm(x, w_deq))
-            n_bytes = 2 * M * Kd + Kd * N + 4 * N + 4 * M * N
-            b_ms, b_by = bound(n_bytes, 2 * M * N * Kd, BF16_FLOPS)
-            timed[(M, Kd, N)] = (ms, plain_ms, lib_ms, b_ms, b_by)
-            print(f"  int8_matmul M={M} K={Kd} N={N}: {ms:.4f} ms (plain "
-                  f"{plain_ms:.4f}, torch.mm bf16 {lib_ms:.4f}, bound "
-                  f"{b_ms:.5f} by {b_by}), max_abs_err {err:.2e}")
+            timed[(M, Kd, N, dt)] = time_int8(torch, x, w_q, s)
+            print(f"    max_abs_err {err:.2e}")
     print(f"  int8_matmul: {len(cases)} shapes within atol {atol} + rtol "
           f"{rtol} x max|ref|, worst max_abs_err {worst:.3e}")
-    ms, plain_ms, lib_ms, b_ms, b_by = timed[(8, 2048, 8192)]
+    main = timed.pop((8, 2048, 8192, torch.bfloat16))
     return dict(name="int8_matmul", route="cuda",
                 source="src/repro_torch/csrc/int8_matmul.cu",
                 replaces="src/repro/kernels/int8_matmul.py:64",
-                max_abs_err=worst, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
-                bound_by=b_by, library_ms=lib_ms)
+                max_abs_err=worst, ms=main["ms"], plain_ms=main["plain_ms"],
+                bound_ms=main["bound_ms"], bound_by=main["bound_by"],
+                library_ms=main["library_ms"], shape=main["shape"],
+                ms_paced=main["ms_paced"],
+                library_ms_paced=main["library_ms_paced"],
+                host_us=main["host_us"], other_shapes=list(timed.values()))
 
 
 # ---------------------------------------------------------------------------
@@ -559,12 +729,14 @@ def profile_variant(torch, dev, model, params, stream, label):
     device kernel time over host wall time, profiler on) and the kernels
     with the most device time."""
     from torch.profiler import ProfilerActivity, profile
+    from repro_torch.kernels import build
     from repro_torch.serving.engine import Request, ServingEngine
     eng = ServingEngine(model, params, max_batch=8, max_len=512,
                         decode_block=16, page_size=16)
     reqs = [Request(rid=i, prompt=p, max_new_tokens=m)
             for i, (p, m) in enumerate(stream[:8])]
     eng.warmup(prompt_lens=[len(r.prompt) for r in reqs])
+    build.reset_launch_counts()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
@@ -594,6 +766,19 @@ def profile_variant(torch, dev, model, params, stream, label):
     check(any("flash_fwd_wgmma" in name for name in flash)
           and not any("flash_fwd_simt" in name for name in flash),
           f"{label}: flash prefill bodies in the profile: {sorted(flash)}")
+    # the int8 GEMM: one kernel per wrapper call (the first version added a
+    # split-K reduce kernel at decode)
+    int8 = {name: v for name, v in by_name.items()
+            if "int8_gemv" in name or "int8_mma" in name}
+    for name, (us, n) in sorted(int8.items()):
+        print(f"    int8 GEMM: {us / 1e3:9.2f} ms {n:6d} calls  {name[:90]}")
+    calls = sum(n for _, n in int8.values())
+    check(calls == build.launch_counts["int8_matmul"]
+          and not any("splitk_reduce" in name for name in by_name),
+          f"{label}: {calls} int8 kernels in the profile for "
+          f"{build.launch_counts['int8_matmul']} wrapper launches")
+    return dict(device_ms=busy_us / 1e3, wall_ms=wall_us / 1e3,
+                int8_ms=sum(us for us, _ in int8.values()) / 1e3)
 
 
 def phase_main_path(torch, dev):
@@ -819,6 +1004,7 @@ def main() -> int:
             if any(w in line for w in ("Compiling entry", "Used", "spill")):
                 print(f"  [{name}] {line.strip()}")
     flash_build = flash_build_report(reports["flash_attention"])
+    int8_build = int8_build_report(reports["int8_matmul"])
 
     print(f"  phase 1 took {time.perf_counter() - t_start:.1f} s")
 
@@ -831,7 +1017,7 @@ def main() -> int:
         "shape", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")}]
     fused["max_abs_err"] = max(fused["max_abs_err"], fused128["max_abs_err"])
     kernels = [dict(phase_flash(torch, dev, gen), **flash_build), fused,
-               phase_int8(torch, dev, gen),
+               dict(phase_int8(torch, dev, gen), **int8_build),
                phase_paged_decode(torch, dev, gen),
                phase_decode(torch, dev, gen)]
     print(f"  phase 2 took {time.perf_counter() - t0:.1f} s")

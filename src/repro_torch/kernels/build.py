@@ -44,7 +44,7 @@ KERNELS = {
          _P]),
     "int8_matmul": (
         "int8_matmul.cu", "int8_matmul_fwd",
-        [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P]),
+        [_P, _P, _P, _P, _I, _I, _I, _I, _P]),
     "paged_decode_attention": (
         "paged_decode.cu", "paged_decode_fwd",
         [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I,
@@ -57,8 +57,7 @@ KERNELS = {
 # host-side helpers a library exports beside its kernel:
 # symbol -> (kernel whose library holds it, argtypes)
 HELPERS = {
-    "int8_matmul_splits": ("int8_matmul",
-                           [_I, _I, _I, _I, ctypes.POINTER(_I)]),
+    "int8_matmul_plan": ("int8_matmul", [_I, _I, _I, _I, ctypes.POINTER(_I)]),
     "flash_attention_wgmma_smem_bytes": ("flash_attention", [_I]),
 }
 

@@ -16,13 +16,13 @@ import pytest
 import torch
 
 from repro_torch.configs.registry import ARCHS
-from repro_torch.kernels import ref
+from repro_torch.kernels import build, ref
 from repro_torch.kernels.decode_attention import (
     decode_attention, decode_attention_plain, fused_paged_decode_attention,
     paged_decode_attention)
 from repro_torch.kernels.flash_attention import (flash_attention,
                                                  flash_attention_plain)
-from repro_torch.kernels.int8_matmul import int8_matmul, int8_splits
+from repro_torch.kernels.int8_matmul import int8_body, int8_matmul, int8_plan
 from repro_torch.models import build_model
 from repro_torch.models.quantize import quantize_params_dense
 from repro_torch.serving.engine import Request, ServingEngine
@@ -194,10 +194,14 @@ def test_cuda_decode_attention_matches_plain(dtype):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("shape", [(5, 300, 70), (3, 1024, 70),
-                                   (40, 256, 96)])
+@pytest.mark.parametrize("shape", [
+    (5, 300, 70), (3, 1024, 70), (40, 256, 96),
+    (1, 2048, 2048), (16, 2048, 512), (8, 8192, 2048),  # gemv, aligned
+    (16, 301, 136), (17, 2048, 512), (17, 300, 130),    # edges of the bodies
+    (2048, 2048, 512), (2048, 8192, 2048), (200, 520, 1000)])
 def test_cuda_int8_matmul_matches_plain(shape):
-    """Unsplit, split-K (small M) and the large-M tiling, ragged edges."""
+    """Both bodies (gemv at M <= 16, mma above) at bf16 and f32 x, aligned
+    shapes and ragged M, N and Kd, against the plain version."""
     dev = _need_cuda()
     M, Kd, N = shape
     gen = torch.Generator(device=dev).manual_seed(M)
@@ -212,21 +216,31 @@ def test_cuda_int8_matmul_matches_plain(shape):
 
 
 @pytest.mark.cuda
-def test_int8_split_k_fills_the_card_only_at_small_m():
-    """The split policy lives in the CUDA source beside the tile it sizes
-    (16 x 32 at M <= 16): about two blocks per SM, each split at least 256
-    deep, and no split at prefill."""
-    _need_cuda()
-    dev = torch.device("cuda", torch.cuda.current_device())
-    n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
-    assert int8_splits(2048, 2048, 2048, dev) == 1          # prefill
-    assert int8_splits(5, 70, 300, dev) == 1                # Kd < 512
-    assert int8_splits(8, 512, 2048, dev) == min(2 * n_sm // 16, 8)
-    assert int8_splits(8, 2048, 8192, dev) == \
-        max(1, min(2 * n_sm // 64, 32))
-    if n_sm == 132:                                         # H100 SXM
-        assert int8_splits(8, 8192, 2048, dev) == 1         # 256 tiles
-        assert int8_splits(8, 2048, 8192, dev) == 4
+def test_int8_gemv_is_one_launch_and_deterministic():
+    """At decode (M = 8, 2048 x 8192) the gemv body is one launch per call,
+    with no workspace, and its cluster adds the K-split partial sums in a
+    fixed order: two calls agree bitwise."""
+    dev = _need_cuda()
+    gen = torch.Generator(device=dev).manual_seed(8)
+    x = torch.randn((8, 2048), generator=gen, device=dev).bfloat16()
+    w_q, s = ref.quantize_int8(torch.randn((2048, 8192), generator=gen,
+                                           device=dev))
+    assert int8_body(8, x.dtype) == "gemv"
+    assert int8_plan(8, 8192, 2048, x.dtype)["cluster"] > 1
+    int8_matmul(x, w_q, s)
+    torch.cuda.synchronize()
+    build.reset_launch_counts()
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        a = int8_matmul(x, w_q, s)
+        b = int8_matmul(x, w_q, s)
+        torch.cuda.synchronize()
+    assert build.launch_counts["int8_matmul"] == 2
+    kernels = [e.name for e in prof.events()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    assert len(kernels) == 2 and all("int8_gemv" in k for k in kernels), \
+        kernels
+    assert torch.equal(a, b)
 
 
 @pytest.mark.cuda

@@ -25,7 +25,7 @@ from repro_torch.kernels import ref as tref
 from repro_torch.kernels.decode_attention import (
     decode_attention, fused_paged_decode_attention, paged_decode_attention)
 from repro_torch.kernels.flash_attention import flash_attention, flash_body
-from repro_torch.kernels.int8_matmul import int8_matmul
+from repro_torch.kernels.int8_matmul import int8_body, int8_matmul
 
 TOL = dict(rtol=2e-5, atol=2e-5)
 
@@ -366,6 +366,146 @@ def test_int8_plain_matches_pallas_and_ref(case):
                                rtol=1e-4, atol=1e-4)
     np.testing.assert_allclose(got.numpy(), np.asarray(want_kernel),
                                rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("M,body", [(1, "gemv"), (8, "gemv"), (16, "gemv"),
+                                    (17, "mma"), (2048, "mma")])
+def test_int8_body_dispatch_by_m(M, body, dtype):
+    """M <= 16 (decode) runs the gemv body, larger M the tensor-core body,
+    at either x dtype."""
+    assert int8_body(M, dtype) == body
+
+
+@pytest.mark.parametrize("dtype,M,exc", [(torch.float16, 8, TypeError),
+                                         (torch.int8, 2048, TypeError),
+                                         (torch.bfloat16, 0, ValueError)])
+def test_int8_body_refuses_other_dtypes(dtype, M, exc):
+    with pytest.raises(exc):
+        int8_body(M, dtype)
+
+
+def _split_bf16x3(x):
+    """The int8_mma body's split of f32 x: hi = x truncated to bf16, mid =
+    the remainder truncated, lo = what is left."""
+    mask = torch.tensor(-65536, dtype=torch.int32)          # 0xFFFF0000
+    hi = (x.view(torch.int32) & mask).view(torch.float32)
+    r = x - hi
+    mid = (r.view(torch.int32) & mask).view(torch.float32)
+    return hi, mid, r - mid
+
+
+def test_int8_f32_split_into_three_bf16_terms_is_exact():
+    """hi + mid + lo == x bitwise for seeded f32 x over normal, tiny (down
+    to 2^-110) and huge exponents (up to f32's largest), negatives and
+    zeros, and each term is a bf16 value. Below 2^-110 the bits under
+    bf16's smallest subnormal (2^-133) are lost: the error stays below
+    2^-133."""
+    rng = np.random.default_rng(14)
+    mant = rng.uniform(1.0, 2.0, 4000) * rng.choice([-1.0, 1.0], 4000)
+    exps = rng.integers(-110, 128, 4000).astype(np.float64)
+    x = np.concatenate([(mant * 2.0 ** exps).astype(np.float32),
+                        _randn(rng, 1000), _randn(rng, 100) * 1e-30,
+                        np.float32([0.0, -0.0, 3.4028235e38, -3.4028235e38,
+                                    2.0 ** -110, 1.0 + 2.0 ** -23])])
+    xt = _t(x)
+    hi, mid, lo = _split_bf16x3(xt)
+    for term in (hi, mid, lo):
+        assert torch.equal(term.bfloat16().float(), term)
+    back = hi + mid + lo
+    nz = xt != 0
+    assert torch.equal(back[nz].view(torch.int32), xt[nz].view(torch.int32))
+    assert torch.equal(back[~nz], xt[~nz])
+    tiny = _t((rng.uniform(1.0, 2.0, 500)
+               * 2.0 ** rng.integers(-149, -110, 500)).astype(np.float32))
+    hi, mid, lo = _split_bf16x3(tiny)
+    lo_kept = (lo.view(torch.int32) & -65536).view(torch.float32)
+    assert ((hi + mid + lo_kept) - tiny).abs().max().item() < 2.0 ** -133
+
+
+def test_int8_widens_exactly_to_bf16():
+    """Every int8 weight value (the quantiser's -127..127, and -128) is
+    exact in bf16, and the kernels' widening (the byte, biased to unsigned,
+    as the low mantissa byte of 2^23, minus 2^23 + 128) gives it exactly."""
+    b = torch.arange(-128, 128, dtype=torch.int32)
+    assert torch.equal(b.to(torch.int8).to(torch.bfloat16).float(),
+                       b.float())
+    u = (b.to(torch.int8).view(torch.uint8).int() ^ 0x80) | 0x4B000000
+    widened = u.view(torch.float32) - 8388736.0
+    assert torch.equal(widened, b.float())
+    assert torch.equal(widened.bfloat16().float(), widened)
+
+
+def _emulate_int8_mma(x, w_q, scales, *, split=True, chain=128):
+    """The tensor-core bodies' arithmetic in torch: x as bf16 terms (bf16 x
+    itself; f32 x as hi, mid and lo, or rounded to bf16 once when
+    ``split=False``), w_q widened to bf16, exact bf16 products summed in
+    f32 over k steps of 16 and x's terms into one partial per ``chain``
+    rows of k (128 in the prefill body, 64 in the decode body), the
+    partials added in order, the scales applied once at the end. (The
+    card's mma accumulator also truncates inside a chain; the card tests
+    hold that to the plain version.)"""
+    if x.dtype == torch.bfloat16:
+        terms = [x.float()]
+    elif split:
+        terms = list(_split_bf16x3(x))
+    else:
+        terms = [x.bfloat16().float()]
+    w = w_q.to(torch.bfloat16).float()
+    acc = torch.zeros((x.shape[0], w.shape[1]))
+    for t0 in range(0, x.shape[1], chain):
+        part = torch.zeros_like(acc)
+        for k0 in range(t0, min(t0 + chain, x.shape[1]), 16):
+            for t in terms:
+                part = part + t[:, k0:k0 + 16] @ w[k0:k0 + 16]
+        acc = acc + part
+    return acc * scales
+
+
+@pytest.mark.parametrize("xdtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("case", MM_CASES)
+def test_int8_mma_arithmetic_matches_ref_and_pallas(case, xdtype):
+    """The tensor-core body's arithmetic (three bf16 passes for f32 x, one
+    for bf16 x) equals the f32 plain version, the JAX reference and the
+    Pallas kernel (interpret mode) up to the order of f32 sums."""
+    M, Kd, N = case
+    rng = np.random.default_rng(M * Kd + N)
+    x = _randn(rng, M, Kd)
+    if xdtype == "bfloat16":                    # bf16 values, held in f32
+        x = _t(x).bfloat16().float().numpy()
+    w_q, s = tref.quantize_int8(_t(_randn(rng, Kd, N)))
+    xt = _t(x) if xdtype == "float32" else _t(x).bfloat16()
+    # the chain depth of the body that this M runs
+    got = _emulate_int8_mma(
+        xt, w_q, s, chain=64 if int8_body(M, xt.dtype) == "gemv" else 128)
+    want = tref.int8_matmul_ref(_t(x), w_q, s)
+    # rtol 1e-5 of each element, and of the output's scale for elements
+    # near 0: the plain versions scale w before the sum (one rounding per
+    # term), the kernel after it
+    tol = dict(rtol=1e-5, atol=1e-5 * want.abs().max().item())
+    np.testing.assert_allclose(got.numpy(), want.numpy(), **tol)
+    jw_q, js = jnp.asarray(w_q.numpy()), jnp.asarray(s.numpy())
+    np.testing.assert_allclose(
+        got.numpy(), np.asarray(jref.int8_matmul_ref(jnp.asarray(x), jw_q,
+                                                     js)), **tol)
+    mp = -(-M // 8) * 8                # the Pallas kernel wants M % block == 0
+    xp = np.zeros((mp, Kd), np.float32)
+    xp[:M] = x
+    want_k = j_int8(jnp.asarray(xp), jw_q, js, block_m=min(128, mp),
+                    interpret=True)[:M]
+    np.testing.assert_allclose(got.numpy(), np.asarray(want_k), **tol)
+
+
+def test_int8_mma_one_bf16_pass_of_f32_x_misses_the_plain_version():
+    """The reason for the split: rounding f32 x to bf16 once (or to TF32)
+    computes another function, far outside the tolerance of sum order."""
+    M, Kd, N = MM_CASES[1]
+    rng = np.random.default_rng(7)
+    x = _t(_randn(rng, M, Kd))
+    w_q, s = tref.quantize_int8(_t(_randn(rng, Kd, N)))
+    want = tref.int8_matmul_ref(x, w_q, s)
+    err = (_emulate_int8_mma(x, w_q, s, split=False) - want).abs().max()
+    assert err.item() > 100 * 1e-5 * (1 + want.abs().max().item())
 
 
 def test_wrappers_on_cpu_launch_nothing():
