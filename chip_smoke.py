@@ -11,7 +11,9 @@ fails:
    registers, shared memory and spills; for flash's tensor-core body also
    its dynamic shared memory and the ``HGMMA`` (wgmma) and ``UTMALDG`` (TMA
    load) instruction counts of its library's SASS, both of which must be
-   above 0, and no spills.
+   above 0, and no spills; for the decode kernels' tensor-core body
+   (contiguous and fused) its registers, dynamic shared memory and spills
+   (none allowed) and the ``HMMA`` count of both libraries (above 0).
 2. **Per-kernel**: each of the five kernels against its plain PyTorch
    version on the card, in bf16, at the main paths' full-width shapes plus
    edge cases (flash: ragged S, valid_len < T, q_offset > 0, whisper's
@@ -19,7 +21,10 @@ fails:
    G = 8 causal and non-causal over T = 1601, with a ragged S, valid_len <
    T and q_offset > 0;
    fused decode: an all-sentinel slot, pos on a page boundary, pos = 0, at
-   D = 64 and at D = 128, G = 8; paged decode: valid_len 0, a length on a
+   D = 64 and at D = 128, G = 8, and at whisper-base's G = 1, D = 64 with
+   slots of several spans, the write row in a later span and on a span's
+   first and last row; two calls give the same bits on every slot;
+   paged decode: valid_len 0, a length on a
    page boundary, sentinel and out-of-pool entries, stale rows past a
    length; contiguous decode: ragged T = 1601, valid_len < T and 0; the
    int8 GEMM at M in {1, 8, 8 x bucket} and N not a multiple of the tile).
@@ -32,7 +37,8 @@ fails:
    kernel's output must not move when stale rows past a length change.
    Each kernel is timed with CUDA events after warmup beside its bound,
    its plain version and, where one PyTorch call computes the same
-   function, that call (``library_ms``; the port never calls it).
+   function, that call (``library_ms``; the port never calls it); the
+   decode wrappers also by their host cost per call (``host_us``).
 3. **Main paths**, each served through ``ServingEngine.serve`` with every
    kernel launch counted (counts set to 0 just before a path, read just
    after), random weights from a seed, the same seeded 16-request stream:
@@ -42,7 +48,10 @@ fails:
    and 1 cross layer). The engine feeds the audio and vlm families
    all-zero stub encoder inputs, as the JAX engine does. Each path serves
    the stream several times on one warm engine; tokens/s is the median,
-   with its quartiles as the spread.
+   with its quartiles as the spread. A profiled serve of each path fails
+   unless flash prefill ran its tensor-core body, the int8 GEMM one kernel
+   per launch, and bf16 decode the tensor-core decode body (fused, and the
+   contiguous one on the vision path), never an old SIMT bf16 body.
 4. **Teacher-forced check**: llama3.2-1b, whisper-base and the vision
    model at 10 layers (one group) in f32, one seeded token stream (and,
    for whisper and vision, seeded non-zero frames / image embeddings)
@@ -214,6 +223,50 @@ def flash_build_report(log: str) -> dict:
     return dict(wgmma_bodies=bodies, sass=counts)
 
 
+def decode_build_report(reports: dict) -> dict:
+    """The tensor-core body of the contiguous and fused decode kernels: its
+    ptxas registers and spills per kernel and head dim, its dynamic shared
+    memory, and the count of ``HMMA`` (mma.sync) instructions in each
+    library's SASS. Fails if a body is missing or spills, or a count is
+    0."""
+    from repro_torch.kernels import build
+    bodies = {}
+    for name in ("decode_attention", "fused_paged_decode_attention"):
+        lines = reports[name].splitlines()
+        for i, line in enumerate(lines):
+            hit = re.search(r"(fused_decode_mma_kernel|decode_mma_kernel)"
+                            r"ILi(\d+)E", line)
+            if "Compiling entry" not in line or hit is None:
+                continue
+            rest = lines[i + 1:i + 6]
+            regs = next(int(m.group(1)) for m in (
+                re.search(r"Used (\d+) registers", x) for x in rest) if m)
+            spill = next(tuple(map(int, m.groups())) for m in (
+                re.search(r"(\d+) bytes spill stores, (\d+) bytes spill "
+                          r"loads", x) for x in rest) if m)
+            D = int(hit.group(2))
+            smem = build.helper_fn("decode_mma_smem_bytes")(D)
+            key = f"{hit.group(1)} D={D}"
+            print(f"  {key}: {regs} registers, {smem} bytes dynamic smem per "
+                  f"block, spill stores/loads {spill[0]}/{spill[1]} bytes")
+            check(spill == (0, 0), f"{key} spills {spill}")
+            bodies[key] = dict(registers=regs, smem_bytes=smem)
+    check(len(bodies) == 4,
+          f"decode tensor-core bodies built: {sorted(bodies)}")
+    cuobjdump = Path(build.nvcc_path()).with_name("cuobjdump")
+    hmma = {}
+    for name in ("decode_attention", "fused_paged_decode_attention"):
+        lib = build._lib_path(build.KERNELS[name][0])
+        sass = subprocess.run([str(cuobjdump), "-sass", str(lib)],
+                              capture_output=True, text=True, timeout=300,
+                              check=True).stdout
+        hmma[name] = len(re.findall(r"\bHMMA\b", sass))
+        print(f"  {name} SASS ({lib.name}): {hmma[name]} HMMA instructions")
+    check(all(n > 0 for n in hmma.values()),
+          f"decode libraries lack mma.sync instructions: {hmma}")
+    return dict(mma_bodies=bodies, sass_hmma=hmma)
+
+
 def int8_build_report(log: str) -> dict:
     """The int8 library's two bodies: the ptxas registers and spills of
     every instantiation, and the launch (column tile, cluster, dynamic
@@ -352,20 +405,26 @@ def phase_flash(torch, dev, gen):
                 other_shapes=extra)
 
 
-def phase_fused_decode(torch, dev, gen, B=8, K=8, G=4, D=64, ps=16, P=32):
-    from repro_torch.kernels.decode_attention import \
-        fused_paged_decode_attention
+# slot 0 at pos 0, slot 1 on a page boundary (first row of a new page),
+# slot 2 on a page's last row, slot 4 at max_len - 1, slot 7 inactive with
+# an all-sentinel row
+FUSED_POS = [0, 16, 15, 300, 511, 47, 203, 100]
+# the write row on the last and first rows of the fused kernel's 128-row
+# spans, inside them and in later spans, slots of up to 4 spans
+FUSED_SPAN_POS = [64, 127, 128, 255, 256, 383, 1, 0]
+
+
+def phase_fused_decode(torch, dev, gen, B=8, K=8, G=4, D=64, ps=16, P=32,
+                       pos_list=FUSED_POS):
+    from repro_torch.kernels.decode_attention import (
+        FUSED_SPLIT_ROWS, decode_body, fused_paged_decode_attention)
     from repro_torch.kernels.ref import fused_paged_decode_attention_ref
     tol = 3e-2   # bf16: the plain version rounds probabilities to bf16
     n_pages = B * P
     n_phys = n_pages + 1                        # trash page == sentinel
     sent = n_pages
     perm = torch.randperm(n_pages, generator=gen, device=dev).reshape(B, P)
-    # slot 0 at pos 0, slot 1 on a page boundary (first row of a new
-    # page), slot 2 on a page's last row, slot 4 at max_len - 1, slot 7
-    # inactive with an all-sentinel row
-    pos = torch.tensor([0, 16, 15, 300, 511, 47, 203, 100],
-                       dtype=torch.int32, device=dev)
+    pos = torch.tensor(pos_list, dtype=torch.int32, device=dev)
     n_alloc = pos.long() // ps + 1
     bt = torch.where(torch.arange(P, device=dev)[None, :] < n_alloc[:, None],
                      perm, torch.full_like(perm, sent)).to(torch.int32)
@@ -377,16 +436,27 @@ def phase_fused_decode(torch, dev, gen, B=8, K=8, G=4, D=64, ps=16, P=32):
     kn = torch.randn((B, K, D), generator=gen, device=dev).bfloat16()
     vn = torch.randn((B, K, D), generator=gen, device=dev).bfloat16()
     k0, v0 = kp.clone(), vp.clone()
+    again, _, _ = fused_paged_decode_attention(q, kn, vn, k0.clone(),
+                                               v0.clone(), bt, pos)
     out, kp2, vp2 = fused_paged_decode_attention(q, kn, vn, kp, vp, bt, pos)
     o_ref, _, _ = fused_paged_decode_attention_ref(q, kn, vn, k0.clone(),
                                                    v0.clone(), bt, pos)
     o_32, _, _ = fused_paged_decode_attention_ref(
         q.float(), kn.float(), vn.float(), k0.float(), v0.float(), bt, pos)
     torch.cuda.synchronize()
+    body = decode_body(q.dtype, G, D)
+    split = FUSED_SPLIT_ROWS
+    spans = [p // split for p in pos_list[:live]]
     err = (out[:live].float() - o_ref[:live].float()).abs().max().item()
-    print(f"  fused_paged_decode_attention [G={G} D={D}; pos 0, page "
-          f"boundary, last row, max_len-1, all-sentinel slot]: max_abs_err "
-          f"{err:.3e} (tol {tol})")
+    print(f"  fused_paged_decode_attention [G={G} D={D}, {body} body; pos "
+          f"{pos_list[:live]} (write row in span {spans} of {split} rows), "
+          f"all-sentinel slot]: max_abs_err {err:.3e} (tol {tol})")
+    # the all-sentinel slot reads trash-page rows, whose write the kernel
+    # drops: its output, discarded by the pool contract, is finite and the
+    # same on every call
+    check(torch.equal(out, again), "fused decode: two calls differ")
+    check(bool(out[live:].isfinite().all()),
+          "fused decode: the all-sentinel slot's output is not finite")
     check(err <= tol, f"fused decode output err {err}")
     check_f32_ulps(torch, out[:live], o_32[:live],
                    f"fused_paged_decode_attention [G={G} D={D}]")
@@ -403,8 +473,11 @@ def phase_fused_decode(torch, dev, gen, B=8, K=8, G=4, D=64, ps=16, P=32):
           "fused decode: a page row other than the write rows changed")
     print("  fused_paged_decode_attention: written rows bit-equal, every "
           "other page row (trash aside) bitwise untouched")
-    ms = cuda_ms(lambda: fused_paged_decode_attention(q, kn, vn, kp, vp, bt,
-                                                      pos))
+    def fn():
+        return fused_paged_decode_attention(q, kn, vn, kp, vp, bt, pos)
+
+    ms = cuda_ms(fn)
+    h_us = host_us(fn)
     plain_ms = cuda_ms(lambda: fused_paged_decode_attention_ref(
         q, kn, vn, kp, vp, bt, pos))
     vlen = (pos.long() + 1).cpu()
@@ -416,12 +489,12 @@ def phase_fused_decode(torch, dev, gen, B=8, K=8, G=4, D=64, ps=16, P=32):
     b_ms, b_by = bound(n_bytes, n_flops, BF16_FLOPS)
     print(f"  fused_paged_decode_attention B={B} K={K} G={G} D={D} ps={ps} "
           f"P={P} bf16: {ms:.4f} ms (plain {plain_ms:.4f}, bound "
-          f"{b_ms:.5f} by {b_by})")
+          f"{b_ms:.5f} by {b_by}); host {h_us:.1f} us a call")
     return dict(name="fused_paged_decode_attention", route="cuda",
                 source="src/repro_torch/csrc/fused_paged_decode.cu",
                 replaces="src/repro/kernels/decode_attention.py:328",
                 max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
-                bound_by=b_by, library_ms=None,
+                bound_by=b_by, library_ms=None, host_us=h_us,
                 shape=f"B={B} K={K} G={G} D={D} ps={ps} P={P}")
 
 
@@ -499,25 +572,34 @@ def phase_decode(torch, dev, gen, B=8, K=8, G=8, D=128, T=1601):
     """The contiguous decode kernel at the vision config's cross-attention
     shape: 8 slots, 64 query heads over 8 KV heads of 128, 1601 image
     tokens in the model layout (B, T, K, D)."""
-    from repro_torch.kernels.decode_attention import (decode_attention,
-                                                      decode_attention_plain)
+    from repro_torch.kernels.decode_attention import (_split,
+                                                      decode_attention,
+                                                      decode_attention_plain,
+                                                      decode_body)
     tol = 3e-2   # bf16: the plain version rounds probabilities to bf16
     worst = 0.0
     cases = [("T=1601 ragged, valid_len T", B, G, T, None),
              ("valid_len 777 < T", 2, G, T, 777),
+             ("valid_len 256, on a span boundary", 2, G, T, 256),
              ("G=1, valid_len 0", 2, 1, 37, 0)]
     for label, b, g, t, vlen in cases:
         q = torch.randn((b, K, g, D), generator=gen, device=dev).bfloat16()
         k = torch.randn((b, t, K, D), generator=gen, device=dev).bfloat16()
         v = torch.randn((b, t, K, D), generator=gen, device=dev).bfloat16()
         out = decode_attention(q, k, v, vlen)
+        again = decode_attention(q, k, v, vlen)
         want = decode_attention_plain(q, k, v, vlen)
         want32 = decode_attention_plain(q.float(), k.float(), v.float(), vlen)
         torch.cuda.synchronize()
         err = (out.float() - want.float()).abs().max().item()
-        print(f"  decode_attention [{label}]: max_abs_err {err:.3e} "
-              f"(tol {tol})")
+        n_split, split = _split("decode_attention", "mma",
+                                t if vlen is None else vlen, q)
+        print(f"  decode_attention [{label}, {decode_body(q.dtype, g, D)} "
+              f"body, {n_split} spans of {split} rows]: max_abs_err "
+              f"{err:.3e} (tol {tol})")
         check(err <= tol, f"decode_attention {label}: err {err}")
+        check(torch.equal(out, again), f"decode_attention {label}: two calls "
+              "differ")
         check_f32_ulps(torch, out, want32, f"decode_attention [{label}]")
         if vlen == 0:
             check(not out.any(), "decode_attention: valid_len 0 not zeros")
@@ -526,6 +608,7 @@ def phase_decode(torch, dev, gen, B=8, K=8, G=8, D=128, T=1601):
     k = torch.randn((B, T, K, D), generator=gen, device=dev).bfloat16()
     v = torch.randn((B, T, K, D), generator=gen, device=dev).bfloat16()
     ms = cuda_ms(lambda: decode_attention(q, k, v))
+    h_us = host_us(lambda: decode_attention(q, k, v))
     plain_ms = cuda_ms(lambda: decode_attention_plain(q, k, v))
     qh = q.reshape(B, K * G, 1, D)
     kh, vh = k.transpose(1, 2).contiguous(), v.transpose(1, 2).contiguous()
@@ -536,12 +619,13 @@ def phase_decode(torch, dev, gen, B=8, K=8, G=8, D=128, T=1601):
     b_ms, b_by = bound(n_bytes, n_flops, BF16_FLOPS)
     shape = f"B={B} K={K} G={G} D={D} T={T}"
     print(f"  decode_attention {shape} bf16: {ms:.4f} ms (plain "
-          f"{plain_ms:.4f}, SDPA {lib_ms:.4f}, bound {b_ms:.5f} by {b_by})")
+          f"{plain_ms:.4f}, SDPA {lib_ms:.4f}, bound {b_ms:.5f} by {b_by}); "
+          f"host {h_us:.1f} us a call")
     return dict(name="decode_attention", route="cuda",
                 source="src/repro_torch/csrc/decode_attention.cu",
                 replaces="src/repro/kernels/decode_attention.py:109",
                 max_abs_err=worst, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
-                bound_by=b_by, library_ms=lib_ms, shape=shape)
+                bound_by=b_by, library_ms=lib_ms, host_us=h_us, shape=shape)
 
 
 def time_int8(torch, x, w_q, s):
@@ -723,11 +807,24 @@ def serve_variant(torch, dev, model, params, stream, label, repeats):
                 launches=launches, stats=s, seg_ms=seg_ms, peak_gb=peak_gb)
 
 
-def profile_variant(torch, dev, model, params, stream, label):
+# bf16 decode kernels that must not run on a served path any more: the
+# fused kernel's one-block-per-(slot, head) body and the SIMT split body of
+# the contiguous kernel in bf16
+OLD_DECODE = re.compile(r"fused_paged_decode_kernel|fused_decode_simt_kernel"
+                        r"|(?<![A-Za-z_])decode_kernel<__nv_bfloat16")
+# the contiguous kernel's tensor-core body (not the fused one's)
+DECODE_MMA = re.compile(r"(?<![A-Za-z_])decode_mma_kernel<")
+
+
+def profile_variant(torch, dev, model, params, stream, label,
+                    contiguous_decode=False):
     """Where the time goes: ``torch.profiler`` over a short serve of the
     stream's first 8 requests. Prints the device's busy share (summed
     device kernel time over host wall time, profiler on) and the kernels
-    with the most device time."""
+    with the most device time. Checks which bodies the kernels ran: the
+    decode lines must show the fused kernel's tensor-core body (and, with
+    ``contiguous_decode``, the contiguous kernel's) and no old bf16
+    decode body."""
     from torch.profiler import ProfilerActivity, profile
     from repro_torch.kernels import build
     from repro_torch.serving.engine import Request, ServingEngine
@@ -777,8 +874,19 @@ def profile_variant(torch, dev, model, params, stream, label):
           and not any("splitk_reduce" in name for name in by_name),
           f"{label}: {calls} int8 kernels in the profile for "
           f"{build.launch_counts['int8_matmul']} wrapper launches")
+    # the decode kernels: the tensor-core bodies, and their combine pass
+    dec = {name: v for name, v in by_name.items()
+           if "decode" in name or "combine_kernel" in name}
+    for name, (us, n) in sorted(dec.items()):
+        print(f"    decode: {us / 1e3:9.2f} ms {n:6d} calls  {name[:90]}")
+    check(any("fused_decode_mma_kernel" in name for name in dec)
+          and not any(OLD_DECODE.search(name) for name in dec)
+          and (not contiguous_decode
+               or any(DECODE_MMA.search(name) for name in dec)),
+          f"{label}: decode bodies in the profile: {sorted(dec)}")
     return dict(device_ms=busy_us / 1e3, wall_ms=wall_us / 1e3,
-                int8_ms=sum(us for us, _ in int8.values()) / 1e3)
+                int8_ms=sum(us for us, _ in int8.values()) / 1e3,
+                decode_ms=sum(us for us, _ in dec.values()) / 1e3)
 
 
 def phase_main_path(torch, dev):
@@ -839,7 +947,8 @@ def phase_family(torch, dev, arch, n_layers=None):
     stream = make_stream(cfg.vocab)
     res = serve_variant(torch, dev, model, params, stream, arch,
                         SERVE_REPEATS[arch])
-    profile_variant(torch, dev, model, params, stream, arch)
+    profile_variant(torch, dev, model, params, stream, arch,
+                    contiguous_decode=cfg.family == "vlm")
     del params
     torch.cuda.empty_cache()
     cross = {"audio": "paged_decode_attention",
@@ -1005,6 +1114,7 @@ def main() -> int:
                 print(f"  [{name}] {line.strip()}")
     flash_build = flash_build_report(reports["flash_attention"])
     int8_build = int8_build_report(reports["int8_matmul"])
+    decode_build = decode_build_report(reports)
 
     print(f"  phase 1 took {time.perf_counter() - t_start:.1f} s")
 
@@ -1012,14 +1122,20 @@ def main() -> int:
     print("phase 2: per-kernel comparisons (bf16, full-width shapes)")
     gen = torch.Generator(device=dev).manual_seed(SEED)
     fused = phase_fused_decode(torch, dev, gen)
-    fused128 = phase_fused_decode(torch, dev, gen, G=8, D=128)
-    fused["other_shapes"] = [{k: fused128[k] for k in (
-        "shape", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")}]
-    fused["max_abs_err"] = max(fused["max_abs_err"], fused128["max_abs_err"])
-    kernels = [dict(phase_flash(torch, dev, gen), **flash_build), fused,
+    # the vision model's self-attention, then whisper-base's with slots of
+    # several spans
+    others = [phase_fused_decode(torch, dev, gen, G=8, D=128),
+              phase_fused_decode(torch, dev, gen, G=1, D=64,
+                                 pos_list=FUSED_SPAN_POS)]
+    fused["other_shapes"] = [{k: o[k] for k in (
+        "shape", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
+        "host_us")} for o in others]
+    fused["max_abs_err"] = max(o["max_abs_err"] for o in [fused, *others])
+    kernels = [dict(phase_flash(torch, dev, gen), **flash_build),
+               dict(fused, **decode_build),
                dict(phase_int8(torch, dev, gen), **int8_build),
                phase_paged_decode(torch, dev, gen),
-               phase_decode(torch, dev, gen)]
+               dict(phase_decode(torch, dev, gen), **decode_build)]
     print(f"  phase 2 took {time.perf_counter() - t0:.1f} s")
 
     t0 = time.perf_counter()

@@ -12,16 +12,23 @@
 // kernel asserts T % min(512, T) == 0, so it cannot take the vision
 // config's T = 1601). valid_len 0 gives zeros.
 //
-// Design: split-T flash-decode (decode_split.cuh): valid_len rows are cut
-// into n_split spans of split_rows, one block per (span, KV head, slot),
-// and a second pass combines the spans in order, so 8 slots x 8 KV heads
-// fill the SMs instead of 64 blocks each walking all T rows.
+// Two bodies, each split over the rows: valid_len rows are cut into n_split
+// (at most 8) spans of split_rows, one block per (span, KV head, slot), so
+// 8 slots x 8 KV heads fill the SMs instead of 64 blocks each walking all T
+// rows; the spans of one (slot, KV head) form a cluster and fold their
+// partials in span order through distributed shared memory (decode_split.cuh
+// fold_cluster), in the same launch.
+// - bf16 at D in {64, 128}: the tensor-core body (decode_mma.cuh):
+//   cp.async ring of 64-row bf16 tiles, S and P.V on mma.sync.
+// - f32 at D in {16, 32, 64, 128}: the SIMT body (decode_split.cuh).
+// bf16 at D in {16, 32} has no body: the wrapper raises before a launch.
 //
 // What bounds it on the H100: one pass over K and V (2 * B * valid_len * K
 // * D elements) for 4 * G * D flops per row and head: bound by bytes. Each
-// row's D elements are contiguous, so the staging loads coalesce. The
-// products run on the f32 SIMT pipes.
-#include "decode_split.cuh"
+// row's D elements are contiguous, so the copies coalesce.
+#include <type_traits>
+
+#include "decode_mma.cuh"
 
 using namespace repro;
 using namespace repro::decode_split;
@@ -35,72 +42,115 @@ struct ContiguousRows {
   }
 };
 
-template <typename T, int D>
+// f32: the SIMT body
+template <int D>
 __global__ void __launch_bounds__(NT) decode_kernel(
-    const T* __restrict__ q, const T* __restrict__ k,
-    const T* __restrict__ v, Workspace ws, int T_len, int K, int G,
-    int valid_len, int split_rows, float sm_scale) {
+    const float* __restrict__ q, const float* __restrict__ k,
+    const float* __restrict__ v, float* __restrict__ out, int T_len, int K,
+    int G, int valid_len, int split_rows, float sm_scale) {
+  __shared__ Partial<D> part;
+  __shared__ Inbox<D> inbox;
+  cluster_started();
   const int s = blockIdx.x;
-  const int kh = blockIdx.y;
-  const int b = blockIdx.z;
+  const size_t bk = (size_t)blockIdx.z * K + blockIdx.y;
   const int t0 = min(s * split_rows, valid_len);
   const int t1 = min(t0 + split_rows, valid_len);
-  ContiguousRows rows;
-  rows.row_stride = (size_t)K * D;
-  rows.base = (size_t)b * T_len * K * D + (size_t)kh * D;
-  float *pm, *pl, *pa;
-  ws.at(b, kh, s, K, G, D, gridDim.x, &pm, &pl, &pa);
-  attend_span<T, D>(q + ((size_t)b * K + kh) * G * D, k, v, rows, G, t0, t1,
-                    sm_scale, pm, pl, pa);
+  const ContiguousRows rows{(size_t)blockIdx.z * T_len * K * D +
+                                (size_t)blockIdx.y * D,
+                            (size_t)K * D};
+  attend_span<float, D>(q + bk * G * D, k, v, rows, G, t0, t1, sm_scale,
+                        part.m, part.l, part.acc);
+  fold_cluster<float, D>(part, inbox, G, out + bk * G * D);
+}
+
+// bf16: the tensor-core body
+template <int D>
+__global__ void __launch_bounds__(decode_mma::NT) decode_mma_kernel(
+    const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* k,
+    const __nv_bfloat16* v, __nv_bfloat16* __restrict__ out, int T_len,
+    int K, int G, int valid_len, int split_rows, float sm_scale) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  __shared__ Partial<D> part;
+  __shared__ Inbox<D> inbox;
+  cluster_started();
+  const int s = blockIdx.x;
+  const size_t bk = (size_t)blockIdx.z * K + blockIdx.y;
+  const int t0 = min(s * split_rows, valid_len);
+  const int t1 = min(t0 + split_rows, valid_len);
+  const ContiguousRows rows{(size_t)blockIdx.z * T_len * K * D +
+                                (size_t)blockIdx.y * D,
+                            (size_t)K * D};
+  decode_mma::attend_span_mma<D>(q + bk * G * D, k, v, rows, G, t0, t1,
+                                 sm_scale, part.m, part.l, part.acc, smem,
+                                 -1, nullptr, nullptr);
+  fold_cluster<__nv_bfloat16, D>(part, inbox, G,
+                                             out + bk * G * D);
 }
 
 template <typename T, int D>
-void launch(const void* q, const void* k, const void* v, float* ws,
-            void* out, int B, int T_len, int K, int G, int valid_len,
-            int n_split, int split_rows, cudaStream_t stream) {
-  const size_t n_part = (size_t)B * K * n_split;
-  const Workspace w{ws, ws + n_part * G, ws + 2 * n_part * G};
-  decode_kernel<T, D><<<dim3(n_split, K, B), NT, 0, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), w, T_len, K, G, valid_len, split_rows,
-      1.0f / sqrtf(static_cast<float>(D)));
-  combine_kernel<T><<<dim3(K, B), NT, 0, stream>>>(
-      w.m, w.l, w.acc, static_cast<T*>(out), K, G, D, n_split);
+cudaError_t launch(const void* q, const void* k, const void* v, void* out,
+                   int B, int T_len, int K, int G, int valid_len,
+                   int n_split, int split_rows, cudaStream_t stream) {
+  const float scale = 1.0f / sqrtf(static_cast<float>(D));
+  if constexpr (std::is_same_v<T, float>) {
+    return launch_clusters(
+        decode_kernel<D>, n_split, K, B, NT, 0, stream,
+        static_cast<const float*>(q), static_cast<const float*>(k),
+        static_cast<const float*>(v), static_cast<float*>(out), T_len, K, G,
+        valid_len, split_rows, scale);
+  } else {
+    constexpr int smem = decode_mma::Layout<D>::kBytes;
+    const cudaError_t e = decode_mma::allow_smem<decode_mma_kernel<D>>(smem);
+    if (e != cudaSuccess) return e;
+    return launch_clusters(
+        decode_mma_kernel<D>, n_split, K, B, decode_mma::NT, smem, stream,
+        static_cast<const T*>(q), static_cast<const T*>(k),
+        static_cast<const T*>(v), static_cast<T*>(out), T_len, K, G,
+        valid_len, split_rows, scale);
+  }
 }
 
-template <typename T>
-int dispatch_d(const void* q, const void* k, const void* v, float* ws,
-               void* out, int B, int T_len, int K, int G, int D,
-               int valid_len, int n_split, int split_rows, cudaStream_t st) {
-  switch (D) {
-    case 16: launch<T, 16>(q, k, v, ws, out, B, T_len, K, G, valid_len, n_split, split_rows, st); break;
-    case 32: launch<T, 32>(q, k, v, ws, out, B, T_len, K, G, valid_len, n_split, split_rows, st); break;
-    case 64: launch<T, 64>(q, k, v, ws, out, B, T_len, K, G, valid_len, n_split, split_rows, st); break;
-    case 128: launch<T, 128>(q, k, v, ws, out, B, T_len, K, G, valid_len, n_split, split_rows, st); break;
-    default: return static_cast<int>(cudaErrorInvalidValue);
+cudaError_t dispatch(const void* q, const void* k, const void* v, void* out,
+                     int B, int T_len, int K, int G, int D,
+                     int valid_len, int n_split, int split_rows, int dtype,
+                     cudaStream_t st) {
+  if (dtype == kBFloat16) {
+    switch (D) {
+      case 64: return launch<__nv_bfloat16, 64>(q, k, v, out, B, T_len, K, G, valid_len, n_split, split_rows, st);
+      case 128: return launch<__nv_bfloat16, 128>(q, k, v, out, B, T_len, K, G, valid_len, n_split, split_rows, st);
+    }
+  } else if (dtype == kFloat32) {
+    switch (D) {
+      case 16: return launch<float, 16>(q, k, v, out, B, T_len, K, G, valid_len, n_split, split_rows, st);
+      case 32: return launch<float, 32>(q, k, v, out, B, T_len, K, G, valid_len, n_split, split_rows, st);
+      case 64: return launch<float, 64>(q, k, v, out, B, T_len, K, G, valid_len, n_split, split_rows, st);
+      case 128: return launch<float, 128>(q, k, v, out, B, T_len, K, G, valid_len, n_split, split_rows, st);
+    }
   }
-  return static_cast<int>(cudaGetLastError());
+  return cudaErrorInvalidValue;
 }
 
 }  // namespace
 
-// ws: 2 * B * K * n_split * G + B * K * n_split * G * D floats.
 extern "C" int decode_attention_fwd(const void* q, const void* k,
-                                    const void* v, void* ws, void* out,
-                                    int B, int T_len, int K, int G, int D,
+                                    const void* v, void* out, int B,
+                                    int T_len, int K, int G, int D,
                                     int valid_len, int n_split,
                                     int split_rows, int dtype, void* stream) {
   if (G < 1 || G > GMAX || B < 1 || K < 1 || T_len < 1 || valid_len < 0 ||
-      valid_len > T_len || n_split < 1 || split_rows < 1 ||
+      valid_len > T_len || n_split < 1 ||
+      n_split > MAX_SPLIT || split_rows < 1 ||
       (long long)n_split * split_rows < valid_len)
     return static_cast<int>(cudaErrorInvalidValue);
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  float* w = static_cast<float*>(ws);
-  if (dtype == kBFloat16)
-    return dispatch_d<__nv_bfloat16>(q, k, v, w, out, B, T_len, K, G, D,
-                                     valid_len, n_split, split_rows, st);
-  if (dtype == kFloat32)
-    return dispatch_d<float>(q, k, v, w, out, B, T_len, K, G, D, valid_len,
-                             n_split, split_rows, st);
-  return static_cast<int>(cudaErrorInvalidValue);
+  return static_cast<int>(dispatch(q, k, v, out, B, T_len, K, G, D,
+                                   valid_len, n_split, split_rows, dtype,
+                                   static_cast<cudaStream_t>(stream)));
+}
+
+// Dynamic shared memory of the tensor-core body at head dim D (both kernels
+// that run it), for the build report.
+extern "C" int decode_mma_smem_bytes(int D) {
+  return D == 64    ? decode_mma::Layout<64>::kBytes
+         : D == 128 ? decode_mma::Layout<128>::kBytes
+                    : 0;
 }

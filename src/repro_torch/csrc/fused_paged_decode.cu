@@ -10,190 +10,211 @@
 // over the slot's block table with valid length pos + 1. Block-table entries
 // are clamped into [0, n_phys - 1], as the Pallas wrapper clamps them.
 //
-// Grid: one block per (slot, KV head). The block serves all G query heads of
-// its KV head: q (G x D) sits in shared memory, and the block walks the
-// slot's live pages in order, 32 page rows at a time, staging their K/V rows
-// for this head in shared memory as f32. Its own new row is taken from the
-// k_new/v_new inputs when the write page is staged, so the score pass sees
-// it without a round trip through device memory. Each warp scores the 32
-// staged rows for one query head (one row per lane), folds them into that
-// head's running (max, sum) with warp shuffles, and every thread then updates
-// its share of the f32 (G x D) accumulator. Rows at or past valid_len get
-// probability exactly zero.
+// Split-KV (FlashDecoding): the slot's P * ps logical rows are cut into
+// n_split (at most 8) spans of split_rows, one block per (span, KV head,
+// slot); the spans of one (slot, KV head) form a cluster and fold their
+// partials in span order through distributed shared memory (decode_split.cuh
+// fold_cluster), in the same launch: no float atomics, so two calls give
+// the same outputs bit for bit. The host cuts the spans from P and ps
+// alone (no read of pos); a span that starts at or past the slot's valid
+// length writes an empty partial and exits, so pages past the length are
+// never read. The block whose span holds the write row does the write (a
+// bit copy of the new k/v row into its page) and takes that row from
+// k_new / v_new for its own scores, never reading it back through the
+// pool; no other span covers it. Two bodies:
+// - bf16 at D in {64, 128}: the tensor-core body (decode_mma.cuh):
+//   cp.async ring of 64-row bf16 tiles, S and P.V on mma.sync.
+// - f32 at D in {16, 32, 64, 128}: the SIMT body (decode_split.cuh).
+// bf16 at D in {16, 32} has no body: the wrapper raises before a launch.
 //
 // Pool contract (the serving engine's kernel layout, as for the Pallas
 // kernel): the pool carries one trash page at index n_phys - 1, equal to the
 // block table's sentinel, and a page that a slot writes is private to that
-// slot. So no two live slots write one page, and an inactive slot (all-
-// sentinel row) writes its garbage row into the trash page. Several inactive
-// slots may scribble on the trash page at once; that is harmless because no
-// live slot reads a trash-page row without masking it (its positions lie at
-// or past the slot's valid length), and what an inactive slot computes is
-// discarded.
+// slot. So no two live slots write one page. An inactive slot (all-
+// sentinel row) would write its garbage row into the trash page; the kernel
+// drops a write whose page is the trash page instead, so that no block
+// writes a row that another block of the launch reads: an inactive slot's
+// spans read only trash-page rows, which then stay fixed, and its output,
+// discarded by the engine, is the same on every call. No live slot reads a
+// trash-page row without masking it (its positions lie at or past the
+// slot's valid length).
 //
-// What bounds it on the H100: one pass over each slot's live KV pages
+// What bounds it on the H100: one pass over each slot's live KV rows
 // (2 * valid_len * K * D elements) for 4 * G * D flops per position, far
-// below the card's ridge point: it is bound by bytes. The design reads each
-// live page row once, in coalesced rows of D elements, and never
-// materialises the gathered (B, P * ps, K, D) view that the plain version
-// builds. Known limit: at B = 8 slots and K = 8 heads it launches 64 blocks
-// on 132 SMs; splitting each slot's pages across blocks (FlashDecoding) is
-// later work.
-#include "common.cuh"
+// below the card's ridge point: it is bound by bytes. Each live page row is
+// read once, in 16-byte pieces of rows of D contiguous elements, and the
+// gathered (B, P * ps, K, D) view that the plain version builds is never
+// materialised. At the engine's shapes the bytes are few (about 2.5 MB at
+// 8 slots of llama3.2-1b), so launch latency and one span's load round trip
+// set the time; the split gives every SM blocks to overlap them.
+#include <type_traits>
+
+#include "decode_mma.cuh"
 
 using namespace repro;
+using namespace repro::decode_split;
 
 namespace {
 
-constexpr int NT = 128;  // threads per block (4 warps)
-constexpr int TC = 32;   // page rows staged per step: one per lane
-constexpr int DMAX = 128;
-constexpr int GMAX = 8;
-constexpr int ACC = GMAX * DMAX / NT;  // accumulator entries per thread
+// Logical row t of one (slot, KV head): page bt_row[t / ps] (clamped into
+// the pool), row t % ps.
+struct PagedRows {
+  const int* bt_row;
+  int ps, n_phys;
+  size_t page_stride, row_stride, head_off;
+  __device__ __forceinline__ size_t operator()(int t) const {
+    const int page = min(max(bt_row[t / ps], 0), n_phys - 1);
+    return (size_t)page * page_stride + (size_t)(t % ps) * row_stride +
+           head_off;
+  }
+};
 
+// What one block needs besides its body: its span, its rows, and the write.
+struct Span {
+  int t0, t1;     // the span's live rows
+  int t_w;        // logical row of the write: wblk * ps + pos % ps
+  PagedRows rows;
+};
+
+// Block (s, kh, b): its span of slot b's rows, and the write of the new
+// k/v row if the span holds it.
 template <typename T>
-__global__ void __launch_bounds__(NT) fused_paged_decode_kernel(
-    const T* __restrict__ q, const T* __restrict__ k_new,
-    const T* __restrict__ v_new, T* k_pool, T* v_pool,
-    const int* __restrict__ bt, const int* __restrict__ pos_arr,
-    T* __restrict__ out, int K, int G, int D, int n_phys, int ps, int P,
-    float sm_scale) {
-  __shared__ float qs[GMAX][DMAX];
-  __shared__ float ks[TC][DMAX + 1];  // padded: lanes read distinct banks
-  __shared__ float vs[TC][DMAX];
-  __shared__ float prob[GMAX][TC];
-  __shared__ float alpha_s[GMAX];
-  __shared__ float m_s[GMAX];
-  __shared__ float l_s[GMAX];
-
-  const int b = blockIdx.x;
+__device__ __forceinline__ Span span_and_write(
+    const T* __restrict__ k_new, const T* __restrict__ v_new, T* k_pool,
+    T* v_pool, const int* __restrict__ bt, const int* __restrict__ pos_arr,
+    int K, int D, int n_phys, int ps, int P, int split_rows) {
+  const int s = blockIdx.x;
   const int kh = blockIdx.y;
-  const int tid = threadIdx.x;
-  const int lane = tid & 31;
-  const int warp = tid >> 5;
+  const int b = blockIdx.z;
   const int pos = pos_arr[b];
-  const int valid_len = pos + 1;
+  const int valid = min(pos + 1, P * ps);
   const int wblk = min(max(pos / ps, 0), P - 1);
   const int woff = pos % ps;
-  const int* bt_row = bt + (size_t)b * P;
-  const int wpage = min(max(bt_row[wblk], 0), n_phys - 1);
-  const size_t row_stride = (size_t)K * D;
-  const size_t page_stride = (size_t)ps * row_stride;
-  const T* kn = k_new + ((size_t)b * K + kh) * D;
-  const T* vn = v_new + ((size_t)b * K + kh) * D;
-
-  // the write: a bit copy of the new row into its page, in place
-  for (int d = tid; d < D; d += NT) {
-    const size_t off = (size_t)wpage * page_stride + (size_t)woff * row_stride +
-                       (size_t)kh * D + d;
-    k_pool[off] = kn[d];
-    v_pool[off] = vn[d];
-  }
-  const T* qb = q + ((size_t)b * K + kh) * G * D;
-  for (int e = tid; e < G * D; e += NT) qs[e / D][e % D] = to_f32(qb[e]);
-  if (tid < G) {
-    m_s[tid] = kNegInf;
-    l_s[tid] = 0.f;
-  }
-  float acc[ACC];
-#pragma unroll
-  for (int i = 0; i < ACC; ++i) acc[i] = 0.f;
-
-  const int n_live = min(P, (valid_len + ps - 1) / ps);
-  for (int j = 0; j < n_live; ++j) {
-    const int page = min(max(bt_row[j], 0), n_phys - 1);
-    const bool is_w = j == wblk;
-    for (int r0 = 0; r0 < ps; r0 += TC) {
-      const int t0 = j * ps + r0;
-      if (t0 >= valid_len) break;
-      const int rows = min(TC, ps - r0);
-      __syncthreads();  // the previous chunk is consumed; qs/m_s are set
-      for (int e = tid; e < rows * D; e += NT) {
-        const int r = e / D;
-        const int d = e % D;
-        const int rr = r0 + r;
-        float kk, vv;
-        if (is_w && rr == woff) {
-          kk = to_f32(kn[d]);
-          vv = to_f32(vn[d]);
-        } else {
-          const size_t off = (size_t)page * page_stride +
-                             (size_t)rr * row_stride + (size_t)kh * D + d;
-          kk = to_f32(k_pool[off]);
-          vv = to_f32(v_pool[off]);
-        }
-        ks[r][d] = kk;
-        vs[r][d] = vv;
-      }
-      __syncthreads();
-      for (int g = warp; g < G; g += NT / 32) {
-        const bool ok = lane < rows && t0 + lane < valid_len;
-        float sv = kNegInf;
-        if (ok) {
-          float dot = 0.f;
-          for (int d = 0; d < D; ++d) dot += qs[g][d] * ks[lane][d];
-          sv = dot * sm_scale;
-        }
-        float mc = sv;
-#pragma unroll
-        for (int w = 16; w > 0; w >>= 1)
-          mc = fmaxf(mc, __shfl_xor_sync(0xffffffffu, mc, w));
-        const float m_prev = m_s[g];
-        const float m_new = fmaxf(m_prev, mc);
-        const float p = ok ? expf(sv - m_new) : 0.f;
-        float psum = p;
-#pragma unroll
-        for (int w = 16; w > 0; w >>= 1)
-          psum += __shfl_xor_sync(0xffffffffu, psum, w);
-        prob[g][lane] = p;
-        __syncwarp();
-        if (lane == 0) {
-          const float a = expf(m_prev - m_new);
-          alpha_s[g] = a;
-          l_s[g] = l_s[g] * a + psum;
-          m_s[g] = m_new;
-        }
-      }
-      __syncthreads();
-#pragma unroll
-      for (int i = 0; i < ACC; ++i) {
-        const int idx = tid + i * NT;
-        if (idx < G * D) {
-          const int g = idx / D;
-          const int d = idx % D;
-          float a = acc[i] * alpha_s[g];
-          for (int r = 0; r < rows; ++r) a += prob[g][r] * vs[r][d];
-          acc[i] = a;
-        }
-      }
+  Span sp;
+  sp.t0 = min(s * split_rows, valid);
+  sp.t1 = min(sp.t0 + split_rows, valid);
+  sp.t_w = wblk * ps + woff;
+  sp.rows.bt_row = bt + (size_t)b * P;
+  sp.rows.ps = ps;
+  sp.rows.n_phys = n_phys;
+  sp.rows.row_stride = (size_t)K * D;
+  sp.rows.page_stride = (size_t)ps * K * D;
+  sp.rows.head_off = (size_t)kh * D;
+  // the span holding the write row, unless its page (clamped) is the trash
+  if (sp.t_w >= s * split_rows && sp.t_w < (s + 1) * split_rows &&
+      sp.rows.bt_row[wblk] < n_phys - 1) {
+    // the write: a bit copy of the new row into its page, in place
+    const size_t off = sp.rows(sp.t_w);
+    const size_t src = ((size_t)b * K + kh) * D;
+    for (int d = threadIdx.x; d < D; d += NT) {
+      k_pool[off + d] = k_new[src + d];
+      v_pool[off + d] = v_new[src + d];
     }
   }
-  __syncthreads();
-  T* ob = out + ((size_t)b * K + kh) * G * D;
-#pragma unroll
-  for (int i = 0; i < ACC; ++i) {
-    const int idx = tid + i * NT;
-    if (idx < G * D) ob[idx] = from_f32<T>(acc[i] / fmaxf(l_s[idx / D], 1e-30f));
+  return sp;
+}
+
+// f32: the SIMT body
+template <int D>
+__global__ void __launch_bounds__(NT) fused_decode_simt_kernel(
+    const float* __restrict__ q, const float* __restrict__ k_new,
+    const float* __restrict__ v_new, float* k_pool, float* v_pool,
+    const int* __restrict__ bt, const int* __restrict__ pos_arr,
+    float* __restrict__ out, int K, int G, int n_phys, int ps, int P,
+    int split_rows, float sm_scale) {
+  __shared__ Partial<D> part;
+  __shared__ Inbox<D> inbox;
+  cluster_started();
+  const Span sp = span_and_write<float>(k_new, v_new, k_pool, v_pool, bt,
+                                        pos_arr, K, D, n_phys, ps, P,
+                                        split_rows);
+  const size_t bk = (size_t)blockIdx.z * K + blockIdx.y;
+  attend_span<float, D, PagedRows, true>(
+      q + bk * G * D, k_pool, v_pool, sp.rows, G, sp.t0, sp.t1, sm_scale,
+      part.m, part.l, part.acc, sp.t_w, k_new + bk * D, v_new + bk * D);
+  fold_cluster<float, D>(part, inbox, G, out + bk * G * D);
+}
+
+// bf16: the tensor-core body
+template <int D>
+__global__ void __launch_bounds__(decode_mma::NT) fused_decode_mma_kernel(
+    const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* k_new,
+    const __nv_bfloat16* v_new, __nv_bfloat16* k_pool,
+    __nv_bfloat16* v_pool, const int* __restrict__ bt,
+    const int* __restrict__ pos_arr, __nv_bfloat16* __restrict__ out, int K,
+    int G, int n_phys, int ps, int P, int split_rows, float sm_scale) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  __shared__ Partial<D> part;
+  __shared__ Inbox<D> inbox;
+  cluster_started();
+  const Span sp = span_and_write<__nv_bfloat16>(
+      k_new, v_new, k_pool, v_pool, bt, pos_arr, K, D, n_phys, ps, P,
+      split_rows);
+  const size_t bk = (size_t)blockIdx.z * K + blockIdx.y;
+  decode_mma::attend_span_mma<D>(q + bk * G * D, k_pool, v_pool, sp.rows, G,
+                                 sp.t0, sp.t1, sm_scale, part.m, part.l,
+                                 part.acc, smem, sp.t_w, k_new + bk * D,
+                                 v_new + bk * D);
+  fold_cluster<__nv_bfloat16, D>(part, inbox, G,
+                                             out + bk * G * D);
+}
+
+template <typename T, int D>
+cudaError_t launch(const void* q, const void* k_new, const void* v_new,
+                   void* k_pool, void* v_pool, const void* bt,
+                   const void* pos, void* out, int B, int K, int G,
+                   int n_phys, int ps, int P, int n_split, int split_rows,
+                   cudaStream_t stream) {
+  const float scale = 1.0f / sqrtf(static_cast<float>(D));
+  const T* qq = static_cast<const T*>(q);
+  const T* kn = static_cast<const T*>(k_new);
+  const T* vn = static_cast<const T*>(v_new);
+  T* kp = static_cast<T*>(k_pool);
+  T* vp = static_cast<T*>(v_pool);
+  const int* bti = static_cast<const int*>(bt);
+  const int* pi = static_cast<const int*>(pos);
+  T* o = static_cast<T*>(out);
+  if constexpr (std::is_same_v<T, float>) {
+    return launch_clusters(
+        fused_decode_simt_kernel<D>, n_split, K, B, NT, 0, stream, qq, kn,
+        vn, kp, vp, bti, pi, o, K, G, n_phys, ps, P, split_rows, scale);
+  } else {
+    constexpr int smem = decode_mma::Layout<D>::kBytes;
+    const cudaError_t e =
+        decode_mma::allow_smem<fused_decode_mma_kernel<D>>(smem);
+    if (e != cudaSuccess) return e;
+    return launch_clusters(
+        fused_decode_mma_kernel<D>, n_split, K, B, decode_mma::NT, smem,
+        stream, qq, kn, vn, kp, vp, bti, pi, o, K, G, n_phys, ps, P,
+        split_rows, scale);
   }
 }
 
-template <typename T>
-int launch(const void* q, const void* k_new, const void* v_new, void* k_pool,
-           void* v_pool, const void* bt, const void* pos, void* out, int B,
-           int K, int G, int D, int n_phys, int ps, int P,
-           cudaStream_t stream) {
-  if (G > GMAX || D > DMAX || G * D > NT * ACC || B < 1 || K < 1 || P < 1 ||
-      ps < 1 || n_phys < 1)
-    return static_cast<int>(cudaErrorInvalidValue);
-  const dim3 grid(B, K);
-  fused_paged_decode_kernel<T><<<grid, NT, 0, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k_new),
-      static_cast<const T*>(v_new), static_cast<T*>(k_pool),
-      static_cast<T*>(v_pool), static_cast<const int*>(bt),
-      static_cast<const int*>(pos), static_cast<T*>(out), K, G, D, n_phys,
-      ps, P, 1.0f / sqrtf(static_cast<float>(D)));
-  return static_cast<int>(cudaGetLastError());
+#define FUSED_ARGS q, k_new, v_new, k_pool, v_pool, bt, pos, out, B, K, G, \
+    n_phys, ps, P, n_split, split_rows, st
+
+cudaError_t dispatch(const void* q, const void* k_new, const void* v_new,
+                     void* k_pool, void* v_pool, const void* bt,
+                     const void* pos, void* out, int B, int K, int G, int D,
+                     int n_phys, int ps, int P, int n_split, int split_rows,
+                     int dtype, cudaStream_t st) {
+  if (dtype == kBFloat16) {
+    switch (D) {
+      case 64: return launch<__nv_bfloat16, 64>(FUSED_ARGS);
+      case 128: return launch<__nv_bfloat16, 128>(FUSED_ARGS);
+    }
+  } else if (dtype == kFloat32) {
+    switch (D) {
+      case 16: return launch<float, 16>(FUSED_ARGS);
+      case 32: return launch<float, 32>(FUSED_ARGS);
+      case 64: return launch<float, 64>(FUSED_ARGS);
+      case 128: return launch<float, 128>(FUSED_ARGS);
+    }
+  }
+  return cudaErrorInvalidValue;
 }
+
+#undef FUSED_ARGS
 
 }  // namespace
 
@@ -202,14 +223,15 @@ extern "C" int fused_paged_decode_fwd(const void* q, const void* k_new,
                                       void* v_pool, const void* bt,
                                       const void* pos, void* out, int B,
                                       int K, int G, int D, int n_phys,
-                                      int ps, int P, int dtype,
+                                      int ps, int P, int n_split,
+                                      int split_rows, int dtype,
                                       void* stream) {
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dtype == kBFloat16)
-    return launch<__nv_bfloat16>(q, k_new, v_new, k_pool, v_pool, bt, pos,
-                                 out, B, K, G, D, n_phys, ps, P, st);
-  if (dtype == kFloat32)
-    return launch<float>(q, k_new, v_new, k_pool, v_pool, bt, pos, out, B, K,
-                         G, D, n_phys, ps, P, st);
-  return static_cast<int>(cudaErrorInvalidValue);
+  if (G < 1 || G > GMAX || B < 1 || K < 1 || P < 1 || ps < 1 ||
+      n_phys < 1 || n_split < 1 || n_split > MAX_SPLIT ||
+      split_rows < 1 || (long long)n_split * split_rows < (long long)P * ps)
+    return static_cast<int>(cudaErrorInvalidValue);
+  return static_cast<int>(dispatch(q, k_new, v_new, k_pool, v_pool, bt, pos,
+                                   out, B, K, G, D, n_phys, ps, P, n_split,
+                                   split_rows, dtype,
+                                   static_cast<cudaStream_t>(stream)));
 }

@@ -40,8 +40,8 @@ KERNELS = {
         [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P]),
     "fused_paged_decode_attention": (
         "fused_paged_decode.cu", "fused_paged_decode_fwd",
-        [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
-         _P]),
+        [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I,
+         _I, _P]),
     "int8_matmul": (
         "int8_matmul.cu", "int8_matmul_fwd",
         [_P, _P, _P, _P, _I, _I, _I, _I, _P]),
@@ -51,7 +51,7 @@ KERNELS = {
          _P]),
     "decode_attention": (
         "decode_attention.cu", "decode_attention_fwd",
-        [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P]),
+        [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P]),
 }
 
 # host-side helpers a library exports beside its kernel:
@@ -59,6 +59,7 @@ KERNELS = {
 HELPERS = {
     "int8_matmul_plan": ("int8_matmul", [_I, _I, _I, _I, ctypes.POINTER(_I)]),
     "flash_attention_wgmma_smem_bytes": ("flash_attention", [_I]),
+    "decode_mma_smem_bytes": ("decode_attention", [_I]),
 }
 
 launch_counts: Dict[str, int] = {name: 0 for name in KERNELS}

@@ -16,7 +16,19 @@ They replace the three Pallas TPU kernels of
   ``(B, T, K, D)``.
 
 All three are bound by the bytes of the live K/V rows; each source's note
-says what its design does about that.
+says what its design does about that. All three split each slot's rows
+into spans, one block per (span, KV head, slot): the attend-only kernel
+combines them in a second pass, the other two in the same launch, the
+spans of one slot and KV head folding their partials as one cluster of
+blocks.
+
+The contiguous and fused kernels have two bodies each, picked by
+``decode_body`` from the dtype, the query heads per KV head and the head
+dim: bf16 at D in {64, 128} runs on the tensor cores
+(``csrc/decode_mma.cuh``), f32 at D in {16, 32, 64, 128} on the SIMT body
+(``csrc/decode_split.cuh``); any other triple raises, and no call falls
+back from one body to the other. The attend-only paged kernel runs the SIMT
+body in both dtypes.
 
 On a CPU tensor a wrapper computes the plain version (``ref``); on a CUDA
 tensor it launches the kernel or raises.
@@ -31,10 +43,74 @@ from repro_torch.kernels.ref import (decode_attention_ref,
                                      fused_paged_decode_attention_ref,
                                      paged_decode_attention_ref)
 
-# Rows of a slot's sequence one block of the split-T kernels attends over;
-# the sequence is cut into ceil(rows / SPLIT_ROWS) spans, each its own
-# block, combined in a second pass (csrc/decode_split.cuh).
+GMAX = 8          # query heads per KV head that one block serves
+# (body, head dims) of the contiguous and fused kernels for each dtype
+BODIES = {torch.bfloat16: ("mma", (64, 128)),
+          torch.float32: ("simt", HEAD_DIMS)}
+# Rows of a slot's sequence one block attends over: the rows are cut into
+# spans, one block each. The attend-only paged kernel takes SPLIT_ROWS and
+# combines the spans in a second pass; the contiguous and fused kernels
+# take at most MAX_SPLIT spans, one cluster of blocks per (slot, KV head)
+# that folds them in the same launch: SPLIT_ROWS each for the SIMT body;
+# for the tensor-core body whole 64-row tiles, FUSED_SPLIT_ROWS for the
+# fused kernel (most of a slot's P * ps rows lie past its length) and, for
+# the contiguous kernel, whose rows are all live, as many spans as give its
+# B * K pairs one block on each SM at most (the fold's cost grows with the
+# spans, and one block per SM already streams at the card's rate). Longer
+# rows get longer spans.
 SPLIT_ROWS = 128
+TILE_ROWS = 64
+FUSED_SPLIT_ROWS = 128
+MAX_SPLIT = 8     # a portable cluster (csrc/decode_split.cuh MAX_SPLIT)
+_sm_counts = {}
+
+
+def _sm_count(device) -> int:
+    n = _sm_counts.get(device.index)
+    if n is None:
+        n = _sm_counts[device.index] = \
+            torch.cuda.get_device_properties(device).multi_processor_count
+    return n
+
+
+def decode_body(dtype: torch.dtype, G: int, head_dim: int) -> str:
+    """The body of the contiguous and fused decode kernels that takes
+    ``dtype`` with ``G`` query heads per KV head at ``head_dim``: ``"mma"``
+    (tensor cores, bf16) or ``"simt"`` (f32). Raises for any other triple."""
+    if dtype not in BODIES:
+        raise TypeError(f"decode attention: dtype {dtype}; want float32 or "
+                        "bfloat16")
+    if not 1 <= G <= GMAX:
+        raise ValueError(f"decode attention: G={G} query heads per KV head; "
+                         f"the kernels take 1 to {GMAX}")
+    body, dims = BODIES[dtype]
+    if head_dim not in dims:
+        raise ValueError(f"decode attention: the {body} body takes {dtype} "
+                         f"at head_dim {dims}, not {head_dim}")
+    return body
+
+
+def _split(name: str, body: str, rows: int, q) -> tuple:
+    """(n_split, split_rows) of ``rows`` logical rows for ``body`` of the
+    contiguous or fused kernel ``name`` (q: the query, for its slots, heads
+    and device)."""
+    if body != "mma":
+        n = -(-rows // SPLIT_ROWS)
+    elif name == "fused_paged_decode_attention":
+        n = -(-rows // FUSED_SPLIT_ROWS)
+    else:
+        n = _sm_count(q.device) // (q.shape[0] * q.shape[1])
+    split = -(-rows // max(1, min(n, MAX_SPLIT)))
+    if body == "mma":
+        split = max(TILE_ROWS, -(-split // TILE_ROWS) * TILE_ROWS)
+    split = max(split, 1)
+    return max(1, -(-rows // split)), split
+
+
+def _check_aligned(what: str, body: str, tensors) -> None:
+    if body == "mma" and any(t.data_ptr() % 16 for t in tensors):
+        raise ValueError(f"{what}: the tensor-core body copies 16-byte "
+                         "pieces; inputs must be 16-byte aligned")
 
 
 def fused_paged_decode_attention(q, k_new, v_new, k_pool, v_pool,
@@ -44,7 +120,9 @@ def fused_paged_decode_attention(q, k_new, v_new, k_pool, v_pool,
     (and attends up to, inclusive).
 
     Returns ``(out, k_pool, v_pool)``, ``out`` (B, K, G, D) in q.dtype; the
-    pools are the inputs, updated in place.
+    pools are the inputs, updated in place. The kernel drops a write whose
+    page is the trash page ``n_phys - 1`` (an inactive slot's), which the
+    plain version makes; the pool contract discards that page.
     """
     if not q.is_cuda:
         return fused_paged_decode_attention_ref(q, k_new, v_new, k_pool,
@@ -74,14 +152,15 @@ def fused_paged_decode_attention(q, k_new, v_new, k_pool, v_pool,
     if not all(t.is_contiguous() for t in tensors):
         raise ValueError("fused_paged_decode_attention: inputs must be "
                          "contiguous")
-    if G > 8 or D > 128:
-        raise ValueError(f"fused_paged_decode_attention: G={G} D={D}; the "
-                         "kernel takes G <= 8 and D <= 128")
+    body = decode_body(dt, G, D)
+    _check_aligned("fused_paged_decode_attention", body, tensors[:5])
+    n_split, split = _split("fused_paged_decode_attention", body, P * ps, q)
     out = torch.empty_like(q)
     rc = build.kernel_fn("fused_paged_decode_attention")(
         q.data_ptr(), k_new.data_ptr(), v_new.data_ptr(), k_pool.data_ptr(),
         v_pool.data_ptr(), block_table.data_ptr(), pos.data_ptr(),
-        out.data_ptr(), B, K, G, D, n_phys, ps, P, DTYPE_CODES[dt],
+        out.data_ptr(), B, K, G, D, n_phys, ps, P, n_split, split,
+        DTYPE_CODES[dt],
         torch.cuda.current_stream(q.device).cuda_stream)
     build.check_launch("fused_paged_decode_attention", rc)
     return out, k_pool, v_pool
@@ -96,14 +175,15 @@ def _check_common(what, q, tensors):
     if not all(t.is_contiguous() for t in (q, *tensors)):
         raise ValueError(f"{what}: inputs must be contiguous")
     G, D = q.shape[2], q.shape[3]
-    if G > 8 or D not in HEAD_DIMS:
-        raise ValueError(f"{what}: G={G} D={D}; the kernel takes G <= 8 and "
-                         f"D in {HEAD_DIMS}")
+    if G > GMAX or D not in HEAD_DIMS:
+        raise ValueError(f"{what}: G={G} D={D}; the kernel takes G <= {GMAX} "
+                         f"and D in {HEAD_DIMS}")
 
 
 def _workspace(q, n_split: int) -> torch.Tensor:
-    """f32 scratch of the split pass: (m, l) per head and the (G, D)
-    partial accumulator, for every (slot, KV head, span)."""
+    """f32 scratch of the attend-only paged kernel's split pass: (m, l) per
+    head and the (G, D) partial accumulator, for every (slot, KV head,
+    span)."""
     B, K, G, D = q.shape
     return torch.empty((B * K * n_split * G * (2 + D),), dtype=torch.float32,
                        device=q.device)
@@ -169,16 +249,17 @@ def decode_attention(q, k, v, valid_len=None) -> torch.Tensor:
         raise ValueError(f"decode_attention: q {tuple(q.shape)} k "
                          f"{tuple(k.shape)} v {tuple(v.shape)}")
     _check_common("decode_attention", q, (k, v))
+    body = decode_body(q.dtype, G, D)
+    _check_aligned("decode_attention", body, (q, k, v))
     vlen = T if valid_len is None else int(valid_len)
     if not 0 <= vlen <= T:
         raise ValueError(f"decode_attention: valid_len {vlen} outside "
                          f"[0, {T}]")
-    n_split = max(1, -(-vlen // SPLIT_ROWS))
-    ws = _workspace(q, n_split)
+    n_split, split = _split("decode_attention", body, vlen, q)
     out = torch.empty_like(q)
     rc = build.kernel_fn("decode_attention")(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), ws.data_ptr(),
-        out.data_ptr(), B, T, K, G, D, vlen, n_split, SPLIT_ROWS,
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), B, T, K, G,
+        D, vlen, n_split, split,
         DTYPE_CODES[q.dtype], torch.cuda.current_stream(q.device).cuda_stream)
     build.check_launch("decode_attention", rc)
     return out

@@ -18,8 +18,8 @@ import torch
 from repro_torch.configs.registry import ARCHS
 from repro_torch.kernels import build, ref
 from repro_torch.kernels.decode_attention import (
-    decode_attention, decode_attention_plain, fused_paged_decode_attention,
-    paged_decode_attention)
+    _split, decode_attention, decode_attention_plain,
+    fused_paged_decode_attention, paged_decode_attention)
 from repro_torch.kernels.flash_attention import (flash_attention,
                                                  flash_attention_plain)
 from repro_torch.kernels.int8_matmul import int8_body, int8_matmul, int8_plan
@@ -111,9 +111,11 @@ def test_cuda_flash_bf16_small_head_dim_raises(D):
 
 @pytest.mark.cuda
 def test_cuda_fused_paged_decode_matches_plain():
-    """A trash-page pool with a first-token slot, a page-boundary slot and
-    an all-sentinel slot: live outputs agree, and every pool row but the
-    trash page is bit-equal to the plain scatter's."""
+    """f32 (the SIMT body). A trash-page pool with a first-token slot, a
+    page-boundary slot and an all-sentinel slot; then slots of three
+    128-row spans with the write row on span boundaries and in later spans.
+    Live outputs agree, every pool row but the trash page is bit-equal to
+    the plain scatter's, and two calls give the same bits."""
     dev = _need_cuda()
     rng = np.random.default_rng(1)
     B, K, G, n_logical, ps, P, D = 3, 2, 4, 12, 8, 4, 64
@@ -136,6 +138,35 @@ def test_cuda_fused_paged_decode_matches_plain():
         q, kn, vn, kp_ref, vp_ref, bt, pos)
     np.testing.assert_allclose(out[:2].cpu().numpy(), o_ref[:2].cpu().numpy(),
                                rtol=1e-4, atol=1e-4)
+    assert torch.equal(kp2[:sent], kp_ref[:sent])
+    assert torch.equal(vp2[:sent], vp_ref[:sent])
+
+    B, ps, P = 6, 16, 24
+    assert _split("fused_paged_decode_attention", "simt", P * ps,
+                  q) == (3, 128)
+    sent = B * P
+    gen = torch.Generator(device=dev).manual_seed(2)
+    kp = torch.randn((sent + 1, ps, K, D), generator=gen, device=dev)
+    vp = torch.randn(kp.shape, generator=gen, device=dev)
+    q = torch.randn((B, K, G, D), generator=gen, device=dev)
+    kn = torch.randn((B, K, D), generator=gen, device=dev)
+    vn = torch.randn((B, K, D), generator=gen, device=dev)
+    pos = torch.tensor([127, 128, 255, 256, 383, 40], dtype=torch.int32,
+                       device=dev)
+    perm = torch.randperm(B * P, generator=gen, device=dev).reshape(B, P)
+    alloc = torch.arange(P, device=dev)[None, :] <= (pos.long() // ps)[:, None]
+    bt = torch.where(alloc, perm, torch.full_like(perm, sent)).to(torch.int32)
+    bt[B - 1] = sent
+    k0, v0 = kp.clone(), vp.clone()
+    out, kp2, vp2 = fused_paged_decode_attention(q, kn, vn, kp, vp, bt, pos)
+    again, _, _ = fused_paged_decode_attention(q, kn, vn, k0.clone(),
+                                               v0.clone(), bt, pos)
+    o_ref, kp_ref, vp_ref = ref.fused_paged_decode_attention_ref(
+        q, kn, vn, k0.clone(), v0.clone(), bt, pos)
+    np.testing.assert_allclose(out[:B - 1].cpu().numpy(),
+                               o_ref[:B - 1].cpu().numpy(), rtol=1e-4,
+                               atol=1e-4)
+    assert torch.equal(out, again)
     assert torch.equal(kp2[:sent], kp_ref[:sent])
     assert torch.equal(vp2[:sent], vp_ref[:sent])
 
@@ -191,6 +222,108 @@ def test_cuda_decode_attention_matches_plain(dtype):
         np.testing.assert_allclose(out.float().cpu().numpy(),
                                    want.float().cpu().numpy(), rtol=tol,
                                    atol=tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("D", [64, 128])
+@pytest.mark.parametrize("G", [1, 4, 8])
+def test_cuda_fused_decode_mma_bf16(G, D):
+    """The fused kernel's tensor-core body in bf16: the write row on a
+    span's last and first row, in a later span and on the table's last row,
+    and an all-sentinel slot. Live outputs within the f32 rule of the plain
+    version on the widened inputs; written rows bit-equal to the new rows,
+    every other page row (trash aside) bitwise untouched; a second call on
+    the same inputs gives the same bits on every slot, the all-sentinel
+    one's finite."""
+    from repro_torch.kernels.decode_attention import (FUSED_SPLIT_ROWS,
+                                                      decode_body)
+    dev = _need_cuda()
+    assert decode_body(torch.bfloat16, G, D) == "mma"
+    split = FUSED_SPLIT_ROWS
+    B, K, ps, P = 6, 4, 16, 24
+    gen = torch.Generator(device=dev).manual_seed(G * D)
+    sent = B * P                                # trash page == sentinel
+    kp = torch.randn((sent + 1, ps, K, D), generator=gen, device=dev)
+    vp = torch.randn(kp.shape, generator=gen, device=dev)
+    q = torch.randn((B, K, G, D), generator=gen, device=dev)
+    kn = torch.randn((B, K, D), generator=gen, device=dev)
+    vn = torch.randn((B, K, D), generator=gen, device=dev)
+    kp, vp, q, kn, vn = (t.bfloat16() for t in (kp, vp, q, kn, vn))
+    pos = torch.tensor([split - 1, split, 2 * split + 5, P * ps - 1, 0, 9],
+                       dtype=torch.int32, device=dev)
+    perm = torch.randperm(B * P, generator=gen, device=dev).reshape(B, P)
+    alloc = torch.arange(P, device=dev)[None, :] <= (pos.long() // ps)[:, None]
+    bt = torch.where(alloc, perm, torch.full_like(perm, sent)).to(torch.int32)
+    bt[B - 1] = sent
+    k0, v0 = kp.clone(), vp.clone()
+    outs = []
+    for _ in range(2):
+        kp2, vp2 = k0.clone(), v0.clone()
+        out, _, _ = fused_paged_decode_attention(q, kn, vn, kp2, vp2, bt, pos)
+        outs.append(out)
+    want32, _, _ = ref.fused_paged_decode_attention_ref(
+        q.float(), kn.float(), vn.float(), k0.float(), v0.float(), bt, pos)
+    torch.cuda.synchronize()
+    live = slice(0, B - 1)
+    assert ref.bf16_ulp_ratio(outs[0][live], want32[live]) <= 1.0
+    # the all-sentinel slot's output is discarded by the pool contract
+    assert torch.equal(outs[0], outs[1])
+    assert outs[0][B - 1].isfinite().all()
+    wpage = bt[torch.arange(B, device=dev), pos.long() // ps].long()[live]
+    woff = (pos.long() % ps)[live]
+    assert torch.equal(kp2[wpage, woff], kn[live])
+    assert torch.equal(vp2[wpage, woff], vn[live])
+    kept = torch.ones((sent + 1, ps), dtype=torch.bool, device=dev)
+    kept[wpage, woff] = False
+    kept[sent] = False
+    assert torch.equal(kp2[kept], k0[kept]) and torch.equal(vp2[kept],
+                                                            v0[kept])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", [
+    (8, 8, 8, 128, 1601, None), (2, 8, 8, 128, 1601, 777),
+    (3, 2, 1, 64, 37, 30), (2, 4, 4, 64, 300, 128), (2, 2, 4, 128, 200, 0)])
+def test_cuda_decode_attention_mma_bf16(case):
+    """The contiguous kernel's tensor-core body in bf16: ragged T = 1601,
+    valid_len < T, on a span boundary and 0 (zeros). Within the f32 rule of
+    the plain version on the widened inputs; two calls give the same
+    bits."""
+    dev = _need_cuda()
+    B, K, G, D, T, vlen = case
+    gen = torch.Generator(device=dev).manual_seed(T + G)
+    q = torch.randn((B, K, G, D), generator=gen, device=dev).bfloat16()
+    k = torch.randn((B, T, K, D), generator=gen, device=dev).bfloat16()
+    v = torch.randn((B, T, K, D), generator=gen, device=dev).bfloat16()
+    out = decode_attention(q, k, v, vlen)
+    again = decode_attention(q, k, v, vlen)
+    want32 = decode_attention_plain(q.float(), k.float(), v.float(), vlen)
+    torch.cuda.synchronize()
+    assert ref.bf16_ulp_ratio(out, want32) <= 1.0
+    assert torch.equal(out, again)
+    if vlen == 0:
+        assert not out.any()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("D", [16, 32])
+def test_cuda_decode_bf16_small_head_dim_raises(D):
+    """bf16 at D in {16, 32} has no tensor-core decode body: both wrappers
+    raise and launch nothing."""
+    dev = _need_cuda()
+    bf = dict(device=dev, dtype=torch.bfloat16)
+    q = torch.zeros((1, 1, 2, D), **bf)
+    before = dict(build.launch_counts)
+    with pytest.raises(ValueError, match="mma body"):
+        decode_attention(q, torch.zeros((1, 8, 1, D), **bf),
+                         torch.zeros((1, 8, 1, D), **bf))
+    with pytest.raises(ValueError, match="mma body"):
+        fused_paged_decode_attention(
+            q, torch.zeros((1, 1, D), **bf), torch.zeros((1, 1, D), **bf),
+            torch.zeros((2, 4, 1, D), **bf), torch.zeros((2, 4, 1, D), **bf),
+            torch.zeros((1, 2), dtype=torch.int32, device=dev),
+            torch.zeros((1,), dtype=torch.int32, device=dev))
+    assert build.launch_counts == before
 
 
 @pytest.mark.cuda

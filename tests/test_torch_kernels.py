@@ -341,6 +341,224 @@ def test_grouped_adapter_at_one_query_routes_to_decode(vlen):
     np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
 
 
+def _emulate_decode_mma(q, k, v, valid, split, *, split_p=True, tile=64):
+    """The arithmetic of the bf16 tensor-core decode body
+    (``csrc/decode_mma.cuh``) and its combine in torch. q: (B, K, G, D);
+    k/v: (B, R, K, D), each slot's logical rows; valid: (B,) lengths.
+
+    Rows [0, valid) are cut into spans of ``split`` rows (one block each),
+    each span into 64-row tiles, and each tile's rows into 4 warps of 16;
+    each warp keeps its own running (m, l) and two f32 accumulators, hi.V
+    and lo.V, with p split into bf16 hi = bf16(p) and lo = bf16(p - hi)
+    (``split_p=False`` drops lo). A block folds its warps in warp order, and
+    the combine folds the spans in order, skipping empty ones (l = 0); the
+    result is acc / max(l, 1e-30) rounded to bf16."""
+    B, K, G, D = q.shape
+    R = k.shape[1]
+    qf = q.float()
+    kf = k.float().permute(0, 2, 1, 3)                  # (B, K, R, D)
+    vf = v.float().permute(0, 2, 1, 3)
+    valid = torch.as_tensor(valid).long().reshape(B, 1, 1, 1)
+    scale = torch.tensor(D ** -0.5)
+    spans = []
+    for t0 in range(0, max(R, 1), split):
+        t1 = torch.clamp(valid, max=t0 + split)         # the span's end
+        warps = []
+        for w in range(4):
+            m = torch.full((B, K, G, 1), tref.NEG_INF)
+            l = torch.zeros((B, K, G, 1))
+            o_hi = torch.zeros((B, K, G, D))
+            o_lo = torch.zeros((B, K, G, D))
+            for base in range(t0, t0 + split, tile):
+                r0 = base + 16 * w
+                if r0 >= R:
+                    break
+                rows = torch.arange(r0, min(r0 + 16, R))
+                x = (qf @ kf[:, :, rows].transpose(-1, -2)) * scale
+                live = rows.reshape(1, 1, 1, -1) < t1
+                mx = torch.where(live, x, torch.full_like(x, tref.NEG_INF)
+                                 ).amax(-1, keepdim=True)
+                m_new = torch.maximum(m, mx)
+                alpha = torch.exp(m - m_new)
+                p = torch.where(live, torch.exp(x - m_new),
+                                torch.zeros_like(x))
+                l = l * alpha + p.sum(-1, keepdim=True)
+                hi = p.bfloat16().float()
+                lo = (p - hi).bfloat16().float() if split_p else \
+                    torch.zeros_like(p)
+                o_hi = o_hi * alpha + hi @ vf[:, :, rows]
+                o_lo = o_lo * alpha + lo @ vf[:, :, rows]
+                m = m_new
+            warps.append((m, l, o_hi + o_lo))
+        mx = torch.stack([w[0] for w in warps]).amax(0)
+        e = [torch.exp(w[0] - mx) for w in warps]
+        spans.append((mx, sum(w[1] * ei for w, ei in zip(warps, e)),
+                      sum(w[2] * ei for w, ei in zip(warps, e)),
+                      t0 < valid))
+    mx = torch.stack([torch.where(live, m, torch.full_like(m, tref.NEG_INF))
+                      for m, _, _, live in spans]).amax(0)
+    lsum = torch.zeros((B, K, G, 1))
+    acc = torch.zeros((B, K, G, D))
+    for m, l, a, live in spans:
+        wgt = torch.where(live, torch.exp(m - mx), torch.zeros_like(m))
+        lsum = lsum + torch.where(live, l * wgt, torch.zeros_like(l))
+        acc = acc + torch.where(live, a * wgt, torch.zeros_like(a))
+    return (acc / lsum.clamp_min(1e-30)).bfloat16()
+
+
+def _bf(rng, *shape):
+    """bf16-valued f32 numpy data."""
+    return torch.from_numpy(_randn(rng, *shape)).bfloat16().float().numpy()
+
+
+# (B, K, G, D, page_size, pages_per_slot); positions put the write row on a
+# span's last and first row, in a later span, on the table's last row, and
+# an all-sentinel slot last
+FUSED_MMA_CASES = [(5, 2, 4, 64, 16, 24), (5, 1, 8, 128, 16, 24),
+                   (5, 2, 1, 64, 8, 48)]
+
+
+def _fused_mma_inputs(case):
+    from repro_torch.kernels.decode_attention import FUSED_SPLIT_ROWS as split
+    B, K, G, D, ps, P = case
+    rng = np.random.default_rng(B * K * G + D + ps)
+    n_logical = B * P
+    n_phys = n_logical + 1                 # + trash page == sentinel index
+    sent = n_logical
+    q = _bf(rng, B, K, G, D)
+    kn, vn = _bf(rng, B, K, D), _bf(rng, B, K, D)
+    kp, vp = _bf(rng, n_phys, ps, K, D), _bf(rng, n_phys, ps, K, D)
+    pos = np.array([split - 1, split, 2 * split + 2, P * ps - 1, 7],
+                   np.int32)
+    n_alloc = pos // ps + 1
+    perm = rng.permutation(n_logical).reshape(B, P)
+    bt = np.where(np.arange(P)[None, :] < n_alloc[:, None], perm, sent)
+    bt[B - 1] = sent                       # inactive slot: all-sentinel row
+    return q, kn, vn, kp, vp, bt.astype(np.int32), pos
+
+
+def _fused_mma_rows(case):
+    """One fused case through the plain version in f32: its output, and
+    each slot's logical rows after the write with their valid lengths."""
+    q, kn, vn, kp, vp, bt, pos = _fused_mma_inputs(case)
+    B, K, G, D, ps, P = case
+    want, kp2, vp2 = fused_paged_decode_attention(
+        _t(q), _t(kn), _t(vn), _t(kp), _t(vp), _t(bt), _t(pos))
+    pages = torch.clamp(_t(bt).long(), 0, kp.shape[0] - 1)
+    rows_k = kp2[pages].reshape(B, P * ps, K, D)
+    rows_v = vp2[pages].reshape(B, P * ps, K, D)
+    return want, rows_k, rows_v, np.minimum(pos + 1, P * ps)
+
+
+@pytest.mark.parametrize("case", FUSED_MMA_CASES)
+def test_fused_decode_mma_arithmetic_meets_the_f32_ulp_rule(case):
+    """The tensor-core body's arithmetic at the fused kernel's split, with
+    the write row on a span's last and first row and in a later span, and an
+    all-sentinel slot: within the f32 rule of the plain version in f32 and
+    of the Pallas kernel (interpret mode), on every live slot."""
+    from repro_torch.kernels.decode_attention import FUSED_SPLIT_ROWS as split
+    q, kn, vn, kp, vp, bt, pos = _fused_mma_inputs(case)
+    assert pos[2] < pos[3] < case[4] * case[5]
+    want, rows_k, rows_v, valid = _fused_mma_rows(case)
+    got = _emulate_decode_mma(_t(q), rows_k, rows_v, valid, split)
+    live = slice(0, case[0] - 1)
+    assert tref.bf16_ulp_ratio(got[live], want[live]) <= 1.0
+    jo, _, _ = j_fused(jnp.asarray(q), jnp.asarray(kn), jnp.asarray(vn),
+                       jnp.asarray(kp), jnp.asarray(vp), jnp.asarray(bt),
+                       jnp.asarray(pos), interpret=True)
+    assert tref.bf16_ulp_ratio(got[live], _t(jo)[live]) <= 1.0
+
+
+# (B, K, G, D, T, valid_len): ragged T, valid_len < T on and off a span
+DECODE_MMA_CASES = [(2, 2, 8, 128, 301, None), (3, 2, 4, 64, 200, 129),
+                    (2, 1, 1, 64, 37, 30)]
+
+
+def _decode_mma_inputs(case):
+    B, K, G, D, T, vlen = case
+    rng = np.random.default_rng(B + K + G + D + T)
+    return _bf(rng, B, K, G, D), _bf(rng, B, T, K, D), _bf(rng, B, T, K, D)
+
+
+@pytest.mark.parametrize("split", [64, 192])
+@pytest.mark.parametrize("case", DECODE_MMA_CASES)
+def test_decode_mma_arithmetic_meets_the_f32_ulp_rule(case, split):
+    """The tensor-core body's arithmetic with the contiguous kernel's spans
+    (whole 64-row tiles; their count follows the card's SMs), ragged T and
+    valid_len < T: within the f32 rule of the plain version in f32 and of
+    the Pallas kernel (interpret mode)."""
+    B, K, G, D, T, vlen = case
+    q, k, v = _decode_mma_inputs(case)
+    n = T if vlen is None else vlen
+    got = _emulate_decode_mma(_t(q), _t(k), _t(v), [n] * B, split)
+    want = decode_attention(_t(q), _t(k), _t(v), vlen)   # plain, f32
+    assert tref.bf16_ulp_ratio(got, want) <= 1.0
+    want_k = j_decode(jnp.asarray(q), jnp.asarray(k).transpose(0, 2, 1, 3),
+                      jnp.asarray(v).transpose(0, 2, 1, 3), vlen,
+                      interpret=True)
+    assert tref.bf16_ulp_ratio(got, _t(want_k)) <= 1.0
+
+
+def test_decode_mma_without_p_lo_misses_the_f32_ulp_rule():
+    """The reason for the split: P rounded to bf16 alone (one mma per n
+    tile) breaks the rule by far more than its limit, in both kernels'
+    cases."""
+    case = DECODE_MMA_CASES[0]
+    q, k, v = _decode_mma_inputs(case)
+    want = decode_attention(_t(q), _t(k), _t(v))
+    got = _emulate_decode_mma(_t(q), _t(k), _t(v), [case[4]] * case[0], 192,
+                              split_p=False)
+    assert tref.bf16_ulp_ratio(got, want) > 4.0
+    case = FUSED_MMA_CASES[1]
+    q = _fused_mma_inputs(case)[0]
+    want, rows_k, rows_v, valid = _fused_mma_rows(case)
+    got = _emulate_decode_mma(_t(q), rows_k, rows_v, valid, 128,
+                              split_p=False)
+    assert tref.bf16_ulp_ratio(got[:-1], want[:-1]) > 4.0
+
+
+@pytest.mark.parametrize("name,body,rows,pairs,plan", [
+    # the vision cross-attention at 8 slots: one block per SM at most
+    ("decode_attention", "mma", 1601, 64, (2, 832)),
+    ("decode_attention", "mma", 1601, 8, (7, 256)),
+    ("decode_attention", "mma", 256, 16, (4, 64)),
+    ("decode_attention", "mma", 0, 16, (1, 64)),
+    ("decode_attention", "simt", 1601, 64, (8, 201)),
+    # llama / whisper / vision self-attention at max_len 512 and 4096
+    ("fused_paged_decode_attention", "mma", 512, 64, (4, 128)),
+    ("fused_paged_decode_attention", "mma", 4096, 64, (8, 512)),
+    ("fused_paged_decode_attention", "simt", 32, 6, (1, 32))])
+def test_decode_span_plan(monkeypatch, name, body, rows, pairs, plan):
+    """Spans cover the rows; the contiguous and fused kernels take at most
+    a cluster's 8 of them, whole 64-row tiles on the tensor-core body."""
+    from repro_torch.kernels import decode_attention as da
+    monkeypatch.setattr(da, "_sm_count", lambda device: 132)   # an H100
+    n, split = da._split(name, body, rows, torch.zeros((pairs, 1, 1, 1)))
+    assert (n, split) == plan
+    assert n * split >= rows and (n - 1) * split < max(rows, 1)
+    assert n <= da.MAX_SPLIT
+    if body == "mma":
+        assert split % da.TILE_ROWS == 0
+
+
+@pytest.mark.parametrize("dtype,G,D,body", [
+    (torch.bfloat16, 1, 64, "mma"), (torch.bfloat16, 4, 64, "mma"),
+    (torch.bfloat16, 8, 128, "mma"), (torch.float32, 1, 16, "simt"),
+    (torch.float32, 8, 128, "simt"), (torch.bfloat16, 4, 16, None),
+    (torch.bfloat16, 4, 32, None), (torch.bfloat16, 9, 64, None),
+    (torch.float32, 4, 48, None), (torch.float16, 4, 64, None)])
+def test_decode_body_dispatch_by_dtype_heads_and_head_dim(dtype, G, D, body):
+    """bf16 runs the tensor-core body at D in {64, 128} only, f32 the SIMT
+    body at D in {16, 32, 64, 128}, G at most 8; any other triple raises
+    (no fallback between the bodies)."""
+    from repro_torch.kernels.decode_attention import decode_body
+    if body is None:
+        with pytest.raises((ValueError, TypeError)):
+            decode_body(dtype, G, D)
+    else:
+        assert decode_body(dtype, G, D) == body
+
+
 MM_CASES = [(1, 256, 128), (8, 512, 384), (128, 256, 128)]
 
 
