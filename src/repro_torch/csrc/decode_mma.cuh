@@ -1,8 +1,8 @@
 // Split-KV one-token decode attention on the tensor cores (bf16): the bf16
-// body of the contiguous kernel (decode_attention.cu) and of the fused paged
-// kernel (fused_paged_decode.cu). Their f32 bodies, and the attend-only
-// paged kernel, run the SIMT body of decode_split.cuh, which also holds the
-// fold of the spans that both bodies of the two kernels end in.
+// body of the three decode kernels, contiguous (decode_attention.cu), fused
+// paged (fused_paged_decode.cu) and attend-only paged (paged_decode.cu).
+// Their f32 bodies run the SIMT body of decode_split.cuh, which also holds
+// the fold of the spans that both bodies of every kernel end in.
 //
 // One block (4 warps) per (span, KV head, slot) serves the G <= 8 query
 // heads of its KV head over the span's rows [t0, t1). The host cuts the

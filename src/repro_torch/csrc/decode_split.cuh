@@ -1,32 +1,29 @@
 // Split-T one-token decode attention (FlashDecoding) on the SIMT pipes: the
-// body of the attend-only paged kernel (paged_decode.cu, both dtypes) and
-// the f32 body of the contiguous and fused paged kernels
-// (decode_attention.cu, fused_paged_decode.cu).
+// f32 body of the three decode kernels (decode_attention.cu,
+// fused_paged_decode.cu, paged_decode.cu), and the fold of the spans that
+// every decode kernel ends in, after this body or the bf16 tensor-core body
+// of decode_mma.cuh.
 //
-// Pass 1: one block per (split, KV head, slot). The block serves all G
+// The body: one block per (span, KV head, slot). The block serves all G
 // query heads of its KV head over its own span of the slot's logical rows
-// [s * split_rows, min((s + 1) * split_rows, valid_len)): q (G x D) sits in
-// shared memory, and the block stages 32 rows of K/V for this head at a
-// time in shared memory as f32 (rows at or past valid_len are staged as
-// zeros, never read, so stale or garbage rows cannot leak into the sum).
-// Each warp scores the 32 staged rows for one query head (one row per
-// lane) and folds them into that head's running (max, sum) with warp
-// shuffles; every thread then updates its share of the f32 (G x D)
-// accumulator. The block writes its partial (m, l, acc) to a workspace.
-//
-// Pass 2: one block per (KV head, slot) combines the splits in split order
-// (deterministic: no atomics) and writes acc / max(l, 1e-30), which is 0
-// for a slot with nothing to attend, as the Pallas kernels give.
+// [t0, t1): q (G x D) sits in shared memory, and the block stages 32 rows
+// of K/V for this head at a time in shared memory as f32 (rows at or past
+// t1 are staged as zeros, never read, so stale or garbage rows cannot leak
+// into the sum). Each warp scores the 32 staged rows for one query head
+// (one row per lane) and folds them into that head's running (max, sum)
+// with warp shuffles; every thread then updates its share of the f32
+// (G x D) accumulator. The block ends with its span's partial (m, l, acc).
 //
 // Where a row of the slot lives is the caller's business: a functor maps
-// logical row t to the element offset of its (row, head) vector of D. With
-// kNewRow (the fused paged kernel's f32 body), logical row t_new is taken
-// from the k_new / v_new vectors instead: the step's own row, which the
-// block writes into its page and must not read back through the pool.
+// logical row t to the element offset of its (row, head) vector of D
+// (PagedRows, below, for the two paged kernels). With kNewRow (the fused
+// paged kernel's f32 body), logical row t_new is taken from the k_new /
+// v_new vectors instead: the step's own row, which the block writes into
+// its page and must not read back through the pool.
 //
-// The contiguous and fused kernels fold their spans in the same launch
-// instead (fold_cluster, below), after either body: this SIMT one in f32,
-// or the bf16 tensor-core body of decode_mma.cuh.
+// The spans of one (slot, KV head) are one thread-block cluster and fold
+// their partials in the same launch (fold_cluster, below): no second pass,
+// no workspace.
 #pragma once
 
 #include <cooperative_groups.h>
@@ -44,14 +41,36 @@ constexpr int NT = 128;   // threads per block (4 warps)
 constexpr int TC = 32;    // rows staged per step: one per lane
 constexpr int GMAX = 8;   // query heads per KV head
 
-// Pass 1 body: partial attention of the G heads of q_head over rows
-// [t0, t1) of one (slot, KV head); writes m, l (G each) and acc (G x D).
+// Logical row t of one (slot, KV head) of a page pool (n_phys, ps, K, D):
+// page bt_row[t / ps], clamped into [0, n_phys - 1] as the Pallas wrappers
+// clamp the block table, row t % ps.
+struct PagedRows {
+  const int* bt_row;
+  int ps, n_phys;
+  size_t page_stride, row_stride, head_off;
+  // KV head kh of slot b, through row b of the (B, P) block table bt
+  static __device__ __forceinline__ PagedRows of(const int* bt, int b,
+                                                 int kh, int K, int D,
+                                                 int n_phys, int ps, int P) {
+    return PagedRows{bt + (size_t)b * P, ps, n_phys, (size_t)ps * K * D,
+                     (size_t)K * D, (size_t)kh * D};
+  }
+  __device__ __forceinline__ size_t operator()(int t) const {
+    const int page = min(max(bt_row[t / ps], 0), n_phys - 1);
+    return (size_t)page * page_stride + (size_t)(t % ps) * row_stride +
+           head_off;
+  }
+};
+
+// Partial attention of the G heads of q_head over rows [t0, t1) of one
+// (slot, KV head); writes m, l (G each) and acc (G x D).
 template <typename T, int D, typename RowOffset, bool kNewRow = false>
 __device__ __forceinline__ void attend_span(
     const T* __restrict__ q_head, const T* __restrict__ k,
     const T* __restrict__ v, const RowOffset& row_offset, int G, int t0,
-    int t1, float sm_scale, float* __restrict__ ws_m,
-    float* __restrict__ ws_l, float* __restrict__ ws_acc, int t_new = -1,
+    int t1, float sm_scale, float* __restrict__ part_m,
+    float* __restrict__ part_l, float* __restrict__ part_acc,
+    int t_new = -1,
     const T* __restrict__ k_new = nullptr,
     const T* __restrict__ v_new = nullptr) {
   constexpr int ACC = (GMAX * D + NT - 1) / NT;
@@ -140,56 +159,15 @@ __device__ __forceinline__ void attend_span(
   }
   __syncthreads();
   if (tid < G) {
-    ws_m[tid] = m_s[tid];
-    ws_l[tid] = l_s[tid];
+    part_m[tid] = m_s[tid];
+    part_l[tid] = l_s[tid];
   }
 #pragma unroll
   for (int i = 0; i < ACC; ++i) {
     const int idx = tid + i * NT;
-    if (idx < G * D) ws_acc[idx] = acc[i];
+    if (idx < G * D) part_acc[idx] = acc[i];
   }
 }
-
-// Pass 2: grid (K, B). Workspace layout, per (slot, KV head): n_split
-// consecutive entries of G (m, l) and G x D (acc).
-template <typename T>
-__global__ void __launch_bounds__(NT) combine_kernel(
-    const float* __restrict__ ws_m, const float* __restrict__ ws_l,
-    const float* __restrict__ ws_acc, T* __restrict__ out, int K, int G,
-    int D, int n_split) {
-  const int bk = blockIdx.y * K + blockIdx.x;
-  const float* m = ws_m + (size_t)bk * n_split * G;
-  const float* l = ws_l + (size_t)bk * n_split * G;
-  const float* a = ws_acc + (size_t)bk * n_split * G * D;
-  T* o = out + (size_t)bk * G * D;
-  for (int idx = threadIdx.x; idx < G * D; idx += NT) {
-    const int g = idx / D;
-    float mx = kNegInf;
-    for (int s = 0; s < n_split; ++s) mx = fmaxf(mx, m[s * G + g]);
-    float lsum = 0.f, acc = 0.f;
-    for (int s = 0; s < n_split; ++s) {
-      const float w = expf(m[s * G + g] - mx);
-      lsum += l[s * G + g] * w;
-      acc += a[(size_t)s * G * D + idx] * w;
-    }
-    o[idx] = from_f32<T>(acc / fmaxf(lsum, 1e-30f));
-  }
-}
-
-// Workspace pointers of split s of (slot b, KV head kh).
-struct Workspace {
-  float* m;
-  float* l;
-  float* acc;
-  __device__ __forceinline__ void at(int b, int kh, int s, int K, int G,
-                                     int D, int n_split, float** pm,
-                                     float** pl, float** pa) const {
-    const size_t e = ((size_t)b * K + kh) * n_split + s;
-    *pm = m + e * G;
-    *pl = l + e * G;
-    *pa = acc + e * G * D;
-  }
-};
 
 // The fold, in the same launch: the blocks of one (slot, KV head) form a
 // thread-block cluster along the span axis. Rank j owns the j-th slice of

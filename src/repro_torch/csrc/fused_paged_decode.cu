@@ -56,19 +56,6 @@ using namespace repro::decode_split;
 
 namespace {
 
-// Logical row t of one (slot, KV head): page bt_row[t / ps] (clamped into
-// the pool), row t % ps.
-struct PagedRows {
-  const int* bt_row;
-  int ps, n_phys;
-  size_t page_stride, row_stride, head_off;
-  __device__ __forceinline__ size_t operator()(int t) const {
-    const int page = min(max(bt_row[t / ps], 0), n_phys - 1);
-    return (size_t)page * page_stride + (size_t)(t % ps) * row_stride +
-           head_off;
-  }
-};
-
 // What one block needs besides its body: its span, its rows, and the write.
 struct Span {
   int t0, t1;     // the span's live rows
@@ -94,12 +81,7 @@ __device__ __forceinline__ Span span_and_write(
   sp.t0 = min(s * split_rows, valid);
   sp.t1 = min(sp.t0 + split_rows, valid);
   sp.t_w = wblk * ps + woff;
-  sp.rows.bt_row = bt + (size_t)b * P;
-  sp.rows.ps = ps;
-  sp.rows.n_phys = n_phys;
-  sp.rows.row_stride = (size_t)K * D;
-  sp.rows.page_stride = (size_t)ps * K * D;
-  sp.rows.head_off = (size_t)kh * D;
+  sp.rows = PagedRows::of(bt, b, kh, K, D, n_phys, ps, P);
   // the span holding the write row, unless its page (clamped) is the trash
   if (sp.t_w >= s * split_rows && sp.t_w < (s + 1) * split_rows &&
       sp.rows.bt_row[wblk] < n_phys - 1) {

@@ -14,114 +14,154 @@
 // length is each slot's own, not tied to a write position. valid_len is
 // clamped into [0, P * ps]; a slot with valid_len 0 gets zeros.
 //
-// Design: split-T flash-decode (decode_split.cuh). The slot's logical rows
-// are cut into n_split spans of split_rows; each (span, KV head, slot) is
-// one block, and a second pass combines the spans in order. Spans that
-// start at or past valid_len exit at once, so pages at or past the length
-// are never read, and rows past it inside a live page are staged as zeros.
-//
 // What bounds it on the H100: one pass over the live pages' K/V rows
 // (2 * valid_len * K * D elements per slot) for 4 * G * D flops per row:
-// bound by bytes. The kernel reads each live row once, in rows of D
-// contiguous elements, and never materialises the gathered (B, P * ps, K,
-// D) view that the plain version builds. Splitting the span fills the SMs
-// that one block per (slot, head) would leave idle (64 blocks on 132 SMs
-// at 8 slots x 8 heads). The products run on the f32 SIMT pipes.
-#include "decode_split.cuh"
+// bound by bytes. At the engine's shapes the bytes are few (about 4.9 MB at
+// 8 slots of whisper-base's 300 encoder frames: 1.5 us at the card's
+// rate), so launch latency and one span's load round trip set the time.
+// The design, the fused kernel's minus its write:
+// - Split-KV: the host cuts the slot's P * ps logical rows into n_split
+//   (at most 8) spans of split_rows from P and ps alone (no read of
+//   valid_len), one block per (span, KV head, slot), so every SM has
+//   blocks whose loads overlap. A span that starts at or past the slot's
+//   length attends nothing and reads no page; rows past the length inside
+//   a live span are zero-filled, never read.
+// - One launch, no workspace: the spans of one (slot, KV head) form a
+//   cluster and fold their partials in span order through distributed
+//   shared memory (decode_split.cuh fold_cluster), with no float atomics,
+//   so two calls give the same bits.
+// - Two bodies. bf16 at D in {64, 128}: the tensor-core body
+//   (decode_mma.cuh), 64-row bf16 tiles through a cp.async ring of 16-byte
+//   copies, S and P.V on mma.sync. f32 at D in {16, 32, 64, 128}: the SIMT
+//   body (decode_split.cuh). bf16 at D in {16, 32} has no body: the wrapper
+//   raises before a launch.
+// Each live row is read once, in rows of D contiguous elements, and the
+// gathered (B, P * ps, K, D) view that the plain version builds is never
+// materialised.
+#include <type_traits>
+
+#include "decode_mma.cuh"
 
 using namespace repro;
 using namespace repro::decode_split;
 
 namespace {
 
-struct PagedRows {
-  const int* bt_row;
-  int ps, n_phys;
-  size_t page_stride, row_stride, head_off;
-  __device__ __forceinline__ size_t operator()(int t) const {
-    const int page = min(max(bt_row[t / ps], 0), n_phys - 1);
-    return (size_t)page * page_stride + (size_t)(t % ps) * row_stride +
-           head_off;
-  }
-};
+// Block (s, kh, b)'s span of slot b's live rows: [x, y)
+__device__ __forceinline__ int2 live_span(const int* __restrict__ vlen,
+                                          int ps, int P, int split_rows) {
+  const int valid = min(max(vlen[blockIdx.z], 0), P * ps);
+  const int t0 = min((int)blockIdx.x * split_rows, valid);
+  return make_int2(t0, min(t0 + split_rows, valid));
+}
 
-template <typename T, int D>
-__global__ void __launch_bounds__(NT) paged_decode_kernel(
-    const T* __restrict__ q, const T* __restrict__ k_pool,
-    const T* __restrict__ v_pool, const int* __restrict__ bt,
-    const int* __restrict__ vlen, Workspace ws, int K, int G, int n_phys,
-    int ps, int P, int split_rows, float sm_scale) {
-  const int s = blockIdx.x;
-  const int kh = blockIdx.y;
-  const int b = blockIdx.z;
-  const int valid = min(max(vlen[b], 0), P * ps);
-  const int t0 = min(s * split_rows, valid);
-  const int t1 = min(t0 + split_rows, valid);
-  PagedRows rows;
-  rows.bt_row = bt + (size_t)b * P;
-  rows.ps = ps;
-  rows.n_phys = n_phys;
-  rows.row_stride = (size_t)K * D;
-  rows.page_stride = (size_t)ps * K * D;
-  rows.head_off = (size_t)kh * D;
-  float *pm, *pl, *pa;
-  ws.at(b, kh, s, K, G, D, gridDim.x, &pm, &pl, &pa);
-  attend_span<T, D>(q + ((size_t)b * K + kh) * G * D, k_pool, v_pool, rows,
-                    G, t0, t1, sm_scale, pm, pl, pa);
+// f32: the SIMT body
+template <int D>
+__global__ void __launch_bounds__(NT) paged_decode_simt_kernel(
+    const float* __restrict__ q, const float* __restrict__ k_pool,
+    const float* __restrict__ v_pool, const int* __restrict__ bt,
+    const int* __restrict__ vlen, float* __restrict__ out, int K, int G,
+    int n_phys, int ps, int P, int split_rows, float sm_scale) {
+  __shared__ Partial<D> part;
+  __shared__ Inbox<D> inbox;
+  cluster_started();
+  const int2 sp = live_span(vlen, ps, P, split_rows);
+  const size_t bk = (size_t)blockIdx.z * K + blockIdx.y;
+  const PagedRows rows =
+      PagedRows::of(bt, blockIdx.z, blockIdx.y, K, D, n_phys, ps, P);
+  attend_span<float, D>(q + bk * G * D, k_pool, v_pool, rows, G, sp.x, sp.y,
+                        sm_scale, part.m, part.l, part.acc);
+  fold_cluster<float, D>(part, inbox, G, out + bk * G * D);
+}
+
+// bf16: the tensor-core body
+template <int D>
+__global__ void __launch_bounds__(decode_mma::NT) paged_decode_mma_kernel(
+    const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* k_pool,
+    const __nv_bfloat16* v_pool, const int* __restrict__ bt,
+    const int* __restrict__ vlen, __nv_bfloat16* __restrict__ out, int K,
+    int G, int n_phys, int ps, int P, int split_rows, float sm_scale) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  __shared__ Partial<D> part;
+  __shared__ Inbox<D> inbox;
+  cluster_started();
+  const int2 sp = live_span(vlen, ps, P, split_rows);
+  const size_t bk = (size_t)blockIdx.z * K + blockIdx.y;
+  const PagedRows rows =
+      PagedRows::of(bt, blockIdx.z, blockIdx.y, K, D, n_phys, ps, P);
+  decode_mma::attend_span_mma<D>(q + bk * G * D, k_pool, v_pool, rows, G,
+                                 sp.x, sp.y, sm_scale, part.m, part.l,
+                                 part.acc, smem, -1, nullptr, nullptr);
+  fold_cluster<__nv_bfloat16, D>(part, inbox, G, out + bk * G * D);
 }
 
 template <typename T, int D>
-void launch(const void* q, const void* k_pool, const void* v_pool,
-            const void* bt, const void* vlen, float* ws, void* out, int B,
-            int K, int G, int n_phys, int ps, int P, int n_split,
-            int split_rows, cudaStream_t stream) {
-  const size_t n_part = (size_t)B * K * n_split;
-  const Workspace w{ws, ws + n_part * G, ws + 2 * n_part * G};
-  paged_decode_kernel<T, D><<<dim3(n_split, K, B), NT, 0, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k_pool),
-      static_cast<const T*>(v_pool), static_cast<const int*>(bt),
-      static_cast<const int*>(vlen), w, K, G, n_phys, ps, P, split_rows,
-      1.0f / sqrtf(static_cast<float>(D)));
-  combine_kernel<T><<<dim3(K, B), NT, 0, stream>>>(
-      w.m, w.l, w.acc, static_cast<T*>(out), K, G, D, n_split);
+cudaError_t launch(const void* q, const void* k_pool, const void* v_pool,
+                   const void* bt, const void* vlen, void* out, int B, int K,
+                   int G, int n_phys, int ps, int P, int n_split,
+                   int split_rows, cudaStream_t stream) {
+  const float scale = 1.0f / sqrtf(static_cast<float>(D));
+  const T* qq = static_cast<const T*>(q);
+  const T* kp = static_cast<const T*>(k_pool);
+  const T* vp = static_cast<const T*>(v_pool);
+  const int* bti = static_cast<const int*>(bt);
+  const int* vl = static_cast<const int*>(vlen);
+  T* o = static_cast<T*>(out);
+  if constexpr (std::is_same_v<T, float>) {
+    return launch_clusters(paged_decode_simt_kernel<D>, n_split, K, B, NT,
+                           0, stream, qq, kp, vp, bti, vl, o, K, G, n_phys,
+                           ps, P, split_rows, scale);
+  } else {
+    constexpr int smem = decode_mma::Layout<D>::kBytes;
+    const cudaError_t e =
+        decode_mma::allow_smem<paged_decode_mma_kernel<D>>(smem);
+    if (e != cudaSuccess) return e;
+    return launch_clusters(paged_decode_mma_kernel<D>, n_split, K, B,
+                           decode_mma::NT, smem, stream, qq, kp, vp, bti, vl,
+                           o, K, G, n_phys, ps, P, split_rows, scale);
+  }
 }
 
-template <typename T>
-int dispatch_d(const void* q, const void* k_pool, const void* v_pool,
-               const void* bt, const void* vlen, float* ws, void* out, int B,
-               int K, int G, int D, int n_phys, int ps, int P, int n_split,
-               int split_rows, cudaStream_t st) {
-  switch (D) {
-    case 16: launch<T, 16>(q, k_pool, v_pool, bt, vlen, ws, out, B, K, G, n_phys, ps, P, n_split, split_rows, st); break;
-    case 32: launch<T, 32>(q, k_pool, v_pool, bt, vlen, ws, out, B, K, G, n_phys, ps, P, n_split, split_rows, st); break;
-    case 64: launch<T, 64>(q, k_pool, v_pool, bt, vlen, ws, out, B, K, G, n_phys, ps, P, n_split, split_rows, st); break;
-    case 128: launch<T, 128>(q, k_pool, v_pool, bt, vlen, ws, out, B, K, G, n_phys, ps, P, n_split, split_rows, st); break;
-    default: return static_cast<int>(cudaErrorInvalidValue);
+#define PAGED_ARGS q, k_pool, v_pool, bt, vlen, out, B, K, G, n_phys, ps, \
+    P, n_split, split_rows, st
+
+cudaError_t dispatch(const void* q, const void* k_pool, const void* v_pool,
+                     const void* bt, const void* vlen, void* out, int B,
+                     int K, int G, int D, int n_phys, int ps, int P,
+                     int n_split, int split_rows, int dtype,
+                     cudaStream_t st) {
+  if (dtype == kBFloat16) {
+    switch (D) {
+      case 64: return launch<__nv_bfloat16, 64>(PAGED_ARGS);
+      case 128: return launch<__nv_bfloat16, 128>(PAGED_ARGS);
+    }
+  } else if (dtype == kFloat32) {
+    switch (D) {
+      case 16: return launch<float, 16>(PAGED_ARGS);
+      case 32: return launch<float, 32>(PAGED_ARGS);
+      case 64: return launch<float, 64>(PAGED_ARGS);
+      case 128: return launch<float, 128>(PAGED_ARGS);
+    }
   }
-  return static_cast<int>(cudaGetLastError());
+  return cudaErrorInvalidValue;
 }
+
+#undef PAGED_ARGS
 
 }  // namespace
 
-// ws: 2 * B * K * n_split * G + B * K * n_split * G * D floats.
 extern "C" int paged_decode_fwd(const void* q, const void* k_pool,
                                 const void* v_pool, const void* bt,
-                                const void* vlen, void* ws, void* out, int B,
-                                int K, int G, int D, int n_phys, int ps,
-                                int P, int n_split, int split_rows,
-                                int dtype, void* stream) {
+                                const void* vlen, void* out, int B, int K,
+                                int G, int D, int n_phys, int ps, int P,
+                                int n_split, int split_rows, int dtype,
+                                void* stream) {
   if (G < 1 || G > GMAX || B < 1 || K < 1 || P < 1 || ps < 1 ||
-      n_phys < 1 || n_split < 1 || split_rows < 1 ||
-      (long long)n_split * split_rows < (long long)P * ps)
+      n_phys < 1 || n_split < 1 || n_split > MAX_SPLIT ||
+      split_rows < 1 || (long long)n_split * split_rows < (long long)P * ps)
     return static_cast<int>(cudaErrorInvalidValue);
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  float* w = static_cast<float*>(ws);
-  if (dtype == kBFloat16)
-    return dispatch_d<__nv_bfloat16>(q, k_pool, v_pool, bt, vlen, w, out, B,
-                                     K, G, D, n_phys, ps, P, n_split,
-                                     split_rows, st);
-  if (dtype == kFloat32)
-    return dispatch_d<float>(q, k_pool, v_pool, bt, vlen, w, out, B, K, G, D,
-                             n_phys, ps, P, n_split, split_rows, st);
-  return static_cast<int>(cudaErrorInvalidValue);
+  return static_cast<int>(dispatch(q, k_pool, v_pool, bt, vlen, out, B, K,
+                                   G, D, n_phys, ps, P, n_split, split_rows,
+                                   dtype,
+                                   static_cast<cudaStream_t>(stream)));
 }

@@ -47,8 +47,7 @@ KERNELS = {
         [_P, _P, _P, _P, _I, _I, _I, _I, _P]),
     "paged_decode_attention": (
         "paged_decode.cu", "paged_decode_fwd",
-        [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I,
-         _P]),
+        [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P]),
     "decode_attention": (
         "decode_attention.cu", "decode_attention_fwd",
         [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P]),

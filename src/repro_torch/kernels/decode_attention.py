@@ -17,18 +17,15 @@ They replace the three Pallas TPU kernels of
 
 All three are bound by the bytes of the live K/V rows; each source's note
 says what its design does about that. All three split each slot's rows
-into spans, one block per (span, KV head, slot): the attend-only kernel
-combines them in a second pass, the other two in the same launch, the
-spans of one slot and KV head folding their partials as one cluster of
-blocks.
+into at most ``MAX_SPLIT`` spans, one block per (span, KV head, slot), and
+fold them in the same launch: the spans of one slot and KV head fold their
+partials as one cluster of blocks, with no workspace.
 
-The contiguous and fused kernels have two bodies each, picked by
-``decode_body`` from the dtype, the query heads per KV head and the head
-dim: bf16 at D in {64, 128} runs on the tensor cores
-(``csrc/decode_mma.cuh``), f32 at D in {16, 32, 64, 128} on the SIMT body
-(``csrc/decode_split.cuh``); any other triple raises, and no call falls
-back from one body to the other. The attend-only paged kernel runs the SIMT
-body in both dtypes.
+Each kernel has two bodies, picked by ``decode_body`` from the dtype, the
+query heads per KV head and the head dim: bf16 at D in {64, 128} runs on
+the tensor cores (``csrc/decode_mma.cuh``), f32 at D in {16, 32, 64, 128}
+on the SIMT body (``csrc/decode_split.cuh``); any other triple raises, and
+no call falls back from one body to the other.
 
 On a CPU tensor a wrapper computes the plain version (``ref``); on a CUDA
 tensor it launches the kernel or raises.
@@ -44,20 +41,18 @@ from repro_torch.kernels.ref import (decode_attention_ref,
                                      paged_decode_attention_ref)
 
 GMAX = 8          # query heads per KV head that one block serves
-# (body, head dims) of the contiguous and fused kernels for each dtype
+# (body, head dims) of the decode kernels for each dtype
 BODIES = {torch.bfloat16: ("mma", (64, 128)),
           torch.float32: ("simt", HEAD_DIMS)}
 # Rows of a slot's sequence one block attends over: the rows are cut into
-# spans, one block each. The attend-only paged kernel takes SPLIT_ROWS and
-# combines the spans in a second pass; the contiguous and fused kernels
-# take at most MAX_SPLIT spans, one cluster of blocks per (slot, KV head)
-# that folds them in the same launch: SPLIT_ROWS each for the SIMT body;
-# for the tensor-core body whole 64-row tiles, FUSED_SPLIT_ROWS for the
-# fused kernel (most of a slot's P * ps rows lie past its length) and, for
-# the contiguous kernel, whose rows are all live, as many spans as give its
-# B * K pairs one block on each SM at most (the fold's cost grows with the
-# spans, and one block per SM already streams at the card's rate). Longer
-# rows get longer spans.
+# at most MAX_SPLIT spans, one block each, one cluster of blocks per (slot,
+# KV head) that folds them in the same launch: SPLIT_ROWS each for the SIMT
+# body; for the tensor-core body whole 64-row tiles, FUSED_SPLIT_ROWS for
+# the two paged kernels (most of a slot's P * ps rows lie past its length,
+# which the host does not read) and, for the contiguous kernel, whose rows
+# are all live, as many spans as give its B * K pairs one block on each SM
+# at most (the fold's cost grows with the spans, and one block per SM
+# already streams at the card's rate). Longer rows get longer spans.
 SPLIT_ROWS = 128
 TILE_ROWS = 64
 FUSED_SPLIT_ROWS = 128
@@ -74,9 +69,9 @@ def _sm_count(device) -> int:
 
 
 def decode_body(dtype: torch.dtype, G: int, head_dim: int) -> str:
-    """The body of the contiguous and fused decode kernels that takes
-    ``dtype`` with ``G`` query heads per KV head at ``head_dim``: ``"mma"``
-    (tensor cores, bf16) or ``"simt"`` (f32). Raises for any other triple."""
+    """The body of the decode kernels that takes ``dtype`` with ``G`` query
+    heads per KV head at ``head_dim``: ``"mma"`` (tensor cores, bf16) or
+    ``"simt"`` (f32). Raises for any other triple."""
     if dtype not in BODIES:
         raise TypeError(f"decode attention: dtype {dtype}; want float32 or "
                         "bfloat16")
@@ -92,14 +87,14 @@ def decode_body(dtype: torch.dtype, G: int, head_dim: int) -> str:
 
 def _split(name: str, body: str, rows: int, q) -> tuple:
     """(n_split, split_rows) of ``rows`` logical rows for ``body`` of the
-    contiguous or fused kernel ``name`` (q: the query, for its slots, heads
-    and device)."""
+    decode kernel ``name`` (q: the query, for its slots, heads and
+    device)."""
     if body != "mma":
         n = -(-rows // SPLIT_ROWS)
-    elif name == "fused_paged_decode_attention":
-        n = -(-rows // FUSED_SPLIT_ROWS)
-    else:
+    elif name == "decode_attention":
         n = _sm_count(q.device) // (q.shape[0] * q.shape[1])
+    else:
+        n = -(-rows // FUSED_SPLIT_ROWS)
     split = -(-rows // max(1, min(n, MAX_SPLIT)))
     if body == "mma":
         split = max(TILE_ROWS, -(-split // TILE_ROWS) * TILE_ROWS)
@@ -174,57 +169,62 @@ def _check_common(what, q, tensors):
         raise ValueError(f"{what}: mixed devices")
     if not all(t.is_contiguous() for t in (q, *tensors)):
         raise ValueError(f"{what}: inputs must be contiguous")
-    G, D = q.shape[2], q.shape[3]
-    if G > GMAX or D not in HEAD_DIMS:
-        raise ValueError(f"{what}: G={G} D={D}; the kernel takes G <= {GMAX} "
-                         f"and D in {HEAD_DIMS}")
 
 
-def _workspace(q, n_split: int) -> torch.Tensor:
-    """f32 scratch of the attend-only paged kernel's split pass: (m, l) per
-    head and the (G, D) partial accumulator, for every (slot, KV head,
-    span)."""
-    B, K, G, D = q.shape
-    return torch.empty((B * K * n_split * G * (2 + D),), dtype=torch.float32,
-                       device=q.device)
+def slot_lengths(valid_len, B: int, rows: int, device) -> torch.Tensor:
+    """``valid_len`` of the attend-only paged kernel as it reads it: an
+    int32 (B,) tensor on ``device``. Takes what ``repro``'s
+    ``paged_decode_attention`` takes: None (``rows``, all of every slot's
+    logical rows), an int, or a tensor of shape (), (1,) or (B,), broadcast
+    to the B slots."""
+    if valid_len is None:
+        return torch.full((B,), rows, dtype=torch.int32, device=device)
+    if (isinstance(valid_len, torch.Tensor)
+            and valid_len.dtype == torch.int32 and valid_len.device == device
+            and tuple(valid_len.shape) == (B,) and valid_len.is_contiguous()):
+        return valid_len
+    t = torch.as_tensor(valid_len, device=device).to(torch.int32)
+    if t.dim() > 1 or t.numel() not in (1, B):
+        raise ValueError(f"paged_decode_attention: valid_len of shape "
+                         f"{tuple(t.shape)} for {B} slots")
+    return t.reshape(-1).expand(B).contiguous()
 
 
-def paged_decode_attention(q, k_pool, v_pool, block_table, valid_len):
+def paged_decode_attention(q, k_pool, v_pool, block_table, valid_len=None):
     """q: (B, K, G, D); pools (n_phys, ps, K, D); block_table (B, P) int32,
-    entries clamped into the pool; valid_len (B,) int32 per-slot lengths
-    over the slot's logical P * ps positions (a scalar on the CPU).
+    entries clamped into the pool; valid_len the per-slot lengths over the
+    slot's logical P * ps positions: None (all of them), an int, or a 0-d
+    or (B,) tensor (``slot_lengths``).
 
     Returns (B, K, G, D) in q.dtype; zeros for a slot with valid_len 0.
     """
-    if not q.is_cuda:
-        return paged_decode_attention_ref(q, k_pool, v_pool, block_table,
-                                          valid_len)
     B, K, G, D = q.shape
     n_phys, ps = k_pool.shape[:2]
     P = block_table.shape[1]
+    vlen = slot_lengths(valid_len, B, P * ps, q.device)
+    if not q.is_cuda:
+        return paged_decode_attention_ref(q, k_pool, v_pool, block_table,
+                                          vlen)
     if (k_pool.shape != (n_phys, ps, K, D) or v_pool.shape != k_pool.shape
-            or block_table.shape != (B, P)
-            or tuple(valid_len.shape) != (B,)):
+            or block_table.shape != (B, P)):
         raise ValueError(
             f"paged_decode_attention: q {tuple(q.shape)} pool "
-            f"{tuple(k_pool.shape)} bt {tuple(block_table.shape)} valid_len "
-            f"{tuple(valid_len.shape)}")
-    if block_table.dtype != torch.int32 or valid_len.dtype != torch.int32:
-        raise TypeError("paged_decode_attention: block_table and valid_len "
-                        "must be int32")
+            f"{tuple(k_pool.shape)} bt {tuple(block_table.shape)}")
+    if block_table.dtype != torch.int32:
+        raise TypeError("paged_decode_attention: block_table must be int32")
     _check_common("paged_decode_attention", q, (k_pool, v_pool))
-    if any(t.device != q.device for t in (block_table, valid_len)) or \
-            not (block_table.is_contiguous() and valid_len.is_contiguous()):
-        raise ValueError("paged_decode_attention: block_table and valid_len "
-                         "must be contiguous on q's device")
-    n_split = -(-(P * ps) // SPLIT_ROWS)
-    ws = _workspace(q, n_split)
+    if block_table.device != q.device or not block_table.is_contiguous():
+        raise ValueError("paged_decode_attention: block_table must be "
+                         "contiguous on q's device")
+    body = decode_body(q.dtype, G, D)
+    _check_aligned("paged_decode_attention", body, (q, k_pool, v_pool))
+    n_split, split = _split("paged_decode_attention", body, P * ps, q)
     out = torch.empty_like(q)
     rc = build.kernel_fn("paged_decode_attention")(
         q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
-        block_table.data_ptr(), valid_len.data_ptr(), ws.data_ptr(),
-        out.data_ptr(), B, K, G, D, n_phys, ps, P, n_split, SPLIT_ROWS,
-        DTYPE_CODES[q.dtype], torch.cuda.current_stream(q.device).cuda_stream)
+        block_table.data_ptr(), vlen.data_ptr(), out.data_ptr(), B, K, G, D,
+        n_phys, ps, P, n_split, split, DTYPE_CODES[q.dtype],
+        torch.cuda.current_stream(q.device).cuda_stream)
     build.check_launch("paged_decode_attention", rc)
     return out
 

@@ -123,8 +123,8 @@ def paged_attention_core(q, k_pool, v_pool, block_table, *, kv_valid_len,
     """One-token decode attention over a paged KV cache, attend only.
 
     q (B, 1, K, G, D); pools (n_phys, ps, K, D); block_table (B, P) int32;
-    ``kv_valid_len`` a (B,) int32 tensor of per-slot lengths (or a scalar
-    on the plain path). ``impl="cuda"`` runs the paged decode kernel, which
+    ``kv_valid_len`` per-slot lengths: a (B,) int32 tensor, or a scalar
+    for every slot. ``impl="cuda"`` runs the paged decode kernel, which
     walks the block table itself; the plain path gathers each slot's
     logical view (entries clamped into the pool) and runs the masked
     ``attention_core``.

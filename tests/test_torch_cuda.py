@@ -176,30 +176,42 @@ def test_cuda_fused_paged_decode_matches_plain():
 def test_cuda_paged_decode_matches_plain(dtype):
     """Attend-only paged decode: valid_len 0 (zeros), a length on a page
     boundary, a length past a stale page, sentinel and out-of-pool entries,
-    G = 1 and G = 8 with D = 128."""
+    G = 1 and G = 8 with D = 128, and whisper-base's published 1500 encoder
+    frames (96 pages of 16: 8 spans of 192 rows) with slots at 1500, 1025
+    and on a page boundary. In bf16 (the tensor-core body) also within the
+    f32 rule of the plain version on the widened inputs, and two calls give
+    the same bits."""
     dev = _need_cuda()
     dt = getattr(torch, dtype)
     tol = 1e-4 if dtype == "float32" else 3e-2   # bf16 probabilities
     gen = torch.Generator(device=dev).manual_seed(4)
-    for B, K, G, D, ps, P in ((5, 8, 1, 64, 16, 32), (3, 2, 8, 128, 8, 6)):
+    for B, K, G, D, ps, P, lens in (
+            (5, 8, 1, 64, 16, 32, [0, 32, 509, 17, 300]),
+            (3, 2, 8, 128, 8, 6, [0, 16, 45]),
+            (4, 8, 1, 64, 16, 96, [0, 1500, 1025, 1248])):
         n_phys = B * P + 1
         kp = torch.randn((n_phys, ps, K, D), generator=gen, device=dev).to(dt)
         vp = torch.randn((n_phys, ps, K, D), generator=gen, device=dev).to(dt)
         q = torch.randn((B, K, G, D), generator=gen, device=dev).to(dt)
         bt = torch.randperm(B * P, generator=gen, device=dev).reshape(B, P)
         bt = bt.to(torch.int32)
-        vlen = torch.tensor([0, 2 * ps, P * ps - 3, ps + 1, 300][:B],
-                            dtype=torch.int32, device=dev)
+        vlen = torch.tensor(lens, dtype=torch.int32, device=dev)
         bt[0] = n_phys - 1                      # all-sentinel slot
-        bt[1, 2:] = n_phys + 5                  # past the pool, masked
+        bt[1, -(-lens[1] // ps):] = n_phys + 5  # past the pool, masked
         bt[2, 0] = -1                           # clamps to page 0
         out = paged_decode_attention(q, kp, vp, bt, vlen)
+        again = paged_decode_attention(q, kp, vp, bt, vlen)
         want = ref.paged_decode_attention_ref(q, kp, vp, bt, vlen)
+        want32 = ref.paged_decode_attention_ref(q.float(), kp.float(),
+                                                vp.float(), bt, vlen)
         torch.cuda.synchronize()
         assert not out[0].any()
         np.testing.assert_allclose(out.float().cpu().numpy(),
                                    want.float().cpu().numpy(), rtol=tol,
                                    atol=tol)
+        if dt == torch.bfloat16:
+            assert ref.bf16_ulp_ratio(out, want32) <= 1.0
+            assert torch.equal(out, again)
 
 
 @pytest.mark.cuda
@@ -227,20 +239,23 @@ def test_cuda_decode_attention_matches_plain(dtype):
 @pytest.mark.cuda
 @pytest.mark.parametrize("D", [64, 128])
 @pytest.mark.parametrize("G", [1, 4, 8])
-def test_cuda_fused_decode_mma_bf16(G, D):
-    """The fused kernel's tensor-core body in bf16: the write row on a
-    span's last and first row, in a later span and on the table's last row,
-    and an all-sentinel slot. Live outputs within the f32 rule of the plain
-    version on the widened inputs; written rows bit-equal to the new rows,
-    every other page row (trash aside) bitwise untouched; a second call on
-    the same inputs gives the same bits on every slot, the all-sentinel
-    one's finite."""
-    from repro_torch.kernels.decode_attention import (FUSED_SPLIT_ROWS,
-                                                      decode_body)
+@pytest.mark.parametrize("P", [24, 256])
+def test_cuda_fused_decode_mma_bf16(P, G, D):
+    """The fused kernel's tensor-core body in bf16, over 24 pages of 16
+    (3 spans of 128 rows) and llama's max_len 4096 (8 spans of 512): the
+    write row on a span's last and first row, in a later span's middle and
+    on the table's last row, and an all-sentinel slot. Live outputs within
+    the f32 rule of the plain version on the widened inputs; written rows
+    bit-equal to the new rows, every other page row (trash aside) bitwise
+    untouched; a second call on the same inputs gives the same bits on
+    every slot, the all-sentinel one's finite."""
+    from repro_torch.kernels.decode_attention import decode_body
     dev = _need_cuda()
     assert decode_body(torch.bfloat16, G, D) == "mma"
-    split = FUSED_SPLIT_ROWS
-    B, K, ps, P = 6, 4, 16, 24
+    B, K, ps = 6, 4, 16
+    n_split, split = _split("fused_paged_decode_attention", "mma", P * ps,
+                            torch.zeros((B, K, G, D)))
+    assert (n_split, split) == ((3, 128) if P == 24 else (8, 512))
     gen = torch.Generator(device=dev).manual_seed(G * D)
     sent = B * P                                # trash page == sentinel
     kp = torch.randn((sent + 1, ps, K, D), generator=gen, device=dev)
@@ -249,8 +264,8 @@ def test_cuda_fused_decode_mma_bf16(G, D):
     kn = torch.randn((B, K, D), generator=gen, device=dev)
     vn = torch.randn((B, K, D), generator=gen, device=dev)
     kp, vp, q, kn, vn = (t.bfloat16() for t in (kp, vp, q, kn, vn))
-    pos = torch.tensor([split - 1, split, 2 * split + 5, P * ps - 1, 0, 9],
-                       dtype=torch.int32, device=dev)
+    pos = torch.tensor([split - 1, split, 2 * split + split // 2,
+                        P * ps - 1, 0, 9], dtype=torch.int32, device=dev)
     perm = torch.randperm(B * P, generator=gen, device=dev).reshape(B, P)
     alloc = torch.arange(P, device=dev)[None, :] <= (pos.long() // ps)[:, None]
     bt = torch.where(alloc, perm, torch.full_like(perm, sent)).to(torch.int32)
@@ -308,8 +323,8 @@ def test_cuda_decode_attention_mma_bf16(case):
 @pytest.mark.cuda
 @pytest.mark.parametrize("D", [16, 32])
 def test_cuda_decode_bf16_small_head_dim_raises(D):
-    """bf16 at D in {16, 32} has no tensor-core decode body: both wrappers
-    raise and launch nothing."""
+    """bf16 at D in {16, 32} has no tensor-core decode body: the three
+    wrappers raise and launch nothing."""
     dev = _need_cuda()
     bf = dict(device=dev, dtype=torch.bfloat16)
     q = torch.zeros((1, 1, 2, D), **bf)
@@ -323,6 +338,11 @@ def test_cuda_decode_bf16_small_head_dim_raises(D):
             torch.zeros((2, 4, 1, D), **bf), torch.zeros((2, 4, 1, D), **bf),
             torch.zeros((1, 2), dtype=torch.int32, device=dev),
             torch.zeros((1,), dtype=torch.int32, device=dev))
+    with pytest.raises(ValueError, match="mma body"):
+        paged_decode_attention(
+            q, torch.zeros((2, 4, 1, D), **bf),
+            torch.zeros((2, 4, 1, D), **bf),
+            torch.zeros((1, 2), dtype=torch.int32, device=dev), 5)
     assert build.launch_counts == before
 
 

@@ -324,6 +324,51 @@ def test_paged_decode_plain_matches_pallas(G):
     np.testing.assert_allclose(got[1:], np.asarray(want_xla)[1:], **TOL)
 
 
+@pytest.mark.parametrize("form", ["none", "int", "0-d", "(1,)", "(B,)"])
+def test_paged_decode_valid_len_forms_match_pallas(form):
+    """valid_len as ``repro``'s wrapper takes it: None (every slot's P * ps
+    rows), an int, or a 0-d, (1,) or (B,) array broadcast to the slots;
+    the same form goes to both sides."""
+    q, kp, vp, bt, vlen = _paged_decode_inputs(30, G=2)
+    ps, P = kp.shape[1], bt.shape[1]
+    bt = np.clip(bt, 0, kp.shape[0] - 1)     # every page live at P * ps
+    v = {"none": None, "int": ps + 5, "0-d": np.int32(ps + 5),
+         "(1,)": np.array([P * ps - 1], np.int32), "(B,)": vlen}[form]
+    got = paged_decode_attention(_t(q), _t(kp), _t(vp), _t(bt),
+                                 v if v is None or form == "int" else _t(v))
+    want = j_paged(jnp.asarray(q), jnp.asarray(kp), jnp.asarray(vp),
+                   jnp.asarray(bt), v if v is None else jnp.asarray(v),
+                   interpret=True)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
+
+
+@pytest.mark.parametrize("form,want", [
+    ("none", [40] * 3), ("int", [7] * 3), ("0-d", [7] * 3),
+    ("(1,)", [7] * 3), ("(B,) int64", [0, 7, 40]), ("(B,) int32", [0, 7, 40])])
+def test_slot_lengths_broadcasts_to_int32_per_slot(form, want):
+    """The attend-only kernel reads an int32 (B,) tensor on q's device;
+    every form ``repro`` takes becomes one, and an int32 (B,) tensor
+    already there passes through as it is."""
+    from repro_torch.kernels.decode_attention import slot_lengths
+    given = {"none": None, "int": 7, "0-d": torch.tensor(7),
+             "(1,)": torch.tensor([7], dtype=torch.int16),
+             "(B,) int64": torch.tensor([0, 7, 40]),
+             "(B,) int32": torch.tensor([0, 7, 40], dtype=torch.int32)}[form]
+    got = slot_lengths(given, 3, 40, torch.device("cpu"))
+    assert got.dtype == torch.int32 and got.is_contiguous()
+    assert got.tolist() == want
+    if form == "(B,) int32":
+        assert got is given
+
+
+@pytest.mark.parametrize("bad", [torch.zeros((2,), dtype=torch.int32),
+                                 torch.zeros((3, 1), dtype=torch.int32)])
+def test_slot_lengths_refuses_other_shapes(bad):
+    from repro_torch.kernels.decode_attention import slot_lengths
+    with pytest.raises(ValueError, match="valid_len of shape"):
+        slot_lengths(bad, 3, 40, torch.device("cpu"))
+
+
 @pytest.mark.parametrize("vlen", [None, 21])
 def test_grouped_adapter_at_one_query_routes_to_decode(vlen):
     """``flash_attention_grouped`` at S == 1 == repro's adapter, which sends
@@ -527,10 +572,16 @@ def test_decode_mma_without_p_lo_misses_the_f32_ulp_rule():
     # llama / whisper / vision self-attention at max_len 512 and 4096
     ("fused_paged_decode_attention", "mma", 512, 64, (4, 128)),
     ("fused_paged_decode_attention", "mma", 4096, 64, (8, 512)),
-    ("fused_paged_decode_attention", "simt", 32, 6, (1, 32))])
+    ("fused_paged_decode_attention", "simt", 32, 6, (1, 32)),
+    # whisper-base's cross-attention: 32 pages of 16, its published 1500
+    # encoder frames (96 pages), nothing to attend; the f32 body
+    ("paged_decode_attention", "mma", 512, 64, (4, 128)),
+    ("paged_decode_attention", "mma", 1536, 64, (8, 192)),
+    ("paged_decode_attention", "mma", 0, 64, (1, 64)),
+    ("paged_decode_attention", "simt", 512, 64, (4, 128))])
 def test_decode_span_plan(monkeypatch, name, body, rows, pairs, plan):
-    """Spans cover the rows; the contiguous and fused kernels take at most
-    a cluster's 8 of them, whole 64-row tiles on the tensor-core body."""
+    """Spans cover the rows; every decode kernel takes at most a cluster's
+    8 of them, whole 64-row tiles on the tensor-core body."""
     from repro_torch.kernels import decode_attention as da
     monkeypatch.setattr(da, "_sm_count", lambda device: 132)   # an H100
     n, split = da._split(name, body, rows, torch.zeros((pairs, 1, 1, 1)))
