@@ -59,12 +59,26 @@ fails:
    per launch, and bf16 decode the tensor-core decode body (fused, the
    contiguous one on the vision path and the attend-only paged one on the
    whisper path), never an old SIMT bf16 body or a second combine pass.
+   The launch counts of a profiled serve are set to 0 inside the profiled
+   window, and every wrapper's launches are printed beside the kernel
+   events the profile holds for it.
 4. **Teacher-forced check**: llama3.2-1b, whisper-base and the vision
    model at 10 layers (one group) in f32, one seeded token stream (and,
    for whisper and vision, seeded non-zero frames / image embeddings)
    forced through prefill and paged decode with the kernel impls and with
    the plain impls; the logits must agree at every prefill and decode
    position.
+5. **Control plane**: payload-carrying ``QuerySpec``s through
+   ``INFaaS.submit`` -> ``Master`` selection -> ``Worker`` ->
+   ``EngineExecutor`` -> ``ServingEngine`` on a one-accel-worker
+   llama3.2-1b cluster at full width (``make_cluster(backend="real",
+   device="cuda")``, phase 3's engine geometry and stream): the h100-1
+   bf16 and int8 variants by name and a use-case query whose SLO rules out
+   every cpu-host variant by the analytic profile. Every result must be
+   ok, served on h100-1, with the tokens of a fresh engine on the served
+   variant's own params; flash prefill, fused decode and (int8) the int8
+   GEMM must have launched. Synthetic queries at two batch sizes then
+   re-fit both variants' t(b) = m*b + c, printed beside the analytic fit.
 
 The last lines are the card's ``name, power.limit``, one JSON line with
 every kernel's numbers, and the result line
@@ -896,6 +910,22 @@ OLD_DECODE = re.compile(r"fused_paged_decode_kernel|fused_decode_simt_kernel"
 DECODE_MMA = re.compile(r"(?<![A-Za-z_])decode_mma_kernel<")
 
 
+# which wrapper launched a profiled kernel, from the kernel's name
+WRAPPER_OF = (("flash_attention", re.compile(r"flash_fwd_")),
+              ("fused_paged_decode_attention", re.compile(r"fused_decode_")),
+              ("paged_decode_attention", re.compile(r"paged_decode_")),
+              ("decode_attention",
+               re.compile(r"(?<![A-Za-z_])decode_(mma_)?kernel<")),
+              ("int8_matmul", re.compile(r"int8_gemv|int8_mma")))
+
+
+def wrapper_of(kernel_name: str):
+    for wrapper, pattern in WRAPPER_OF:
+        if pattern.search(kernel_name):
+            return wrapper
+    return None
+
+
 def profile_variant(torch, dev, model, params, stream, label,
                     contiguous_decode=False, paged_decode=False):
     """Where the time goes: ``torch.profiler`` over a short serve of the
@@ -913,15 +943,17 @@ def profile_variant(torch, dev, model, params, stream, label,
     reqs = [Request(rid=i, prompt=p, max_new_tokens=m)
             for i, (p, m) in enumerate(stream[:8])]
     eng.warmup(prompt_lens=[len(r.prompt) for r in reqs])
-    build.reset_launch_counts()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         # one kernel and a sync before the timed serve: a profiled serve
         # (NVIDIA H100 80GB HBM3, 700 W) once missed two layers' kernels of
         # a prefill dispatch, all launched early in the serve, and failed
-        # the int8 launch-count check below
+        # the int8 launch-count check below. The counts are set to 0 here,
+        # inside the profiled window, so that they and the profile cover
+        # the same launches.
         torch.ones(1, device=dev).add_(1)
         torch.cuda.synchronize(dev)
+        build.reset_launch_counts()
         t0 = time.perf_counter()
         eng.serve(reqs)
         torch.cuda.synchronize(dev)
@@ -933,6 +965,18 @@ def profile_variant(torch, dev, model, params, stream, label,
             tot, n = by_name.get(e.name, (0.0, 0))
             by_name[e.name] = (tot + us, n + 1)
     busy_us = sum(t for t, _ in by_name.values())
+    # every wrapper's launches against the kernel events the profile holds
+    # for it (the int8 check below is the one that fails the run)
+    events = dict.fromkeys(build.launch_counts, 0)
+    for name, (_us, n) in by_name.items():
+        wrapper = wrapper_of(name)
+        if wrapper is not None:
+            events[wrapper] += n
+    launched = sum(build.launch_counts.values())
+    print(f"  {label} profile coverage: {launched} wrapper launches, "
+          f"{sum(events.values())} profiled kernel events; per wrapper "
+          + ", ".join(f"{w} {build.launch_counts[w]}/{events[w]}"
+                      for w in sorted(events)))
     print(f"  {label} profile (8 reqs, {eng.stats['decode_steps']} decode "
           f"steps): wall {wall_us / 1e3:.1f} ms, device kernel time "
           f"{busy_us / 1e3:.1f} ms, device busy share "
@@ -1170,6 +1214,138 @@ def phase_teacher_forced(torch, dev):
 
 
 # ---------------------------------------------------------------------------
+# phase 5: the control plane (INFaaS.submit -> Master -> Worker ->
+# EngineExecutor -> ServingEngine)
+
+CP_ARCH = "llama3.2-1b"
+CP_MAX_NEW = 32            # one budget per payload query
+CP_CALIBRATION = (1, 8, 1, 8)   # synthetic query sizes, per variant
+
+
+def served_tokens(torch, ex, variant, prompts, max_new):
+    """Tokens of a fresh engine on the served variant's own params, with
+    the executor engine's geometry: the oracle of a payload query."""
+    from repro_torch.serving.engine import Request, ServingEngine
+    exec_eng = ex.engines[variant.name]
+    model, params = ex.served_model(variant)
+    eng = ServingEngine(model, params, max_batch=exec_eng.max_batch,
+                        max_len=exec_eng.max_len,
+                        decode_block=exec_eng.decode_block,
+                        min_bucket=exec_eng.min_bucket,
+                        page_size=exec_eng.page_size,
+                        n_pages=exec_eng.n_pages)
+    reqs = [Request(rid=i, prompt=np.asarray(p, np.int32),
+                    max_new_tokens=max_new) for i, p in enumerate(prompts)]
+    eng.serve(reqs)
+    return [r.tokens for r in reqs]
+
+
+def phase_control_plane(torch, dev, card):
+    """Payload-carrying queries through the model-less API on a one-worker
+    H100 cluster at full width: the h100-1 bf16 and int8 variants by name,
+    and a use-case query whose SLO rules out every cpu-host variant by
+    the analytic profile. Each result must be ok, served on h100-1, with
+    the tokens of a fresh engine on the served variant's params; then
+    synthetic queries at two batch sizes re-fit both variants' t(b)."""
+    from repro_torch.configs.registry import ARCHS
+    from repro_torch.core.api import QueryPayload, QuerySpec
+    from repro_torch.core.master import MasterConfig
+    from repro_torch.kernels import build
+    from repro_torch.serving.executor import EngineExecutorConfig
+    from repro_torch.sim.cluster import make_cluster
+    cfg = ARCHS[CP_ARCH]
+    ecfg = EngineExecutorConfig(max_batch=8, max_len=512, decode_block=16,
+                                min_bucket=8, page_size=16)
+    t0 = time.perf_counter()
+    c = make_cluster(n_accel=1, archs=[cfg], autoscale=False,
+                     cfg=MasterConfig(worker_autoscale=False),
+                     backend="real", device=dev, engine_cfg=ecfg)
+    (ex,) = c.executors
+    variants = c.store.registry.variants
+    names = {d: f"{CP_ARCH}/h100-1/{d}-b8" for d in ("bf16", "int8")}
+    analytic = {n: (variants[n].profile.m, variants[n].profile.c)
+                for n in names.values()}
+    prompts = [p.tolist() for p, _ in make_stream(cfg.vocab)[:8]]
+    n = len(prompts)
+    payload = QueryPayload.of(prompts, max_new_tokens=CP_MAX_NEW)
+    cpu_best = min(v.profile.latency(n) for v in variants.values()
+                   if v.arch == CP_ARCH and v.hardware == "cpu-host")
+    h100_best = min(v.profile.latency(n) for v in variants.values()
+                    if v.arch == CP_ARCH and v.hardware == "h100-1"
+                    and v.profile.max_batch >= n)
+    slo = 10 * h100_best
+    check(slo < cpu_best, f"use-case SLO {slo} s does not rule out the "
+          f"cpu-host variants (best {cpu_best} s)")
+    specs = [("variant bf16", QuerySpec.variant(
+                  names["bf16"], latency_ms=600_000, payload=payload)),
+             ("variant int8", QuerySpec.variant(
+                  names["int8"], latency_ms=600_000, payload=payload)),
+             ("use case", QuerySpec.usecase(
+                  "text-generation", "openwebtext", min_accuracy=0.5,
+                  slo=slo, payload=payload))]
+    print(f"  cluster: 1 accel worker, {len(variants)} {CP_ARCH} variants; "
+          f"use-case SLO {slo * 1e3:.3f} ms (10x the best h100-1 analytic "
+          f"t({n}); best cpu-host {cpu_best * 1e3:.1f} ms)")
+    build.reset_launch_counts()
+    results = []
+    for label, spec in specs:
+        before = dict(build.launch_counts)
+        res = c.api.submit(spec).result(timeout=3600.0)
+        check(res.ok, f"control plane {label}: failed={res.failed} "
+              f"variant={res.variant!r}")
+        got = {k: build.launch_counts[k] - before[k] for k in before}
+        results.append((label, res, got))
+    for n_inputs in CP_CALIBRATION:
+        for name in names.values():
+            res = c.api.submit(QuerySpec.variant(
+                name, latency_ms=600_000, n_inputs=n_inputs)).result(
+                    timeout=3600.0)
+            check(res.ok and res.outputs is None,
+                  f"calibration query on {name} failed")
+    launches = dict(build.launch_counts)
+    torch.cuda.synchronize(dev)
+    wall = time.perf_counter() - t0
+    for label, res, got in results:
+        v = variants[res.variant]
+        check(v.hardware == "h100-1" and res.worker == "worker-accel-0",
+              f"{label}: served on {v.hardware} by {res.worker}")
+        want = served_tokens(torch, ex, v, prompts, CP_MAX_NEW)
+        check(len(res.outputs) == n and all(
+            np.array_equal(a, b) for a, b in zip(want, res.outputs)),
+            f"{label}: tokens differ from a direct engine on the served "
+            f"variant's params")
+        for k in ("flash_attention", "fused_paged_decode_attention"):
+            check(got[k] > 0, f"{label}: {k} was not launched")
+        if v.framework == "torch-int8":
+            check(got["int8_matmul"] > 0, f"{label}: int8_matmul was not "
+                  "launched on an int8 variant")
+        toks = sum(len(o) for o in res.outputs)
+        print(f"  {label}: {res.variant} on {res.worker}; latency "
+              f"{res.latency:.4f} s = queue {res.queue:.4f} + load "
+              f"{res.load:.4f} + compute {res.compute:.4f} s (virtual clock; "
+              f"compute measured); {toks} tokens, {toks / res.compute:.1f} "
+              f"tok/s; SLO met {res.slo_met}; launches {got}; tokens equal "
+              f"to a direct engine on the served params")
+    check(any(variants[r.variant].framework == "torch-int8"
+              for _, r, _ in results[2:]),
+          "use-case selection did not pick an int8 variant")
+    for name in names.values():
+        p = variants[name].profile
+        check(p.source == "measured", f"{name}: profile not re-fit "
+              f"({p.source})")
+        m0, c0 = analytic[name]
+        obs = ", ".join(
+            f"b={b}: {' '.join(f'{t * 1e3:.2f}' for t in ts)}"
+            for b, ts in sorted(ex.observations[name].items()))
+        print(f"  t(b) of {name}: analytic m {m0 * 1e3:.5f} ms, c "
+              f"{c0 * 1e3:.4f} ms; measured m {p.m * 1e3:.5f} ms, c "
+              f"{p.c * 1e3:.4f} ms (refits {ex.refits.get(name, 0)}; "
+              f"service ms by batch size {obs}) on {card}")
+    print(f"  phase launches {launches}")
+    return dict(launches=launches, wall_s=wall)
+
+
+# ---------------------------------------------------------------------------
 
 
 def main() -> int:
@@ -1253,6 +1429,14 @@ def main() -> int:
     print("phase 4: teacher-forced logits, kernels vs plain (f32)")
     phase_teacher_forced(torch, dev)
     print(f"  phase 4 took {time.perf_counter() - t0:.1f} s")
+
+    t0 = time.perf_counter()
+    print("phase 5: control plane (INFaaS.submit -> Master -> Worker -> "
+          "EngineExecutor, full width)")
+    cp = phase_control_plane(torch, dev, card)
+    for k in kernels:
+        k["launches"] += cp["launches"][k["name"]]
+    print(f"  phase 5 took {time.perf_counter() - t0:.1f} s")
     print(f"all phases passed in {time.perf_counter() - t_start:.1f} s")
     for k in kernels:
         print(f"kernel {k['name']}: {k['launches']} main-path launches, "

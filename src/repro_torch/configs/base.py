@@ -85,6 +85,12 @@ class ArchConfig:
             n_blocks = self.n_encoder_layers + 2 * self.n_layers
         return 2 * self.vocab * d + n_blocks * block
 
+    def active_param_count(self) -> int:
+        """Parameters touched per token: every one of them, since no ported
+        family routes tokens to experts (``repro``'s MoE count joins with
+        the MoE family)."""
+        return self.param_count()
+
     def reduced(self) -> "ArchConfig":
         """Tiny same-family config for CPU tests (``repro``'s ``reduced``)."""
         return dataclasses.replace(

@@ -28,6 +28,8 @@ import torch
 
 from repro_torch import resolve_device
 from repro_torch.configs.base import ArchConfig
+from repro_torch.kernels.decode_attention import decode_body
+from repro_torch.kernels.flash_attention import flash_body
 from repro_torch.models import transformer as T
 
 Batch = Dict[str, torch.Tensor]
@@ -84,6 +86,18 @@ _FAMILIES = {
 
 def build_model(cfg: ArchConfig, device="cuda") -> Model:
     """The model of ``cfg`` on ``device`` (default CUDA; raises without it)."""
+    if cfg.attention_impl == "cuda":
+        # no quiet fall back to the plain path: a geometry that no kernel
+        # body takes (phi3-mini's head_dim 96) is refused here
+        dtype = T.DTYPES[cfg.dtype]
+        try:
+            flash_body(dtype, cfg.head_dim)
+            decode_body(dtype, cfg.q_per_kv, cfg.head_dim)
+        except ValueError as e:
+            raise ValueError(
+                f"config {cfg.name!r}: no CUDA attention body takes "
+                f"head_dim {cfg.head_dim} with G={cfg.q_per_kv} in "
+                f"{cfg.dtype} ({e})") from e
     dev = resolve_device(device)
     if cfg.family not in _FAMILIES:
         raise NotImplementedError(

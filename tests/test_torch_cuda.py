@@ -451,3 +451,55 @@ def test_cuda_family_engine_matches_plain_engine_on_card(arch):
     for a, b in zip(outs[0][0], outs[1][0]):
         np.testing.assert_array_equal(a, b)
     assert outs[0][1] == outs[1][1]
+
+
+@pytest.mark.cuda
+def test_cuda_control_plane_payload_query_at_full_width():
+    """One payload query through the model-less API on a full-width
+    llama3.2-1b cluster on the card: served on h100-1, with flash prefill,
+    fused decode and (for the int8 sibling that use-case selection picks)
+    the int8 GEMM launched, and the tokens of a fresh engine on the served
+    variant's own params."""
+    from repro_torch.core.api import QueryPayload, QuerySpec
+    from repro_torch.core.master import MasterConfig
+    from repro_torch.serving.executor import EngineExecutorConfig
+    from repro_torch.sim.cluster import make_cluster
+    dev = _need_cuda()
+    cfg = ARCHS["llama3.2-1b"]
+    c = make_cluster(n_accel=1, archs=[cfg], autoscale=False,
+                     cfg=MasterConfig(worker_autoscale=False),
+                     backend="real", device=dev,
+                     engine_cfg=EngineExecutorConfig(
+                         max_batch=8, max_len=512, decode_block=16,
+                         min_bucket=8))
+    rng = np.random.default_rng(5)
+    prompts = [rng.integers(0, cfg.vocab, size=n).tolist()
+               for n in (17, 100, 250)]
+    build.reset_launch_counts()
+    res = c.api.submit(QuerySpec.usecase(
+        "text-generation", "openwebtext", min_accuracy=0.5,
+        latency_ms=600_000,
+        payload=QueryPayload.of(prompts, max_new_tokens=8))).result(
+            timeout=3600.0)
+    launches = dict(build.launch_counts)
+    assert res.ok, (res.failed, res.variant)
+    (ex,) = c.executors
+    variant = c.store.registry.variants[res.variant]
+    assert variant.hardware == "h100-1"
+    assert variant.framework == "torch-int8"
+    assert launches["flash_attention"] > 0
+    assert launches["fused_paged_decode_attention"] > 0
+    assert launches["int8_matmul"] > 0
+    exec_eng = ex.engines[variant.name]
+    model, params = ex.served_model(variant)
+    assert model.cfg.quantize == "int8_cuda"
+    eng = ServingEngine(model, params, max_batch=exec_eng.max_batch,
+                        max_len=exec_eng.max_len,
+                        decode_block=exec_eng.decode_block,
+                        min_bucket=exec_eng.min_bucket,
+                        page_size=exec_eng.page_size)
+    reqs = [Request(rid=i, prompt=np.asarray(p, np.int32),
+                    max_new_tokens=8) for i, p in enumerate(prompts)]
+    eng.serve(reqs)
+    for r, out in zip(reqs, res.outputs):
+        np.testing.assert_array_equal(r.tokens, out)
