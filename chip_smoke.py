@@ -59,9 +59,19 @@ fails:
    per launch, and bf16 decode the tensor-core decode body (fused, the
    contiguous one on the vision path and the attend-only paged one on the
    whisper path), never an old SIMT bf16 body or a second combine pass.
-   The launch counts of a profiled serve are set to 0 inside the profiled
-   window, and every wrapper's launches are printed beside the kernel
-   events the profile holds for it.
+   Every decode segment is replays of the engine's one CUDA graph of its
+   step, captured at warmup: each engine must report one captured graph
+   and as many replays as decode steps. The launch counts of a profiled
+   serve are set to 0 inside the profiled window, and every wrapper's
+   launches (those of a captured step credited once per replay) must
+   equal the kernel events the profile holds for it. On each path an
+   uncaptured engine, whose segments loop the same step body, serves the
+   stream once more: its tokens and every wrapper's launches must equal
+   the first graphed serve's. llama3.2-1b bf16 also serves the stream
+   with ``chunk_threshold`` 64: every prompt over 64 tokens must be a
+   chunked admit, the rest prefilled. Each path prints the host time of a
+   replay per step beside the step's device time (replays held back to
+   back on idle slots) and the uncaptured serve's tok/s and segment time.
 4. **Teacher-forced check**: llama3.2-1b, whisper-base and the vision
    model at 10 layers (one group) in f32, one seeded token stream (and,
    for whisper and vision, seeded non-zero frames / image embeddings)
@@ -77,7 +87,8 @@ fails:
    every cpu-host variant by the analytic profile. Every result must be
    ok, served on h100-1, with the tokens of a fresh engine on the served
    variant's own params; flash prefill, fused decode and (int8) the int8
-   GEMM must have launched. Synthetic queries at two batch sizes then
+   GEMM must have launched, and every executor engine must have served its
+   decode steps as replays of its one captured graph. Synthetic queries at two batch sizes then
    re-fit both variants' t(b) = m*b + c, printed beside the analytic fit.
 
 The last lines are the card's ``name, power.limit``, one JSON line with
@@ -112,6 +123,8 @@ SEED = 0
 # The larger models serve fewer times to keep the run inside its limit.
 SERVE_REPEATS = {"llama3.2-1b": 15, "whisper-base": 9,
                  "llama-3.2-vision-90b": 5}
+CHUNK_THRESHOLD = 64        # the chunked llama serve's threshold
+CHUNKED_REPEATS = 3
 VISION_LAYERS = 20          # serve depth of llama-3.2-vision-90b (of 100)
 VISION_TF_LAYERS = 10       # its f32 teacher-forced depth: one group
 # (Kd, N) of llama3.2-1b's int8 projections: q and o, k and v, gate and up,
@@ -850,12 +863,56 @@ def make_stream(vocab: int, n: int = 16, seed: int = 1):
             for _ in range(n)]
 
 
-def serve_variant(torch, dev, model, params, stream, label, repeats):
+def uncaptured_engine():
+    """The engine class whose segments run the plain loop of its step body
+    on the card, captured nowhere: the oracle of the graph replays (not a
+    knob of the engine; only this comparison runs the body uncaptured)."""
+    import torch
+    from repro_torch.serving.engine import ServingEngine
+
+    class Uncaptured(ServingEngine):
+        def _capture(self):
+            pass
+
+        def _run_steps(self, n_steps):
+            with torch.no_grad():
+                for _ in range(n_steps):
+                    self._step_body()
+
+    return Uncaptured
+
+
+def graph_step_ms(eng) -> float:
+    """Device time of one replay of the engine's step graph: blocks of
+    ``decode_block`` replays held back to back (``cuda_ms``) on the
+    quiesced engine (every slot idle, its writes dropped, the loop state
+    restored after)."""
+    n = eng.decode_block
+
+    def block():
+        eng._step_i.zero_()
+        for _ in range(n):
+            eng._graph.replay()
+
+    with eng._quiesced():
+        return cuda_ms(block, iters=5, warmup=1) / n
+
+
+def serve_variant(torch, dev, model, params, stream, label, repeats,
+                  chunk_threshold=None):
+    """Serve the stream ``repeats`` times on one warm engine, whose decode
+    segments are replays of its one captured step graph, then once on an
+    uncaptured engine that loops the same step body: the tokens and every
+    wrapper's launches of that serve must equal the first graphed
+    serve's."""
     from repro_torch.kernels import build
     from repro_torch.serving.engine import Request, ServingEngine
-    eng = ServingEngine(model, params, max_batch=8, max_len=512,
-                        decode_block=16, page_size=16)
+    geometry = dict(max_batch=8, max_len=512, decode_block=16, page_size=16,
+                    chunk_threshold=chunk_threshold)
+    eng = ServingEngine(model, params, **geometry)
     eng.warmup(prompt_lens=[len(p) for p, _ in stream])
+    check(eng.stats["decode_traces"] == 1,
+          f"{label}: warmup captured {eng.stats['decode_traces']} graphs")
     torch.cuda.reset_peak_memory_stats(dev)
     vocab = model.cfg.vocab
     rates, first = [], None
@@ -875,12 +932,21 @@ def serve_variant(torch, dev, model, params, stream, label, repeats):
         toks = sum(len(r.tokens) for r in reqs)
         rates.append(toks / wall)
         if first is None:
-            first = (dict(eng.stats), dict(eng.timing))
+            first = (dict(eng.stats), dict(eng.timing),
+                     [r.tokens for r in reqs], dict(build.launch_counts))
     launches = dict(build.launch_counts)
-    s, timing = first
+    s, timing, first_tokens, first_launches = first
+    st = eng.stats
+    check(st["decode_traces"] == 1
+          and st["graph_replays"] == st["decode_steps"] > 0,
+          f"{label}: {st['decode_traces']} captured graphs, "
+          f"{st['graph_replays']} replays for {st['decode_steps']} steps")
+    replay_us = eng.timing["replay_s"] / st["graph_replays"] * 1e6
+    step_ms = graph_step_ms(eng)
     segs = s["decode_dispatches"]
     seg_ms = timing["decode_s"] / segs * 1e3 if segs else 0.0
     peak_gb = torch.cuda.max_memory_allocated(dev) / 1e9
+    del eng
     q1, med, q3 = statistics.quantiles(rates, n=4)
     spread = (q3 - q1) / med
     print(f"  {label}: {len(stream)} reqs / {toks} tokens per serve, "
@@ -890,12 +956,46 @@ def serve_variant(torch, dev, model, params, stream, label, repeats):
           f"{', '.join(f'{x:.1f}' for x in rates)})")
     print(f"  {label}, first serve: {s['prefill_dispatches']} prefill + "
           f"{segs} decode dispatches, {s['decode_steps']} decode steps, "
-          f"mean decode segment {seg_ms:.2f} ms, prefill "
-          f"{timing['prefill_s']:.3f} s; peak memory {peak_gb:.2f} GB; "
-          f"launches over all serves {launches}")
+          f"{s['chunk_admits']} chunked admits, mean decode segment "
+          f"{seg_ms:.2f} ms, prefill {timing['prefill_s']:.3f} s; peak "
+          f"memory {peak_gb:.2f} GB; launches over all serves {launches}")
+    print(f"  {label}: 1 captured step graph, {st['graph_replays']} replays "
+          f"over all serves; replay host time {replay_us:.1f} us a step "
+          f"against {step_ms:.4f} ms of device time a step (idle slots)")
+    # the oracle: the same body, uncaptured, on the same card
+    oracle = uncaptured_engine()(model, params, **geometry)
+    oracle.warmup(prompt_lens=[len(p) for p, _ in stream])
+    reqs = [Request(rid=i, prompt=p, max_new_tokens=m)
+            for i, (p, m) in enumerate(stream)]
+    build.reset_launch_counts()
+    t0 = time.perf_counter()
+    oracle.serve(reqs)
+    torch.cuda.synchronize(dev)
+    eager_wall = time.perf_counter() - t0
+    eager_launches = dict(build.launch_counts)
+    eager_seg_ms = (oracle.timing["decode_s"]
+                    / oracle.stats["decode_dispatches"] * 1e3)
+    check(oracle.stats["decode_traces"] == 0
+          and oracle.stats["graph_replays"] == 0,
+          f"{label}: the uncaptured engine captured or replayed")
+    check(all(np.array_equal(a, r.tokens)
+              for a, r in zip(first_tokens, reqs)),
+          f"{label}: graphed tokens differ from the uncaptured body's")
+    check(eager_launches == first_launches,
+          f"{label}: credited launches {first_launches} against the "
+          f"uncaptured body's {eager_launches}")
+    del oracle
+    torch.cuda.empty_cache()
+    print(f"  {label}: tokens of the first serve equal the uncaptured step "
+          f"body's, bit for bit, and every wrapper's credited launches its "
+          f"launches; that serve took {eager_wall * 1e3:.1f} ms "
+          f"({toks / eager_wall:.1f} tok/s), mean decode segment "
+          f"{eager_seg_ms:.2f} ms")
     return dict(tok_s=med, tok_s_all=rates, spread=spread, tokens=toks,
                 launches=launches, stats=s, seg_ms=seg_ms,
-                prefill_s=timing["prefill_s"], peak_gb=peak_gb)
+                prefill_s=timing["prefill_s"], peak_gb=peak_gb,
+                replay_us=replay_us, step_ms=step_ms,
+                eager_tok_s=toks / eager_wall, eager_seg_ms=eager_seg_ms)
 
 
 # bf16 decode kernels that must not run on a served path any more: the
@@ -943,6 +1043,8 @@ def profile_variant(torch, dev, model, params, stream, label,
     reqs = [Request(rid=i, prompt=p, max_new_tokens=m)
             for i, (p, m) in enumerate(stream[:8])]
     eng.warmup(prompt_lens=[len(r.prompt) for r in reqs])
+    check(eng.stats["decode_traces"] == 1,
+          f"{label}: warmup captured {eng.stats['decode_traces']} graphs")
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         # one kernel and a sync before the timed serve: a profiled serve
@@ -958,6 +1060,12 @@ def profile_variant(torch, dev, model, params, stream, label,
         eng.serve(reqs)
         torch.cuda.synchronize(dev)
         wall_us = (time.perf_counter() - t0) * 1e6
+    st = eng.stats
+    check(st["decode_traces"] == 1
+          and st["graph_replays"] == st["decode_steps"] > 0,
+          f"{label}: profiled serve with {st['decode_traces']} captured "
+          f"graphs, {st['graph_replays']} replays for {st['decode_steps']} "
+          "steps")
     by_name = {}
     for e in prof.events():
         if e.device_type == torch.autograd.DeviceType.CUDA:
@@ -965,8 +1073,8 @@ def profile_variant(torch, dev, model, params, stream, label,
             tot, n = by_name.get(e.name, (0.0, 0))
             by_name[e.name] = (tot + us, n + 1)
     busy_us = sum(t for t, _ in by_name.values())
-    # every wrapper's launches against the kernel events the profile holds
-    # for it (the int8 check below is the one that fails the run)
+    # every wrapper's launches, credited once per replay of the step graph,
+    # against the kernel events the profile holds for it
     events = dict.fromkeys(build.launch_counts, 0)
     for name, (_us, n) in by_name.items():
         wrapper = wrapper_of(name)
@@ -977,8 +1085,12 @@ def profile_variant(torch, dev, model, params, stream, label,
           f"{sum(events.values())} profiled kernel events; per wrapper "
           + ", ".join(f"{w} {build.launch_counts[w]}/{events[w]}"
                       for w in sorted(events)))
-    print(f"  {label} profile (8 reqs, {eng.stats['decode_steps']} decode "
-          f"steps): wall {wall_us / 1e3:.1f} ms, device kernel time "
+    check(events == build.launch_counts,
+          f"{label}: wrapper launches {dict(build.launch_counts)} against "
+          f"profiled kernel events {events}")
+    print(f"  {label} profile (8 reqs, {st['decode_steps']} decode "
+          f"steps, all graph replays): wall {wall_us / 1e3:.1f} ms, device "
+          f"kernel time "
           f"{busy_us / 1e3:.1f} ms, device busy share "
           f"{busy_us / wall_us:.3f}, idle share {1 - busy_us / wall_us:.3f}")
     top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:8]
@@ -1016,6 +1128,7 @@ def profile_variant(torch, dev, model, params, stream, label,
                or any("paged_decode_mma_kernel" in name for name in dec)),
           f"{label}: decode bodies in the profile: {sorted(dec)}")
     return dict(device_ms=busy_us / 1e3, wall_ms=wall_us / 1e3,
+                busy_share=busy_us / wall_us,
                 int8_ms=sum(us for us, _ in int8.values()) / 1e3,
                 decode_ms=sum(us for us, _ in dec.values()) / 1e3)
 
@@ -1037,7 +1150,23 @@ def phase_main_path(torch, dev):
     reps = SERVE_REPEATS["llama3.2-1b"]
     bf16 = serve_variant(torch, dev, model, params, stream, "bf16 variant",
                          reps)
-    profile_variant(torch, dev, model, params, stream, "bf16 variant")
+    bf16["profile"] = profile_variant(torch, dev, model, params, stream,
+                                      "bf16 variant")
+    # chunked prefill: prompts past the threshold are fed through the
+    # graphed segments with no prefill dispatch
+    n_over = sum(len(p) > CHUNK_THRESHOLD for p, _ in stream)
+    chunked = serve_variant(torch, dev, model, params, stream,
+                            f"bf16 variant, chunk_threshold "
+                            f"{CHUNK_THRESHOLD}", CHUNKED_REPEATS,
+                            chunk_threshold=CHUNK_THRESHOLD)
+    s = chunked["stats"]
+    check(s["chunk_admits"] == n_over > 0
+          and s["admitted"] - s["chunk_admits"] == len(stream) - n_over
+          and 0 < s["prefill_dispatches"] <= len(stream) - n_over,
+          f"chunked serve: {s['chunk_admits']} chunked admits and "
+          f"{s['prefill_dispatches']} prefill dispatches for {n_over} "
+          f"prompts over {CHUNK_THRESHOLD} of {len(stream)}")
+    bf16["chunked"] = chunked
     qcfg = dataclasses.replace(base, quantize="int8").for_device(dev)
     check(qcfg.quantize == "int8_cuda", "config did not select the int8 GEMM")
     qparams = quantize_params_dense(params)
@@ -1046,11 +1175,13 @@ def phase_main_path(torch, dev):
     qmodel = build_model(qcfg, dev)
     int8 = serve_variant(torch, dev, qmodel, qparams, stream, "int8 variant",
                          reps)
-    profile_variant(torch, dev, qmodel, qparams, stream, "int8 variant")
+    int8["profile"] = profile_variant(torch, dev, qmodel, qparams, stream,
+                                      "int8 variant")
     del qparams
     torch.cuda.empty_cache()
     for name in ("flash_attention", "fused_paged_decode_attention"):
-        check(bf16["launches"][name] > 0 and int8["launches"][name] > 0,
+        check(bf16["launches"][name] > 0 and int8["launches"][name] > 0
+              and chunked["launches"][name] > 0,
               f"{name} was not launched on the main path")
     check(int8["launches"]["int8_matmul"] > 0,
           "int8_matmul was not launched on the int8 variant")
@@ -1305,6 +1436,13 @@ def phase_control_plane(torch, dev, card):
     launches = dict(build.launch_counts)
     torch.cuda.synchronize(dev)
     wall = time.perf_counter() - t0
+    for vname, eng in ex.engines.items():
+        st = eng.stats
+        check(st["decode_traces"] == 1
+              and st["graph_replays"] == st["decode_steps"] > 0,
+              f"{vname}: {st['decode_traces']} captured graphs, "
+              f"{st['graph_replays']} replays for {st['decode_steps']} "
+              "steps")
     for label, res, got in results:
         v = variants[res.variant]
         check(v.hardware == "h100-1" and res.worker == "worker-accel-0",
@@ -1408,21 +1546,28 @@ def main() -> int:
     t0 = time.perf_counter()
     print("phase 3: main paths (ServingEngine.serve, full width)")
     bf16, int8 = phase_main_path(torch, dev)
-    print(f"  llama3.2-1b: bf16 {bf16['tok_s']:.1f} tok/s (quartile spread "
-          f"{bf16['spread']:.3f}), int8 {int8['tok_s']:.1f} tok/s (spread "
-          f"{int8['spread']:.3f}), medians of "
-          f"{SERVE_REPEATS['llama3.2-1b']} serves on {card}")
     whisper = phase_family(torch, dev, "whisper-base")
     vision = phase_family(torch, dev, "llama-3.2-vision-90b", VISION_LAYERS)
-    paths = [bf16, int8, whisper, vision]
+    paths = [bf16, bf16["chunked"], int8, whisper, vision]
     for k in kernels:
         k["launches"] = sum(r["launches"][k["name"]] for r in paths)
-    for label, r in (("whisper-base", whisper),
+    for label, r in (("llama3.2-1b bf16", bf16),
+                     (f"llama3.2-1b bf16 chunked ({CHUNK_THRESHOLD})",
+                      bf16["chunked"]),
+                     ("llama3.2-1b int8", int8), ("whisper-base", whisper),
                      (f"llama-3.2-vision-90b ({VISION_LAYERS} layers)",
                       vision)):
+        p = r.get("profile")
+        busy = (f"device {p['device_ms']:.1f} / wall {p['wall_ms']:.1f} ms, "
+                f"busy share {p['busy_share']:.3f}" if p else "not profiled")
         print(f"  {label}: {r['tok_s']:.1f} tok/s (quartile spread "
               f"{r['spread']:.3f}), decode segment {r['seg_ms']:.2f} ms, "
-              f"peak memory {r['peak_gb']:.2f} GB on {card}")
+              f"first-serve prefill {r['prefill_s']:.3f} s, replay "
+              f"{r['replay_us']:.1f} us a step (host) against "
+              f"{r['step_ms']:.4f} ms a step (device); profiled serve "
+              f"{busy}; uncaptured body {r['eager_tok_s']:.1f} tok/s, "
+              f"segment {r['eager_seg_ms']:.2f} ms; peak memory "
+              f"{r['peak_gb']:.2f} GB on {card}")
     print(f"  phase 3 took {time.perf_counter() - t0:.1f} s")
 
     t0 = time.perf_counter()

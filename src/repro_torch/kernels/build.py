@@ -13,7 +13,10 @@ has no ``nvcc``.
 
 Every wrapper counts its own launches in ``launch_counts``: it adds one
 where it launches its kernel and nowhere else, so a run can show that its
-main path went through the kernels.
+main path went through the kernels. Under CUDA graph capture a wrapper runs
+once and launches nothing, and at replay it does not run at all: the
+engine takes the counts a capture added back out (``capturing``) and
+credits them once per replay (``credit``).
 """
 from __future__ import annotations
 
@@ -22,8 +25,9 @@ import hashlib
 import os
 import shutil
 import subprocess
+from contextlib import contextmanager
 from pathlib import Path
-from typing import Any, Dict
+from typing import Any, Dict, Iterator
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
@@ -69,6 +73,28 @@ _fns: Dict[str, Any] = {}
 def reset_launch_counts() -> None:
     for name in launch_counts:
         launch_counts[name] = 0
+
+
+@contextmanager
+def capturing() -> Iterator[Dict[str, int]]:
+    """Around a graph capture: yields a dict that, on exit, holds the
+    launches the wrappers counted inside the block, and takes them back out
+    of ``launch_counts`` (a capture launches nothing)."""
+    before = dict(launch_counts)
+    delta: Dict[str, int] = {}
+    try:
+        yield delta
+    finally:
+        for name, n in launch_counts.items():
+            if n != before[name]:
+                delta[name] = n - before[name]
+                launch_counts[name] = before[name]
+
+
+def credit(delta: Dict[str, int], n: int) -> None:
+    """Count ``n`` replays of a graph whose capture held ``delta``."""
+    for name, k in delta.items():
+        launch_counts[name] += k * n
 
 
 def nvcc_path() -> str:

@@ -8,6 +8,8 @@ dispatch counts:
     PYTHONPATH=src python -m repro_torch.launch.serve --real-engine --device cuda
     PYTHONPATH=src python -m repro_torch.launch.serve --real-engine \\
         --arch whisper-base --device cpu --reduced
+    PYTHONPATH=src python -m repro_torch.launch.serve --real-engine \\
+        --device cpu --reduced --chunk-threshold 12
 
 ``--arch`` takes llama3.2-1b (dense), whisper-base (audio) and
 llama-3.2-vision-90b (vlm). On CUDA the config selects the kernel impls
@@ -50,7 +52,8 @@ def check_weights_fit(cfg, capacity_bytes: int, where: str) -> None:
 def _real_engine_demo(arch: str, n_reqs: int, slots: int,
                       page_size: int = 16, quantize: str = "none",
                       device="cuda", reduced: bool = False,
-                      max_len: int = 64, seed: int = 0) -> dict:
+                      max_len: int = 64, seed: int = 0,
+                      chunk_threshold: Optional[int] = None) -> dict:
     dev = resolve_device(device)
     base = ARCHS[arch].reduced() if reduced else ARCHS[arch]
     if quantize != "none" and base.family != "dense":
@@ -66,7 +69,8 @@ def _real_engine_demo(arch: str, n_reqs: int, slots: int,
         # weight-only int8 variant: projections quantized from the fp init
         params = quantize_params_dense(params)
     eng = ServingEngine(model, params, max_batch=slots, max_len=max_len,
-                        decode_block=16, page_size=page_size)
+                        decode_block=16, page_size=page_size,
+                        chunk_threshold=chunk_threshold)
     rng = np.random.default_rng(seed)
     reqs = [Request(rid=i,
                     prompt=rng.integers(0, cfg.vocab,
@@ -87,8 +91,10 @@ def _real_engine_demo(arch: str, n_reqs: int, slots: int,
           f" on {where}] (paged {eng.n_pages}x{eng.page_size}): "
           f"{len(reqs)} reqs / {toks} tokens in {wall * 1e3:.1f} ms = "
           f"{toks / wall:.0f} tok/s ({s['prefill_dispatches']}+"
-          f"{s['decode_dispatches']} dispatches, peak "
-          f"{s['peak_concurrency']} slots, segment occupancy "
+          f"{s['decode_dispatches']} dispatches, "
+          f"{s['decode_traces']} captured step graphs, peak "
+          f"{s['peak_concurrency']} slots, {s['chunk_admits']} chunked "
+          f"admits, segment occupancy "
           f"{eng.occupancy['slot_busy_frac']:.2f})")
     return {"tokens": toks, "wall_s": wall, "stats": dict(s)}
 
@@ -104,6 +110,10 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
                     help="paged KV page size in positions (the contiguous "
                          "layout is not ported)")
     ap.add_argument("--quantize", choices=["none", "int8"], default="none")
+    ap.add_argument("--chunk-threshold", type=int, default=None,
+                    help="chunk prompts longer than this through the "
+                         "decode segments (dense family; clamped off for "
+                         "audio and vlm)")
     ap.add_argument("--device", default="cuda", choices=["cuda", "cpu"])
     ap.add_argument("--reduced", action="store_true",
                     help="the CPU-sized config instead of the full width")
@@ -114,7 +124,8 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
                  "(--backend/--clock) comes in a later slice")
     _real_engine_demo(args.arch, args.real_reqs, args.real_slots,
                       page_size=args.page_size, quantize=args.quantize,
-                      device=args.device, reduced=args.reduced)
+                      device=args.device, reduced=args.reduced,
+                      chunk_threshold=args.chunk_threshold)
 
 
 if __name__ == "__main__":

@@ -40,11 +40,31 @@ def paged_update_layer_cache(k_pool: torch.Tensor, v_pool: torch.Tensor,
                              block_table: torch.Tensor,
                              pos: Any) -> Tuple[torch.Tensor, torch.Tensor]:
     """Write one token's (B, 1, K, D) k/v at logical ``pos`` of each slot,
-    in place. Writes routed outside the pool are dropped."""
-    page, off = page_coords(block_table, pos, k_pool.shape[1])
-    keep = (page >= 0) & (page < k_pool.shape[0])
-    k_pool[page[keep], off[keep]] = k_new[:, 0][keep].to(k_pool.dtype)
-    v_pool[page[keep], off[keep]] = v_new[:, 0][keep].to(v_pool.dtype)
+    in place. Writes routed outside the pool are dropped.
+
+    The drop reads nothing back to the host, so a CUDA graph can capture
+    it: a dropped row rewrites, with its own bytes, a pool row that no kept
+    row of this call writes (the first of rows 0..B not taken), where a
+    mask would select rows whose number only the device knows. A pool of
+    at most B rows may have no such row and takes the mask.
+    """
+    n_phys, ps = k_pool.shape[:2]
+    page, off = page_coords(block_table, pos, ps)
+    keep = (page >= 0) & (page < n_phys)
+    B = page.shape[0]
+    if n_phys * ps <= B:
+        k_pool[page[keep], off[keep]] = k_new[:, 0][keep].to(k_pool.dtype)
+        v_pool[page[keep], off[keep]] = v_new[:, 0][keep].to(v_pool.dtype)
+        return k_pool, v_pool
+    row = torch.clamp(page, 0, n_phys - 1) * ps + off
+    taken = torch.zeros(B + 2, dtype=torch.int32, device=row.device)
+    taken.index_fill_(0, row.masked_fill(~(keep & (row <= B)), B + 1), 1)
+    spare = torch.argmin(taken[:B + 1]).view(1)     # the first row not taken
+    dst = torch.where(keep, row, spare)
+    for pool, new in ((k_pool, k_new), (v_pool, v_new)):
+        flat = pool.view((-1,) + tuple(pool.shape[2:]))
+        mask = keep.view((B,) + (1,) * (new.ndim - 2))
+        flat[dst] = torch.where(mask, new[:, 0].to(pool.dtype), flat[spare])
     return k_pool, v_pool
 
 

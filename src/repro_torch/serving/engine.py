@@ -2,9 +2,9 @@
 (the open-loop core of ``repro.serving.engine``).
 
 The engine owns the model's cache leaves, a per-slot block table, and
-per-slot ``tok``/``pos`` device tensors. As in the JAX engine, each leaf's
-batch and sequence axes are found by diffing ``model.cache_shapes`` at two
-batch sizes and at two lengths. A leaf with a sequence axis is *paged*: it
+the per-slot decode loop state on the device. As in the JAX engine, each
+leaf's batch and sequence axes are found by diffing ``model.cache_shapes``
+at two batch sizes and at two lengths. A leaf with a sequence axis is *paged*: it
 becomes a shared page pool (the batch axis dropped, the sequence axis split
 into ``(n_pages, page_size)``) read and written through the block table —
 dense and vlm self k/v, audio self and encoder k/v. A leaf without one is
@@ -23,16 +23,40 @@ slot a stale one; both are inactive, and what they compute is discarded.
 Pages are appended to a slot's block table ahead of every decode segment
 and returned the moment its sequence finishes.
 
-**Decode segments.** The JAX engine runs a segment as a device
-``lax.while_loop`` that exits once every slot is done. Here the host
-already knows each slot's remaining budget (this slice has no chunked
-prefill or in-segment admission), so it computes the segment's step count,
-``min(decode_block, max remaining)``, and every step's activity mask
-before the segment starts. The segment is then a Python loop of
-single-token decode steps with no host sync inside; the emitted tokens are
-read back once at its end. ``decode_steps``, ``decode_dispatches`` and
-``busy_slot_steps`` count exactly what the JAX engine counts on the same
-stream.
+**Decode segments.** The JAX engine runs a segment as one compiled
+device program: a ``lax.while_loop`` over ``model.decode`` inside one
+``jax.jit``, traced once per engine, over device-resident loop state. Here
+the loop state is the reference's carry, held in static device buffers
+allocated once: ``tok`` (B, 1), ``pos``, ``rem`` and ``plen`` (B,), the
+prompt buffer ``pbuf`` (B, max_len), the emitted tokens ``out`` (B,
+decode_block) and a step counter, beside the block table and every cache
+leaf. Host code writes them only in place. One function, ``_step_body``,
+is the reference's loop body without the staging ring and completion log:
+decode one token for every slot, take the argmax, feed the next prompt
+token instead while a chunked prompt remains (``feeding``), write the
+emitted token (-1 where none) into ``out`` at the step counter, and
+advance ``tok``, ``pos`` and ``rem`` where the slot is active
+(``rem > 0``). On the CPU a segment calls it ``n_steps`` times. On the card
+it is captured once per engine as a CUDA graph (``warmup()``, or the first
+``step()`` while no slot is live) and a segment replays that graph
+``n_steps`` times; a capture that fails raises, and nothing falls back to
+the eager loop. ``n_steps`` is the reference's early exit,
+``min(decode_block, max over live slots of feed steps left + rem)``, from
+the host's mirrors of ``pos``, ``rem`` and ``plen``; the emitted tokens
+are read back once, at the segment's end. ``decode_steps``,
+``decode_dispatches``, ``busy_slot_steps`` and ``chunk_admits`` count
+exactly what the JAX engine counts on the same stream; ``decode_traces``
+counts captured graphs (1 per engine on the card, 0 on the CPU) and
+``graph_replays`` the steps run as replays. The launch counts a capture
+records are credited once per replay (``kernels.build.credit``).
+
+**Chunked prefill** (``chunk_threshold``). A prompt longer than the
+threshold takes a free slot FIFO under the same worst-case reservation but
+gets no prefill dispatch: it is seated in the slot's row of ``pbuf``
+(``plen``, ``pos`` 0, ``tok`` its first token, ``rem`` max_new) and fed
+through the decode segments one token a step, writing its KV, until the
+slot emits. As in the JAX engine, families whose prefill computes encoder
+KV (audio, vlm) admit whole prompts: the knob is clamped to None for them.
 
 **Kernel pool layout.** With ``attention_impl="cuda"`` every pool carries
 one extra *trash* page at index ``n_pages``, the block table's sentinel: the
@@ -42,21 +66,23 @@ decode kernel's clamped sentinel reads land there as well. The plain path
 keeps the exact-size pool and drops those writes instead. Either way no
 write touches a live page.
 
-**In place.** Pools, ``tok`` and ``pos`` are updated in place (the JAX
-engine is functional). ``warmup`` therefore builds the kernels and
-launches them only on scratch tensors, never on live pages.
+**In place.** Pools and the loop state are updated in place (the JAX
+engine is functional). The warm-up steps a capture needs run with every
+slot inactive and every block-table row at the sentinel, so their writes
+are dropped, and the loop state is restored afterwards.
 
 Knobs of the JAX engine that this slice lacks — the contiguous layout
-(``page_size=None``), ``chunk_threshold``, ``stage_slots``,
-``admission="optimistic"``, ``prefix_cache``, ``swap``, ``speculate`` and
-``stream`` — raise ``NotImplementedError`` rather than being ignored.
+(``page_size=None``), ``stage_slots``, ``admission="optimistic"``,
+``prefix_cache``, ``swap``, ``speculate`` and ``stream`` — raise
+``NotImplementedError`` rather than being ignored.
 """
 from __future__ import annotations
 
 import dataclasses
 import time
 from collections import deque
-from typing import Any, Dict, List, Optional, Sequence
+from contextlib import contextmanager
+from typing import Any, Dict, Iterator, List, Optional, Sequence
 
 import numpy as np
 import torch
@@ -155,6 +181,13 @@ class PageAllocator:
         return pages
 
 
+
+
+# warm-up runs of the step body before its capture (the side-stream
+# iterations ``torch.cuda.graphs`` asks for)
+WARM_STEPS = 3
+
+
 class ServingEngine:
     """Continuous-batching engine over one model + params (greedy decode)."""
 
@@ -168,7 +201,6 @@ class ServingEngine:
                  speculate: Optional[Any] = None, stream: bool = False):
         unported = {
             "page_size=None (the contiguous KV layout)": page_size is None,
-            "chunk_threshold (chunked prefill)": chunk_threshold is not None,
             "stage_slots > 0 (in-segment admission)": bool(stage_slots),
             "admission='optimistic' (preemption)": admission == "optimistic",
             "prefix_cache": bool(prefix_cache),
@@ -193,6 +225,12 @@ class ServingEngine:
         self.max_len = max_len
         self.decode_block = decode_block
         self.min_bucket = min_bucket
+        # chunked prefill restarts a slot from an empty decode state; the
+        # audio and vlm families need encoder KV from prefill and admit
+        # whole prompts, as in the JAX engine (whose moe family, not
+        # ported, is clamped too)
+        self.chunk_threshold = (chunk_threshold if cfg.family == "dense"
+                                else None)
         self.page_size = page_size
         self.pages_per_slot = max_len // page_size
         self.n_pages = (max_batch * self.pages_per_slot if n_pages is None
@@ -212,30 +250,47 @@ class ServingEngine:
                                      page_size)
             self._cache[name] = torch.zeros(dims, dtype=dtype,
                                             device=self.device)
+        # the block table: a host copy that admission and growth edit, and
+        # its static device buffer, refreshed in place before a segment
         self._bt = KV.sentinel_block_table(max_batch, self.pages_per_slot,
                                            self.n_pages)
-        self._bt_dev: Optional[torch.Tensor] = None
-        self._tok = torch.zeros((max_batch, 1), dtype=torch.int32,
-                                device=self.device)
-        self._pos = torch.zeros((max_batch,), dtype=torch.int32,
-                                device=self.device)
-        # tokens each slot still owes: host-side, which is what lets a
-        # segment's length and activity masks be known before it runs
+        self._bt_dev = torch.from_numpy(self._bt).to(self.device)
+        self._bt_stale = False
+        # the decode loop state (the reference's carry), static buffers
+        # that a captured step reads and writes at fixed addresses
+        i32 = dict(dtype=torch.int32, device=self.device)
+        self._tok = torch.zeros((max_batch, 1), **i32)
+        self._pos = torch.zeros((max_batch,), **i32)
+        self._rem_dev = torch.zeros((max_batch,), **i32)
+        self._plen_dev = torch.zeros((max_batch,), **i32)
+        self._pbuf = torch.zeros((max_batch, max_len), **i32)
+        self._out = torch.full((max_batch, decode_block), -1, **i32)
+        self._step_i = torch.zeros((1,), dtype=torch.long,
+                                   device=self.device)
+        self._dcache = dict(self._cache, bt=self._bt_dev)
+        self._graph: Optional[Any] = None
+        self._graph_launches: Dict[str, int] = {}
+        # host mirrors of rem, pos and plen: they set each segment's step
+        # count and split its emitted tokens between the slots
         self._rem = np.zeros((max_batch,), np.int64)
+        self._slot_pos = np.zeros((max_batch,), np.int64)
+        self._plen = np.zeros((max_batch,), np.int64)
         self.stats: Dict[str, int] = {
-            "prefill_dispatches": 0, "decode_dispatches": 0,
-            "decode_steps": 0, "tokens_generated": 0, "admitted": 0,
+            "decode_traces": 0, "prefill_dispatches": 0,
+            "decode_dispatches": 0, "decode_steps": 0,
+            "tokens_generated": 0, "admitted": 0, "chunk_admits": 0,
             "peak_concurrency": 0, "busy_slot_steps": 0,
-            "bubble_slot_steps": 0,
+            "bubble_slot_steps": 0, "graph_replays": 0,
         }
         # host wall seconds spent in prefill dispatches and decode
-        # segments, each ending in its host sync
-        self.timing: Dict[str, float] = {"prefill_s": 0.0, "decode_s": 0.0}
+        # segments, each ending in its host sync, and in the graph
+        # replay calls of the segments (their enqueue alone)
+        self.timing: Dict[str, float] = {"prefill_s": 0.0, "decode_s": 0.0,
+                                         "replay_s": 0.0}
         self._pending: deque = deque()
         self._slot_req: List[Optional[Request]] = [None] * max_batch
         self._gen: Dict[int, List[int]] = {}
         self._free: List[int] = list(range(max_batch))[::-1]
-        self._slot_pos = np.zeros((max_batch,), np.int64)
         self._completed: List[Request] = []
 
     def _n_positions(self, r: Request) -> int:
@@ -243,29 +298,124 @@ class ServingEngine:
         token except the last (never fed back)."""
         return len(r.prompt) + max(r.max_new_tokens, 1) - 1
 
-    def _bt_device(self) -> torch.Tensor:
-        """The block table on the device, uploaded only after a change."""
-        if self._bt_dev is None:
-            self._bt_dev = torch.from_numpy(self._bt).to(self.device)
-        return self._bt_dev
+    def _sync_bt(self) -> None:
+        """Copy the host block table into its device buffer after a change."""
+        if self._bt_stale:
+            self._bt_dev.copy_(torch.from_numpy(self._bt))
+            self._bt_stale = False
+
+    # ------------------------------------------------------------------
+    # the decode step: one body, captured on the card
+    def _step_body(self) -> None:
+        """One decode step of every slot on the device loop state, in place:
+        the JAX engine's segment body without its staging ring and
+        completion log. The captured graph on the card, the segment loop's
+        body on the CPU."""
+        tok, pos, rem = self._tok, self._pos, self._rem_dev
+        active = rem > 0
+        logits, _ = self.model.decode(self.params, self._dcache, tok, pos)
+        nxt = torch.argmax(logits[:, -1], dim=-1).to(torch.int32)
+        # chunked prefill: while prompt tokens remain, feed the next one
+        # instead of the sampled token and emit nothing
+        feeding = pos + 1 < self._plen_dev
+        at = torch.clamp(pos.long() + 1, 0, self.max_len - 1)
+        nxt = torch.where(feeding, torch.gather(self._pbuf, 1, at[:, None])
+                          [:, 0], nxt)
+        emits = active & ~feeding
+        self._out.index_copy_(1, self._step_i,
+                              nxt.masked_fill(~emits, -1)[:, None])
+        tok.copy_(torch.where(active[:, None], nxt[:, None], tok))
+        pos.copy_(torch.where(active, pos + 1, pos))
+        rem.copy_(torch.where(emits, rem - 1, rem))
+        self._step_i.add_(1)
+
+    @contextmanager
+    def _quiesced(self) -> Iterator[None]:
+        """Every slot inactive and every block-table row at the sentinel
+        inside the block, so a step's KV writes are dropped (the plain
+        path) or land on the trash page, which the fused kernel drops;
+        ``tok``, ``pos``, ``rem``, ``out``, the step counter and the block
+        table are restored on exit."""
+        saved = [(t, t.clone()) for t in (self._tok, self._pos,
+                                          self._rem_dev, self._out,
+                                          self._step_i, self._bt_dev)]
+        self._rem_dev.zero_()
+        self._bt_dev.fill_(self.n_pages)
+        try:
+            yield
+        finally:
+            for t, v in saved:
+                t.copy_(v)
+
+    def _warm_steps(self, n: int = WARM_STEPS) -> None:
+        """Run the step body ``n`` times on quiesced state: the warm-up
+        that a capture needs, which leaves pools and slot state as they
+        were."""
+        with self._quiesced(), torch.no_grad():
+            for _ in range(n):
+                self._step_i.zero_()
+                self._step_body()
+
+    def _capture(self) -> None:
+        """Capture one step of the body as a CUDA graph, once per engine.
+
+        Raises if the capture fails: no segment runs the eager loop on the
+        card."""
+        dev = self.device
+        side = torch.cuda.Stream(dev)
+        side.wait_stream(torch.cuda.current_stream(dev))
+        with torch.cuda.stream(side):
+            self._warm_steps()
+        torch.cuda.current_stream(dev).wait_stream(side)
+        graph = torch.cuda.CUDAGraph()
+        try:
+            with build.capturing() as launches, torch.no_grad(), \
+                    torch.cuda.graph(graph, capture_error_mode="thread_local"):
+                self._step_body()
+        except Exception as e:
+            raise RuntimeError(f"capturing the decode step of "
+                               f"{self.model.cfg.name} failed: {e}") from e
+        self._graph, self._graph_launches = graph, launches
+        self.stats["decode_traces"] += 1
+
+    def _run_steps(self, n_steps: int) -> None:
+        """``n_steps`` steps of the body: replays of the captured graph on
+        the card, the body itself on the CPU."""
+        if self.device.type != "cuda":
+            with torch.no_grad():
+                for _ in range(n_steps):
+                    self._step_body()
+            return
+        t0 = time.perf_counter()
+        for _ in range(n_steps):
+            self._graph.replay()
+        self.timing["replay_s"] += time.perf_counter() - t0
+        build.credit(self._graph_launches, n_steps)
+        self.stats["graph_replays"] += n_steps
 
     # ------------------------------------------------------------------
     def warmup(self, prompt_lens: Sequence[int] = ()) -> None:
-        """Build the kernels (on CUDA) and run one prefill on scratch.
+        """Build the kernels (on CUDA), run one prefill on scratch and, on
+        CUDA, capture the decode step.
 
         The JAX engine compiles its programs here; the port builds its
-        kernel libraries and warms the device allocator and libraries with
-        a prefill whose outputs are discarded. Nothing touches the live
-        pools or slot state.
+        kernel libraries, warms the device allocator and libraries with a
+        prefill whose outputs are discarded, and captures the step graph.
+        Nothing touches the live pools or slot state. Prompts that chunked
+        admission takes never prefill and are left out.
         """
         cfg = self.model.cfg
         if cfg.attention_impl == "cuda" or cfg.quantize == "int8_cuda":
             build.build_all()
-        b = bucket_len(max([1, *prompt_lens]), self.min_bucket, self.max_len)
+        lens = [n for n in prompt_lens if self.chunk_threshold is None
+                or n <= self.chunk_threshold]
+        b = bucket_len(max([1, *lens]), self.min_bucket, self.max_len)
         with torch.no_grad():
             self.model.prefill(self.params, self._prefill_batch(
                 np.zeros((1, b), np.int32)))
         if self.device.type == "cuda":
+            if self._graph is None:
+                self._capture()
             torch.cuda.synchronize(self.device)
 
     def _page_rows_for(self, bucket: int) -> int:
@@ -278,7 +428,7 @@ class ServingEngine:
         new = self._alloc.cover(slot, n_positions)
         if new:
             self._bt[slot, held:held + len(new)] = new
-            self._bt_dev = None
+            self._bt_stale = True
 
     def _prefill_batch(self, tokens: np.ndarray,
                        lengths: Optional[np.ndarray] = None):
@@ -333,6 +483,8 @@ class ServingEngine:
         for j, (r, s) in enumerate(zip(rs, slots)):
             self._grow_slot(s, len(r.prompt))
             page_rows[j] = self._bt[s, :n_rows]
+        rem = np.asarray([max(r.max_new_tokens, 1) - 1 for r in rs],
+                         np.int32)
         t0 = time.perf_counter()
         dev = self.device
         batch = self._prefill_batch(tokens, lengths)
@@ -343,13 +495,34 @@ class ServingEngine:
             self._insert_prefill(pcache, page_rows, slot_t)
         self._tok[slot_t] = firsts[:m, None]
         self._pos[slot_t] = batch["length"][:m]
+        self._rem_dev[slot_t] = torch.from_numpy(rem).to(dev)
+        self._plen_dev[slot_t] = 0
         firsts_np = firsts[:m].cpu().numpy()            # the one host sync
         self.timing["prefill_s"] += time.perf_counter() - t0
-        for r, s in zip(rs, slots):
-            self._rem[s] = max(r.max_new_tokens, 1) - 1
+        self._rem[slots] = rem
+        self._plen[slots] = 0
         self.stats["prefill_dispatches"] += 1
         self.stats["admitted"] += m
         return firsts_np
+
+    def _admit_chunk(self, r: Request, slot: int) -> None:
+        """Chunked admission: no prefill dispatch. The prompt goes to the
+        slot's row of the device prompt buffer, and the next segments feed
+        it one token a step before the slot emits ``max_new`` greedy
+        tokens. The dense family has no O(1) state to reset."""
+        n = len(r.prompt)
+        row = np.zeros((self.max_len,), np.int32)
+        row[:n] = r.prompt
+        max_new = max(r.max_new_tokens, 1)
+        self._pbuf[slot] = torch.from_numpy(row).to(self.device)
+        self._plen_dev[slot] = n
+        self._pos[slot] = 0
+        self._tok[slot, 0] = int(r.prompt[0])
+        self._rem_dev[slot] = max_new
+        self._plen[slot], self._slot_pos[slot], self._rem[slot] = \
+            n, 0, max_new
+        self.stats["chunk_admits"] += 1
+        self.stats["admitted"] += 1
 
     # ------------------------------------------------------------------
     # open-loop core: submit / step / drain_completions
@@ -379,8 +552,9 @@ class ServingEngine:
         self._pending.append(r)
 
     def _admit_pending(self) -> None:
-        """Fill free slots FIFO while the pool holds each head's worst case,
-        then prefill them grouped by prompt bucket."""
+        """Fill free slots FIFO while the pool holds each head's worst case:
+        prompts longer than ``chunk_threshold`` are seated for chunked
+        prefill, the rest prefilled grouped by prompt bucket."""
         now = time.perf_counter()
         prefills = []
         while self._pending and self._free:
@@ -392,7 +566,13 @@ class ServingEngine:
             slot = self._free.pop()
             self._alloc.reserve(slot, npos)
             r.admitted = now
-            prefills.append((r, slot))
+            if self.chunk_threshold is not None and \
+                    len(r.prompt) > self.chunk_threshold:
+                self._admit_chunk(r, slot)
+                self._gen[slot] = []        # first token comes via emit
+                self._slot_req[slot] = r
+            else:
+                prefills.append((r, slot))
         groups: Dict[int, list] = {}
         for r, s in prefills:
             b = bucket_len(len(r.prompt), self.min_bucket, self.max_len)
@@ -415,38 +595,28 @@ class ServingEngine:
         self._rem[slot] = 0
         self._alloc.release(slot)
         self._bt[slot, :] = self.n_pages
-        self._bt_dev = None
+        self._bt_stale = True
         self._completed.append(r)
 
     def _decode_segment(self, n_steps: int) -> np.ndarray:
-        """Run ``n_steps`` single-token decode steps over every slot and
-        return the emitted tokens (B, n_steps), -1 where a slot was idle.
+        """Run ``n_steps`` decode steps over every slot and return the
+        emitted tokens (B, n_steps), -1 where a slot emitted nothing.
 
-        Activity masks are host-known, so they upload once; the emitted
-        tokens come back once, at the end — the segment's one host sync.
+        The activity masks live on the device; the emitted tokens come
+        back once, at the end — the segment's one host sync.
         """
-        dev = self.device
-        steps = np.arange(n_steps)[:, None]
-        active = torch.from_numpy(self._rem[None, :] > steps).to(dev)
-        out = torch.full((self.max_batch, n_steps), -1, dtype=torch.int32,
-                         device=dev)
-        cache = dict(self._cache, bt=self._bt_device())
-        tok, pos = self._tok, self._pos
-        with torch.no_grad():
-            for i in range(n_steps):
-                logits, _ = self.model.decode(self.params, cache, tok, pos)
-                nxt = torch.argmax(logits[:, -1], dim=-1).to(torch.int32)
-                act = active[i]
-                out[:, i] = torch.where(act, nxt, torch.full_like(nxt, -1))
-                tok = torch.where(act[:, None], nxt[:, None], tok)
-                pos = torch.where(act, pos + 1, pos)
-        self._tok, self._pos = tok, pos
-        return out.cpu().numpy()
+        self._sync_bt()
+        self._out.fill_(-1)
+        self._step_i.zero_()
+        self._run_steps(n_steps)
+        return self._out[:, :n_steps].cpu().numpy().copy()
 
     def step(self) -> int:
         """One engine step: admit pending requests into free slots, run one
         decode segment, harvest finished slots. Returns the number of decode
         steps executed (0 when idle)."""
+        if self.device.type == "cuda" and self._graph is None:
+            self._capture()
         self._admit_pending()
         live = [s for s, r in enumerate(self._slot_req) if r is not None]
         if not live:
@@ -459,7 +629,11 @@ class ServingEngine:
         for s in live:
             self._grow_slot(s, min(int(self._slot_pos[s]) + self.decode_block,
                                    self._n_positions(self._slot_req[s])))
-        n_steps = int(min(self.decode_block, int(self._rem.max())))
+        # steps each slot is active: its prompt tokens still to feed (a
+        # chunked slot's), then its tokens still owed
+        feed = np.maximum(self._plen - 1 - self._slot_pos, 0)
+        need = feed + self._rem
+        n_steps = int(min(self.decode_block, need[live].max()))
         self.stats["decode_dispatches"] += 1
         out = np.zeros((self.max_batch, 0), np.int32)
         if n_steps:
@@ -469,11 +643,12 @@ class ServingEngine:
         busy = 0
         finished = []
         for s in live:
-            n = int(min(self._rem[s], n_steps))
+            n = int(min(need[s], n_steps))
             if n == 0:
                 continue
-            self._gen[s].extend(int(x) for x in out[s, :n])
-            self._rem[s] -= n
+            row = out[s, :n]
+            self._gen[s].extend(int(x) for x in row[row >= 0])
+            self._rem[s] -= n - min(int(feed[s]), n)
             self._slot_pos[s] += n
             busy += n
             if self._rem[s] == 0:

@@ -35,14 +35,16 @@ architecture (``build_model(cfg.for_device(device), device)`` and
 ``models.quantize.quantize_params_dense``) and shared across the variants
 and, via ``model_cache``, across the cluster's workers; each variant gets
 its own engine so slot state never crosses variants. Engines are warmed up
-at creation — on the card that builds the kernels with ``nvcc`` — keeping
-build time out of the measured service times. With ``max_engines`` set,
+at creation — on the card that builds the kernels with ``nvcc`` and
+captures the decode step's CUDA graph — keeping both out of the measured
+service times. With ``max_engines`` set,
 the per-variant engine map is an LRU.
 
 The port's engine pages its KV cache and refuses the contiguous layout, so
 ``page_size`` defaults to 16 here (``repro``'s default ``None`` is the
-contiguous layout). The engine knobs this slice lacks — chunked prefill,
-in-segment admission, optimistic admission and its victim policy, the
+contiguous layout). ``chunk_threshold`` reaches every engine (chunked
+prefill; the engine clamps it off for the audio and vlm families). The
+engine knobs this slice lacks — in-segment admission, optimistic admission and its victim policy, the
 prefix cache and its eviction policy, streaming, speculation, host swap,
 deadline enforcement and the threaded runtime's fault sites — raise
 ``NotImplementedError`` by name when the executor is built.
@@ -101,8 +103,6 @@ class EngineExecutorConfig:
     def unported(self) -> List[str]:
         """The knobs set away from their defaults that this slice lacks."""
         knobs = {
-            "chunk_threshold (chunked prefill)":
-                self.chunk_threshold is not None,
             "stage_slots > 0 (in-segment admission)": bool(self.stage_slots),
             "admission='optimistic' (preemption)":
                 self.admission != "worstcase",
@@ -216,7 +216,8 @@ class EngineExecutor:
                 decode_block=self.cfg.decode_block,
                 min_bucket=self.cfg.min_bucket,
                 page_size=self.cfg.page_size,
-                n_pages=self.cfg.n_pages)
+                n_pages=self.cfg.n_pages,
+                chunk_threshold=self.cfg.chunk_threshold)
             eng.warmup(prompt_lens=[self.cfg.prompt_len])
         # dict order doubles as the LRU list: reinsert on every access
         self.engines[variant.name] = eng

@@ -503,3 +503,133 @@ def test_cuda_control_plane_payload_query_at_full_width():
     eng.serve(reqs)
     for r, out in zip(reqs, res.outputs):
         np.testing.assert_array_equal(r.tokens, out)
+
+
+# ----------------------------------------------------------------------
+# the decode step as one captured CUDA graph
+
+
+class _Uncaptured(ServingEngine):
+    """The engine with its segments run as the plain loop of the step body
+    on the card: the oracle of the graph replays. Nothing is captured."""
+
+    def _capture(self):
+        pass
+
+    def _run_steps(self, n_steps):
+        with torch.no_grad():
+            for _ in range(n_steps):
+                self._step_body()
+
+
+def _kernel_llama(dev, quant="none"):
+    cfg = dataclasses.replace(ARCHS["llama3.2-1b"].reduced(),
+                              quantize=quant).for_device(dev)
+    m = build_model(cfg, device=dev)
+    params = m.init(0)
+    return m, quantize_params_dense(params) if quant == "int8" else params
+
+
+@pytest.mark.cuda
+def test_cuda_one_decode_graph_per_engine_across_mixed_streams():
+    """One captured step graph per engine however the stream mixes prompt
+    buckets (the decode half of the reference's compile-count test), and
+    every decode step a replay of it."""
+    dev = _need_cuda()
+    m, params = _kernel_llama(dev)
+    eng = ServingEngine(m, params, max_batch=4, max_len=64, decode_block=4,
+                        min_bucket=4, page_size=8)
+    plens = [3, 5, 8, 9, 16, 2, 11, 4]
+    for base in (0, 100):
+        eng.serve([Request(rid=base + i,
+                           prompt=np.arange(p, dtype=np.int32) % 256,
+                           max_new_tokens=3) for i, p in enumerate(plens)])
+        assert eng.stats["decode_traces"] == 1, eng.stats
+        assert eng.stats["graph_replays"] == eng.stats["decode_steps"] > 0
+
+
+@pytest.mark.cuda
+def test_cuda_warmup_captures_and_serving_never_recaptures():
+    """``warmup()`` captures the step graph; serving after it captures
+    nothing more (the decode half of the reference's warm-up test)."""
+    dev = _need_cuda()
+    m, params = _kernel_llama(dev)
+    eng = ServingEngine(m, params, max_batch=2, max_len=64, decode_block=4,
+                        min_bucket=4, page_size=8)
+    eng.warmup(prompt_lens=[5, 12])
+    assert eng.stats["decode_traces"] == 1
+    graph = eng._graph
+    out = eng.serve([Request(rid=i, prompt=np.arange(p, dtype=np.int32),
+                             max_new_tokens=2)
+                     for i, p in enumerate([4, 6, 9, 12])])
+    assert all(len(r.tokens) == 2 for r in out)
+    assert eng.stats["decode_traces"] == 1 and eng._graph is graph
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("quant,threshold", [("none", None), ("none", 8),
+                                             ("int8", 8)])
+def test_cuda_graph_replays_match_uncaptured_body(quant, threshold):
+    """Graph replays against the plain loop of the same step body on the
+    card: the same tokens bit for bit, the same counts, and every
+    wrapper's credited launches equal to the launches the loop made."""
+    dev = _need_cuda()
+    m, params = _kernel_llama(dev, quant)
+    rng = np.random.default_rng(3)
+    stream = [(rng.integers(0, 256, size=n).astype(np.int32), k)
+              for n, k in ((5, 6), (6, 1), (7, 9), (29, 4), (12, 12),
+                           (4, 3), (16, 5), (9, 8))]
+    runs = []
+    for cls in (ServingEngine, _Uncaptured):
+        eng = cls(m, params, **dict(KW, chunk_threshold=threshold))
+        eng.warmup()
+        reqs = [Request(rid=i, prompt=p, max_new_tokens=k)
+                for i, (p, k) in enumerate(stream)]
+        build.reset_launch_counts()
+        eng.serve(reqs)
+        torch.cuda.synchronize(dev)
+        runs.append(([r.tokens for r in reqs], dict(eng.stats),
+                     dict(build.launch_counts)))
+    (tg, sg, lg), (tu, su, lu) = runs
+    for a, b in zip(tg, tu):
+        np.testing.assert_array_equal(a, b)
+    assert sg["decode_traces"] == 1 and su["decode_traces"] == 0
+    assert sg["graph_replays"] == sg["decode_steps"] > 0
+    for key in ("chunk_admits", "prefill_dispatches", "decode_dispatches",
+                "decode_steps", "busy_slot_steps"):
+        assert sg[key] == su[key], key
+    assert (sg["chunk_admits"] > 0) == (threshold is not None)
+    assert lg == lu and lg["fused_paged_decode_attention"] > 0
+    assert (lg["int8_matmul"] > 0) == (quant == "int8")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["llama3.2-1b", "whisper-base",
+                                  "llama-3.2-vision-90b"])
+def test_cuda_capture_leaves_pools_and_slots_bit_identical(arch):
+    """Mid-serve on the card, a capture's warm-up steps and a capture
+    itself change no bit of any pool, the trash page included, or of the
+    slot state."""
+    dev = _need_cuda()
+    cfg = ARCHS[arch].reduced().for_device(dev)
+    m = build_model(cfg, device=dev)
+    eng = ServingEngine(m, m.init(0), **dict(KW, chunk_threshold=12))
+    rng = np.random.default_rng(4)
+    for i, (n, k) in enumerate(((29, 6), (5, 10), (7, 12))):
+        eng.submit(Request(rid=i, prompt=rng.integers(
+            0, cfg.vocab, size=n).astype(np.int32), max_new_tokens=k))
+    eng.step()
+    assert all(r is not None for r in eng._slot_req)
+    state = lambda: [t.clone() for t in (  # noqa: E731
+        *eng._cache.values(), eng._tok, eng._pos, eng._rem_dev,
+        eng._plen_dev, eng._pbuf, eng._out, eng._step_i, eng._bt_dev)]
+    before = state()
+    eng._graph = None
+    eng._capture()
+    torch.cuda.synchronize(dev)
+    for a, b in zip(before, state()):
+        assert torch.equal(a, b)
+    assert eng.stats["decode_traces"] == 2
+    while eng.busy:
+        eng.step()
+    assert eng._alloc.n_free == eng.n_pages

@@ -312,7 +312,7 @@ def test_engine_executor_paged_knobs_reach_engines():
 
 
 @pytest.mark.parametrize("knob,value", [
-    ("chunk_threshold", 8), ("stage_slots", 2), ("admission", "optimistic"),
+    ("stage_slots", 2), ("admission", "optimistic"),
     ("preempt_policy", "lru"), ("prefix_cache", True),
     ("prefix_evict", "fifo"), ("stream", True), ("speculate", "int8:2"),
     ("swap", "host"), ("swap_budget_bytes", 1 << 20),
@@ -323,6 +323,27 @@ def test_unported_executor_knobs_raise_by_name(knob, value):
     # and through the cluster factory, before any query runs
     with pytest.raises(NotImplementedError, match=knob):
         _real(engine_cfg=EngineExecutorConfig(**{knob: value}))
+
+
+def test_executor_passes_chunk_threshold_to_its_engines():
+    """``chunk_threshold`` reaches the engine, as in the reference's
+    executor: payload prompts past it are seated for chunked prefill, and
+    the tokens are an unchunked engine's."""
+    prompts = PROMPTS + (tuple(range(1, 15)),)
+    ex = _executor(max_batch=4, max_len=32, decode_block=2,
+                   chunk_threshold=7)
+    v = next(iter(prof.generate_variants(LLAMA)))
+    outs = []
+    ex.run(v, len(prompts), [ExecRequest(
+        n_inputs=len(prompts), prompts=prompts, max_new_tokens=MAX_NEW,
+        on_outputs=outs.append)])
+    eng = ex.engines[v.name]
+    assert eng.chunk_threshold == 7
+    assert eng.stats["chunk_admits"] == 2          # the 8- and 14-token ones
+    want = _oracle(ex, v, prompts, MAX_NEW)
+    assert len(outs) == 1 and len(outs[0]) == len(prompts)
+    for a, b in zip(outs[0], want):
+        np.testing.assert_array_equal(a, b)
 
 
 def test_real_cluster_asks_for_cuda_unless_told_otherwise():

@@ -104,6 +104,35 @@ def test_paged_update_drops_sentinel_and_out_of_pool_writes():
     np.testing.assert_array_equal(changed, [[7, 7]])
 
 
+@pytest.mark.parametrize("case", ["spare_taken", "spare_after_kept",
+                                  "pool_of_b_rows"])
+def test_paged_update_drop_without_mask_matches_jax(case):
+    """The sync-free drop (a dropped row rewrites a row no kept slot
+    writes) against JAX's ``mode="drop"``: kept slots that take rows 0 and
+    1, so the spare row moves past them; kept slots on rows 0..B-2 beside
+    a dropped one, so it is row B - 1; and a pool of no more than B rows,
+    which takes the mask."""
+    rng = np.random.default_rng(7)
+    B, ps = 4, 2
+    n_pages = 2 if case == "pool_of_b_rows" else 6
+    pk, pv = _randn(rng, n_pages, ps, 2, 16), _randn(rng, n_pages, ps, 2, 16)
+    bt = np.full((B, 3), n_pages, np.int32)
+    bt[:, 0] = [0, 0, 1, 1] if case != "spare_taken" else [0, 0, 5, 4]
+    pos = {"spare_taken": [0, 1, 3, 5],
+           "spare_after_kept": [0, 1, 0, 3],
+           "pool_of_b_rows": [0, 1, 2, 1]}[case]
+    pos = np.asarray(pos, np.int32)
+    kn, vn = _randn(rng, B, 1, 2, 16), _randn(rng, B, 1, 2, 16)
+    tk, tv = TKV.paged_update_layer_cache(_t(pk), _t(pv), _t(kn), _t(vn),
+                                          _t(bt), _t(pos))
+    jk, jv = JKV.paged_update_layer_cache(jnp.asarray(pk), jnp.asarray(pv),
+                                          jnp.asarray(kn), jnp.asarray(vn),
+                                          jnp.asarray(bt), jnp.asarray(pos))
+    np.testing.assert_array_equal(tk.numpy(), np.asarray(jk))
+    np.testing.assert_array_equal(tv.numpy(), np.asarray(jv))
+    assert (tk.numpy() != pk).any()
+
+
 def test_gather_block_kv_clamps_like_jax():
     rng = np.random.default_rng(3)
     pk, _pv, bt, _pos = _paged_case(rng)
