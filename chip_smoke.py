@@ -90,6 +90,30 @@ fails:
    GEMM must have launched, and every executor engine must have served its
    decode steps as replays of its one captured graph. Synthetic queries at two batch sizes then
    re-fit both variants' t(b) = m*b + c, printed beside the analytic fit.
+6. **Admission under pressure**, on phase 3's llama3.2-1b bf16 model,
+   params and stream (8 slots, ``max_len`` 512, page 16): the staging
+   ring and the completion log live in the captured step, so refills and
+   preemptions must leave the graph the only decode path. An oracle serve
+   (worst-case admission, no staging, the default 256 pages,
+   ``chunk_threshold`` 0, so every prompt is fed through the graphed step)
+   and the pressure serve (``stage_slots`` 4, ``admission="optimistic"``,
+   ``preempt_policy="slack"``, 64 pages, ``chunk_threshold`` 0,
+   ``stream=True``), served 3 times: its tokens must equal the oracle's
+   bit for bit and each request's streamed chunks must concatenate to its
+   tokens; its counts must show in-segment admissions and preemptions,
+   each preemption re-admitted; one captured graph, a replay per decode
+   step; every page free after each serve. An uncaptured engine with the
+   pressure knobs must give the same tokens, counts and launches per
+   wrapper. On the pressure engine a forced ``preempt`` and a ``cancel``
+   mid-serve: the preempted request's tokens must equal the oracle's, the
+   cancelled one's be a prefix of them. The prefill variant
+   (``chunk_threshold`` None, the pressure knobs) is checked by its counts
+   and invariants, and the share of its requests whose tokens equal a
+   worst-case prefill serve's is printed, not gated: a replayed or staged
+   prompt's KV comes from the fused decode kernel, a prefilled one's from
+   flash prefill, which differ in bf16. Prints tok/s (median of 3 serves,
+   quartiles), the segment time, the replay host time a step, peak memory
+   and the counts beside the card.
 
 The last lines are the card's ``name, power.limit``, one JSON line with
 every kernel's numbers, and the result line
@@ -125,6 +149,11 @@ SERVE_REPEATS = {"llama3.2-1b": 15, "whisper-base": 9,
                  "llama-3.2-vision-90b": 5}
 CHUNK_THRESHOLD = 64        # the chunked llama serve's threshold
 CHUNKED_REPEATS = 3
+# phase 6: the pressure serve's pool (a quarter of the default 8 x 512 / 16
+# = 256 pages), staging ring and number of timed serves
+PRESSURE_PAGES = 64
+PRESSURE_STAGE = 4
+PRESSURE_REPEATS = 3
 VISION_LAYERS = 20          # serve depth of llama-3.2-vision-90b (of 100)
 VISION_TF_LAYERS = 10       # its f32 teacher-forced depth: one group
 # (Kd, N) of llama3.2-1b's int8 projections: q and o, k and v, gate and up,
@@ -1170,8 +1199,8 @@ def phase_main_path(torch, dev):
     qcfg = dataclasses.replace(base, quantize="int8").for_device(dev)
     check(qcfg.quantize == "int8_cuda", "config did not select the int8 GEMM")
     qparams = quantize_params_dense(params)
-    del params
-    torch.cuda.empty_cache()
+    # phase 6 serves the bf16 model again; it frees the params after
+    bf16["llama"] = (model, params, stream)
     qmodel = build_model(qcfg, dev)
     int8 = serve_variant(torch, dev, qmodel, qparams, stream, "int8 variant",
                          reps)
@@ -1484,6 +1513,225 @@ def phase_control_plane(torch, dev, card):
 
 
 # ---------------------------------------------------------------------------
+# phase 6: admission under pressure (the staging ring and preemption inside
+# the captured step)
+
+
+def stream_serve(eng, stream, hook=None):
+    """Serve the stream on a warm engine open loop, ``hook(eng)`` after
+    every step; returns the requests and each one's streamed tokens."""
+    from repro_torch.serving.engine import Request
+    reqs = [Request(rid=i, prompt=p, max_new_tokens=m)
+            for i, (p, m) in enumerate(stream)]
+    for r in reqs:
+        eng.submit(r)
+    chunks = {r.rid: [] for r in reqs}
+    while eng.busy:
+        eng.step()
+        if hook is not None:
+            hook(eng)
+        for r, toks, _t in eng.drain_partial_outputs():
+            chunks[r.rid].extend(toks)
+    eng.drain_completions()
+    return reqs, chunks
+
+
+PRESSURE_COUNTS = ("staged", "inseg_admissions", "preemptions",
+                   "preempt_readmits", "pressure_stalls",
+                   "prefill_dispatches", "chunk_admits",
+                   "decode_dispatches", "decode_steps", "busy_slot_steps",
+                   "peak_concurrency")
+
+
+def check_pressure_serve(eng, label, reqs, chunks, delta, want=None):
+    """A pressure serve's invariants: tokens of the right length in the
+    vocabulary (and equal to ``want`` where given), streamed chunks that
+    concatenate to the tokens, every staged and parked request seated,
+    every page free, and a replay of the one graph per decode step."""
+    vocab = eng.model.cfg.vocab
+    for r in reqs:
+        check(r.tokens is not None and len(r.tokens) == r.max_new_tokens
+              and bool(((r.tokens >= 0) & (r.tokens < vocab)).all()),
+              f"{label}: request {r.rid} returned {r.tokens}")
+        check(chunks[r.rid] == [int(x) for x in r.tokens],
+              f"{label}: request {r.rid}'s streamed chunks do not "
+              f"concatenate to its tokens")
+        if want is not None:
+            check(np.array_equal(r.tokens, want[r.rid]),
+                  f"{label}: request {r.rid}'s tokens differ from the "
+                  f"worst-case serve's")
+    check(delta["preempt_readmits"] == delta["preemptions"],
+          f"{label}: {delta['preemptions']} preemptions, "
+          f"{delta['preempt_readmits']} re-admitted")
+    check(eng._alloc.n_free == eng.n_pages and eng._alloc.committed == 0
+          and not eng._staged and not eng._preempted,
+          f"{label}: {eng._alloc.n_free} of {eng.n_pages} pages free after "
+          f"the serve")
+    st = eng.stats
+    check(st["decode_traces"] == 1
+          and st["graph_replays"] == st["decode_steps"] > 0,
+          f"{label}: {st['decode_traces']} captured graphs, "
+          f"{st['graph_replays']} replays for {st['decode_steps']} steps")
+
+
+def phase_pressure(torch, dev, model, params, stream, card):
+    """Phase 6 on phase 3's llama3.2-1b bf16 model, params and stream: a
+    worst-case serve with every prompt teacher-forced (the oracle), the
+    pressure serve (staging ring, optimistic admission, slack victims,
+    streaming, a quarter of the default pool) against it bit for bit and
+    against an uncaptured engine with its knobs, a forced preempt and a
+    cancel mid-serve, and the prefill variant of the pressure serve,
+    whose share of tokens equal to a worst-case prefill serve's is
+    printed. Returns the phase's launches."""
+    from repro_torch.kernels import build
+    from repro_torch.serving.engine import ServingEngine
+    geometry = dict(max_batch=8, max_len=512, decode_block=16, page_size=16)
+    knobs = dict(stage_slots=PRESSURE_STAGE, admission="optimistic",
+                 preempt_policy="slack", n_pages=PRESSURE_PAGES,
+                 stream=True)
+    lens = [len(p) for p, _ in stream]
+    need = max(-(-(len(t) + m - 1) // 16) for t, m in stream)
+    launches: dict = {}
+
+    def engine(cls=ServingEngine, **kw):
+        eng = cls(model, params, **dict(geometry, **kw))
+        eng.warmup(prompt_lens=lens)
+        return eng
+
+    def serve(eng, hook=None):
+        before = dict(eng.stats)
+        build.reset_launch_counts()
+        t0 = time.perf_counter()
+        reqs, chunks = stream_serve(eng, stream, hook)
+        torch.cuda.synchronize(dev)
+        wall = time.perf_counter() - t0
+        got = dict(build.launch_counts)
+        for k, n in got.items():
+            launches[k] = launches.get(k, 0) + n
+        delta = {k: v - before[k] for k, v in eng.stats.items()}
+        return reqs, chunks, delta, got, wall
+
+    oracle = engine(chunk_threshold=0)
+    want_reqs, _, sa, _, _ = serve(oracle)
+    want = [r.tokens for r in want_reqs]
+    check(sa["chunk_admits"] == len(stream) and sa["preemptions"] == 0,
+          f"oracle serve: {sa}")
+    del oracle
+    print(f"  oracle: worst-case admission, chunk_threshold 0 (every prompt "
+          f"fed through the graphed step), {geometry['max_len'] // 16 * 8} "
+          f"pages: {sa['decode_steps']} decode steps in "
+          f"{sa['decode_dispatches']} segments")
+    eng = engine(chunk_threshold=0, **knobs)
+    torch.cuda.empty_cache()
+    resident_gb = torch.cuda.memory_allocated(dev) / 1e9
+    torch.cuda.reset_peak_memory_stats(dev)
+    rates, first = [], None
+    for _ in range(PRESSURE_REPEATS):
+        reqs, chunks, d, got, wall = serve(eng)
+        check_pressure_serve(eng, "pressure serve", reqs, chunks, d, want)
+        check(d["inseg_admissions"] > 0 and d["preemptions"] > 0,
+              f"pressure serve: no pressure ran ({d})")
+        rates.append(sum(len(r.tokens) for r in reqs) / wall)
+        if first is None:
+            first = (d, got)
+    d, first_launches = first
+    st, timing = eng.stats, eng.timing
+    seg_ms = timing["decode_s"] / st["decode_dispatches"] * 1e3
+    replay_us = timing["replay_s"] / st["graph_replays"] * 1e6
+    peak_gb = torch.cuda.max_memory_allocated(dev) / 1e9
+    q1, med, q3 = statistics.quantiles(rates, n=4)
+    counts = {k: d[k] for k in PRESSURE_COUNTS}
+    print(f"  pressure serve: {PRESSURE_STAGE} staging slots, optimistic "
+          f"admission, slack victims, streaming, {PRESSURE_PAGES} pages "
+          f"(the largest request needs {need}), chunk_threshold 0; tokens "
+          f"equal the oracle's bit for bit and the streamed chunks "
+          f"concatenate to them in each of {PRESSURE_REPEATS} serves")
+    print(f"  pressure serve counts (each serve): {counts}")
+    print(f"  pressure serve: median {med:.1f} tok/s (quartiles "
+          f"{q1:.1f}-{q3:.1f}; each {', '.join(f'{x:.1f}' for x in rates)}),"
+          f" mean decode segment {seg_ms:.2f} ms, replay host time "
+          f"{replay_us:.1f} us a step, peak memory {peak_gb:.2f} GB "
+          f"({resident_gb:.2f} GB allocated as the serves began: the "
+          f"weights, the pools and what earlier phases still hold), 1 "
+          f"captured step graph, {st['graph_replays']} replays for "
+          f"{st['decode_steps']} steps, on {card}")
+    uncaptured = engine(uncaptured_engine(), chunk_threshold=0, **knobs)
+    reqs, chunks, du, got, wall_u = serve(uncaptured)
+    check(all(np.array_equal(r.tokens, w) for r, w in zip(reqs, want)),
+          "uncaptured pressure serve: tokens differ from the oracle's")
+    check(got == first_launches,
+          f"pressure serve: credited launches {first_launches} against the "
+          f"uncaptured body's {got}")
+    check(all(du[k] == d[k] for k in PRESSURE_COUNTS),
+          f"uncaptured pressure serve counts {du} against {d}")
+    del uncaptured
+    print(f"  uncaptured engine, same knobs: the same tokens, counts and "
+          f"launches per wrapper; {sum(len(w) for w in want) / wall_u:.1f} "
+          f"tok/s")
+    forced = {}
+
+    def hook(e):
+        live = [s for s, r in enumerate(e._slot_req) if r is not None
+                and 0 < len(e._gen[s]) < r.max_new_tokens]
+        if "preempt" not in forced and live:
+            forced["preempt"] = e._slot_req[live[0]]
+            e.preempt(live[0])
+        elif "preempt" in forced and "cancel" not in forced:
+            live = [s for s in live if e._slot_req[s] is not forced["preempt"]]
+            if live:
+                forced["cancel"] = e._slot_req[live[0]]
+                e.cancel(live[0])
+
+    reqs, chunks, df, _, _ = serve(eng, hook)
+    p, c = forced.get("preempt"), forced.get("cancel")
+    check(p is not None and c is not None, f"forced actions ran: {forced}")
+    check(np.array_equal(p.tokens, want[p.rid]) and p.preemptions >= 1,
+          f"force-preempted request {p.rid}: tokens differ from the oracle's")
+    check(c.cancelled and 0 < len(c.tokens) < c.max_new_tokens
+          and np.array_equal(c.tokens, want[c.rid][:len(c.tokens)]),
+          f"cancelled request {c.rid}: {len(c.tokens)} tokens, not a prefix "
+          f"of the oracle's")
+    for r in reqs:
+        check(chunks[r.rid] == [int(x) for x in r.tokens],
+              f"forced serve: request {r.rid}'s chunks")
+        if r is not c:
+            check(np.array_equal(r.tokens, want[r.rid]),
+                  f"forced serve: request {r.rid}'s tokens differ")
+    check(eng._alloc.n_free == eng.n_pages and not eng.busy,
+          "forced serve: pages left held")
+    print(f"  forced preempt of request {p.rid} (its tokens equal the "
+          f"oracle's) and cancel of request {c.rid} (its {len(c.tokens)} "
+          f"tokens a prefix of the oracle's {len(want[c.rid])}); "
+          f"{df['preemptions']} preemptions in that serve")
+    del eng
+    prefill_eng = engine(**knobs)
+    reqs_c, chunks_c, dc, _, _ = serve(prefill_eng)
+    check_pressure_serve(prefill_eng, "prefill pressure serve", reqs_c,
+                         chunks_c, dc)
+    check(dc["prefill_dispatches"] > 0 and dc["preemptions"] > 0,
+          f"prefill pressure serve: {dc}")
+    del prefill_eng
+    ref = engine()
+    reqs_d, _, _, _, _ = serve(ref)
+    del ref
+    same = sum(np.array_equal(a.tokens, b.tokens)
+               for a, b in zip(reqs_c, reqs_d))
+    print(f"  prefill variant (chunk_threshold None, the pressure knobs): "
+          f"counts {{{', '.join(f'{k}: {dc[k]}' for k in PRESSURE_COUNTS)}}}"
+          f"; {same} of {len(stream)} requests' tokens equal a worst-case "
+          f"prefill serve's (not a gate: a replayed or staged prompt's KV "
+          f"comes from the fused decode kernel, a prefilled one's from "
+          f"flash prefill, and in bf16 the two differ in their last bits)")
+    torch.cuda.empty_cache()
+    print(f"  phase launches {launches}")
+    return dict(launches=launches, tok_s=med, tok_s_all=rates, seg_ms=seg_ms,
+                replay_us=replay_us, peak_gb=peak_gb,
+                resident_gb=resident_gb, counts=counts,
+                prefill_counts={k: dc[k] for k in PRESSURE_COUNTS},
+                prefill_same=same, oracle_steps=sa["decode_steps"])
+
+
+# ---------------------------------------------------------------------------
 
 
 def main() -> int:
@@ -1582,6 +1830,14 @@ def main() -> int:
     for k in kernels:
         k["launches"] += cp["launches"][k["name"]]
     print(f"  phase 5 took {time.perf_counter() - t0:.1f} s")
+
+    t0 = time.perf_counter()
+    print("phase 6: admission under pressure (llama3.2-1b bf16, full width: "
+          "staging ring, optimistic admission, preemption, streaming)")
+    pressure = phase_pressure(torch, dev, *bf16.pop("llama"), card)
+    for k in kernels:
+        k["launches"] += pressure["launches"][k["name"]]
+    print(f"  phase 6 took {time.perf_counter() - t0:.1f} s")
     print(f"all phases passed in {time.perf_counter() - t_start:.1f} s")
     for k in kernels:
         print(f"kernel {k['name']}: {k['launches']} main-path launches, "

@@ -10,6 +10,9 @@ dispatch counts:
         --arch whisper-base --device cpu --reduced
     PYTHONPATH=src python -m repro_torch.launch.serve --real-engine \\
         --device cpu --reduced --chunk-threshold 12
+    PYTHONPATH=src python -m repro_torch.launch.serve --real-engine \\
+        --device cpu --reduced --n-pages 24 --stage-slots 4 \\
+        --admission optimistic --preempt-policy lru
 
 ``--arch`` takes llama3.2-1b (dense), whisper-base (audio) and
 llama-3.2-vision-90b (vlm). On CUDA the config selects the kernel impls
@@ -53,7 +56,10 @@ def _real_engine_demo(arch: str, n_reqs: int, slots: int,
                       page_size: int = 16, quantize: str = "none",
                       device="cuda", reduced: bool = False,
                       max_len: int = 64, seed: int = 0,
-                      chunk_threshold: Optional[int] = None) -> dict:
+                      chunk_threshold: Optional[int] = None,
+                      n_pages: Optional[int] = None, stage_slots: int = 0,
+                      admission: str = "worstcase",
+                      preempt_policy: str = "slack") -> dict:
     dev = resolve_device(device)
     base = ARCHS[arch].reduced() if reduced else ARCHS[arch]
     if quantize != "none" and base.family != "dense":
@@ -70,7 +76,9 @@ def _real_engine_demo(arch: str, n_reqs: int, slots: int,
         params = quantize_params_dense(params)
     eng = ServingEngine(model, params, max_batch=slots, max_len=max_len,
                         decode_block=16, page_size=page_size,
-                        chunk_threshold=chunk_threshold)
+                        n_pages=n_pages, chunk_threshold=chunk_threshold,
+                        stage_slots=stage_slots, admission=admission,
+                        preempt_policy=preempt_policy)
     rng = np.random.default_rng(seed)
     reqs = [Request(rid=i,
                     prompt=rng.integers(0, cfg.vocab,
@@ -94,8 +102,15 @@ def _real_engine_demo(arch: str, n_reqs: int, slots: int,
           f"{s['decode_dispatches']} dispatches, "
           f"{s['decode_traces']} captured step graphs, peak "
           f"{s['peak_concurrency']} slots, {s['chunk_admits']} chunked "
-          f"admits, segment occupancy "
+          f"admits, {s['inseg_admissions']} in-segment admits, "
+          f"{s['preemptions']} preemptions, segment occupancy "
           f"{eng.occupancy['slot_busy_frac']:.2f})")
+    if eng.admission == "optimistic" or eng.stage_slots:
+        print(f"  admission {eng.admission} (victims by "
+              f"{eng.preempt_policy}), staging ring {eng.stage_slots}: "
+              f"{s['staged']} staged, {s['preempt_readmits']} preempted "
+              f"requests re-admitted, {s['pressure_stalls']} pressure "
+              f"stalls")
     return {"tokens": toks, "wall_s": wall, "stats": dict(s)}
 
 
@@ -109,6 +124,22 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
     ap.add_argument("--page-size", type=int, default=16,
                     help="paged KV page size in positions (the contiguous "
                          "layout is not ported)")
+    ap.add_argument("--n-pages", type=int, default=None,
+                    help="paged KV pool size in pages (default: every slot "
+                         "at max_len)")
+    ap.add_argument("--stage-slots", type=int, default=0,
+                    help="in-segment admission: device staging ring "
+                         "capacity (0 = boundary-only admission; clamped "
+                         "off for audio and vlm)")
+    ap.add_argument("--admission", choices=["worstcase", "optimistic"],
+                    default="worstcase",
+                    help="paged admission control: reserve worst-case "
+                         "pages, or admit on expected usage and preempt "
+                         "under pressure (dense only)")
+    ap.add_argument("--preempt-policy", choices=["slack", "lru"],
+                    default="slack",
+                    help="optimistic-admission victim choice: most SLO "
+                         "slack, or the most recently admitted")
     ap.add_argument("--quantize", choices=["none", "int8"], default="none")
     ap.add_argument("--chunk-threshold", type=int, default=None,
                     help="chunk prompts longer than this through the "
@@ -125,7 +156,10 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
     _real_engine_demo(args.arch, args.real_reqs, args.real_slots,
                       page_size=args.page_size, quantize=args.quantize,
                       device=args.device, reduced=args.reduced,
-                      chunk_threshold=args.chunk_threshold)
+                      chunk_threshold=args.chunk_threshold,
+                      n_pages=args.n_pages, stage_slots=args.stage_slots,
+                      admission=args.admission,
+                      preempt_policy=args.preempt_policy)
 
 
 if __name__ == "__main__":

@@ -42,11 +42,20 @@ the per-variant engine map is an LRU.
 
 The port's engine pages its KV cache and refuses the contiguous layout, so
 ``page_size`` defaults to 16 here (``repro``'s default ``None`` is the
-contiguous layout). ``chunk_threshold`` reaches every engine (chunked
-prefill; the engine clamps it off for the audio and vlm families). The
-engine knobs this slice lacks — in-segment admission, optimistic admission and its victim policy, the
-prefix cache and its eviction policy, streaming, speculation, host swap,
-deadline enforcement and the threaded runtime's fault sites — raise
+contiguous layout). ``chunk_threshold``, ``stage_slots``, ``admission``,
+``preempt_policy`` and ``stream`` reach every engine (the engine clamps the
+first three off for the audio and vlm families): chunked prefill,
+in-segment admission and optimistic admission with preemption run under
+the full control plane. ``ExecRequest.slo`` reaches each engine
+``Request``, for the slack policy's victim choice; each run's record in
+``occupancy_log`` (the executor's decision log) carries its slot-busy
+fraction, in-segment admissions per segment, preemptions and pressure
+stalls; ``on_report`` says whether a query's work was preempted or cut
+short; with ``stream`` set, each step's partial outputs go to the
+queries' ``on_tokens`` sinks. The knobs this slice lacks — the prefix
+cache and its eviction policy, speculation, host swap, deadline
+enforcement (only the wall-clock runtime, not ported, calls
+``cancel_overdue``) and the threaded runtime's fault sites — raise
 ``NotImplementedError`` by name when the executor is built.
 """
 from __future__ import annotations
@@ -103,15 +112,9 @@ class EngineExecutorConfig:
     def unported(self) -> List[str]:
         """The knobs set away from their defaults that this slice lacks."""
         knobs = {
-            "stage_slots > 0 (in-segment admission)": bool(self.stage_slots),
-            "admission='optimistic' (preemption)":
-                self.admission != "worstcase",
-            f"preempt_policy={self.preempt_policy!r}":
-                self.preempt_policy != "slack",
             "prefix_cache": bool(self.prefix_cache),
             f"prefix_evict={self.prefix_evict!r}":
                 self.prefix_evict != "lru",
-            "stream": bool(self.stream),
             "speculate": self.speculate is not None,
             "swap": self.swap is not None,
             "swap_budget_bytes": self.swap_budget_bytes is not None,
@@ -155,6 +158,9 @@ class EngineExecutor:
         # like `observations`
         self.occupancy_log: Deque[Dict[str, Any]] = \
             deque(maxlen=max(cfg.obs_window * 8, 256))
+        # monotone total of pressure events (preemptions + stalls) ever
+        # logged: the bounded log above drops its oldest entries
+        self.pressure_events_total: float = 0.0
         self._models = model_cache if model_cache is not None else {}
         self._rid = itertools.count()
         # serializes run() (engines, observations, occupancy_log)
@@ -217,7 +223,11 @@ class EngineExecutor:
                 min_bucket=self.cfg.min_bucket,
                 page_size=self.cfg.page_size,
                 n_pages=self.cfg.n_pages,
-                chunk_threshold=self.cfg.chunk_threshold)
+                chunk_threshold=self.cfg.chunk_threshold,
+                stage_slots=self.cfg.stage_slots,
+                admission=self.cfg.admission,
+                preempt_policy=self.cfg.preempt_policy,
+                stream=self.cfg.stream)
             eng.warmup(prompt_lens=[self.cfg.prompt_len])
         # dict order doubles as the LRU list: reinsert on every access
         self.engines[variant.name] = eng
@@ -228,10 +238,9 @@ class EngineExecutor:
         return (np.arange(self.cfg.prompt_len, dtype=np.int64)
                 % vocab).astype(np.int32)
 
-    # the engine counters the decision log reads (the reference's log also
-    # carries preemption, prefix-cache, speculation and swap counters,
-    # which the port's engine does not have yet)
-    _OCC_KEYS = ("busy_slot_steps", "bubble_slot_steps", "decode_dispatches")
+    _OCC_KEYS = ("busy_slot_steps", "bubble_slot_steps",
+                 "inseg_admissions", "decode_dispatches", "preemptions",
+                 "pressure_stalls")
 
     def _make_requests(self, er: ExecRequest, vocab: int,
                        t0: float) -> List[Request]:
@@ -240,37 +249,65 @@ class EngineExecutor:
             return [Request(rid=next(self._rid),
                             prompt=np.asarray(p, np.int32),
                             max_new_tokens=max(er.max_new_tokens, 1),
-                            arrival=t0)
+                            arrival=t0, slo=er.slo)
                     for p in er.prompts]
         return [Request(rid=next(self._rid),
                         prompt=self._synthetic_prompt(vocab),
-                        max_new_tokens=self.cfg.max_new, arrival=t0)
+                        max_new_tokens=self.cfg.max_new, arrival=t0,
+                        slo=er.slo)
                 for _ in range(max(er.n_inputs, 1))]
+
+    @staticmethod
+    def _pump_stream(eng: ServingEngine,
+                     sinks: Dict[int, Tuple[ExecRequest, int]]) -> int:
+        """Forward freshly harvested partial outputs to their queries'
+        ``on_tokens`` sinks (no-op on non-streaming engines). Returns the
+        number of chunks delivered."""
+        if not eng.stream:
+            return 0
+        n = 0
+        for r, toks, t in eng.drain_partial_outputs():
+            ent = sinks.get(id(r))
+            if ent is not None:
+                er, idx = ent
+                if er.on_tokens is not None:
+                    er.on_tokens(idx, toks, t)
+                    n += 1
+        return n
 
     def _record_occupancy(self, variant: Variant, batch: int, dt: float,
                           occ0: Dict[str, int],
                           eng: ServingEngine) -> None:
-        # decision-log entry: per-run occupancy of the decode segments
-        d = {k: eng.stats[k] - occ0[k] for k in occ0}
+        # decision-log entry: per-run occupancy of the decode segments and
+        # what the packing cost in preempted work
+        d = {k: eng.stats.get(k, 0) - occ0[k] for k in occ0}
         total = d["busy_slot_steps"] + d["bubble_slot_steps"]
+        segs = d["decode_dispatches"]
         self.occupancy_log.append({
             "variant": variant.name, "batch": int(batch),
-            "service_s": dt, "segments": d["decode_dispatches"],
+            "service_s": dt, "segments": segs,
             "slot_busy_frac":
                 d["busy_slot_steps"] / total if total else 0.0,
+            "admissions_per_segment":
+                d["inseg_admissions"] / segs if segs else 0.0,
             "bubble_slot_steps": d["bubble_slot_steps"],
+            "preemptions": d["preemptions"],
+            "pressure_stalls": d["pressure_stalls"],
         })
+        self.pressure_events_total += \
+            d["preemptions"] + d["pressure_stalls"]
 
     @staticmethod
     def _deliver(er: ExecRequest, ers: List[Request]) -> None:
-        """Hand a finished group's tokens and degradation report back.
-        Worst-case admission never preempts and nothing cancels a slot, so
-        no query completes degraded."""
+        """Hand a finished group's tokens and degradation report back: a
+        query whose requests were preempted (and recovered) completed
+        degraded, one cut short timed out."""
         if er.on_outputs is not None:
             er.on_outputs([np.asarray(r.tokens, np.int32) for r in ers])
         if er.on_report is not None:
-            er.on_report({"preemptions": 0, "degraded": False,
-                          "timed_out": False})
+            npre = sum(r.preemptions for r in ers)
+            er.on_report({"preemptions": npre, "degraded": npre > 0,
+                          "timed_out": any(r.cancelled for r in ers)})
 
     def _observe(self, variant: Variant, n: int, dt: float) -> None:
         """Fold one synthetic-batch measurement into the t(b) fit."""
@@ -287,7 +324,8 @@ class EngineExecutor:
         (or synthetic stand-ins) become engine Requests; return the
         measured service time, hand generated tokens back through each
         request's ``on_outputs`` sink, and fold the measurement into the
-        variant's profile."""
+        variant's profile. With ``cfg.stream`` set, partial outputs go to
+        each request's ``on_tokens`` sink after every engine step."""
         with self._lock:
             eng = self._engine(variant)
             vocab = self.arch_cfgs[variant.arch].vocab
@@ -300,17 +338,22 @@ class EngineExecutor:
             if real_lens:
                 eng.warmup(prompt_lens=real_lens)
             groups: List[Tuple[ExecRequest, List[Request]]] = []
-            occ0 = {k: eng.stats[k] for k in self._OCC_KEYS}
+            # .get: a duck-typed engine stand-in need not carry every
+            # counter (absent == zero)
+            occ0 = {k: eng.stats.get(k, 0) for k in self._OCC_KEYS}
             t0 = time.perf_counter()
+            sinks: Dict[int, Tuple[ExecRequest, int]] = {}
             for er in requests:
                 ers = self._make_requests(er, vocab, t0)
-                for r in ers:
+                for i, r in enumerate(ers):
                     eng.submit(r)
+                    sinks[id(r)] = (er, i)
                 groups.append((er, ers))
             # every engine step ends in its host sync, so dt covers the
             # device work
             while eng.busy:
                 eng.step()
+                self._pump_stream(eng, sinks)
             eng.drain_completions()
             dt = time.perf_counter() - t0
             self._record_occupancy(variant, batch, dt, occ0, eng)

@@ -633,3 +633,141 @@ def test_cuda_capture_leaves_pools_and_slots_bit_identical(arch):
     while eng.busy:
         eng.step()
     assert eng._alloc.n_free == eng.n_pages
+
+
+# ----------------------------------------------------------------------
+# the staging ring and preemption inside the captured step
+
+PRESSURE = dict(stage_slots=2, admission="optimistic", n_pages=6,
+                chunk_threshold=0, stream=True)
+
+
+def _pressure_stream(n=10, seed=11):
+    rng = np.random.default_rng(seed)
+    return [(rng.integers(0, 256, size=int(rng.integers(3, 10))
+                          ).astype(np.int32), int(rng.integers(6, 13)))
+            for _ in range(n)]
+
+
+def _serve(eng, stream, forced=()):
+    """Serve ``stream`` on a warm engine, applying ``forced`` actions
+    (step index, "preempt" | "cancel", slot) between steps; returns the
+    requests and each request's streamed chunks."""
+    reqs = [Request(rid=i, prompt=p, max_new_tokens=k)
+            for i, (p, k) in enumerate(stream)]
+    for r in reqs:
+        eng.submit(r)
+    chunks = {r.rid: [] for r in reqs}
+    n = 0
+    while eng.busy:
+        eng.step()
+        for at, what, slot in forced:
+            if at == n and eng._slot_req[slot] is not None:
+                getattr(eng, what)(slot)
+        n += 1
+        for r, toks, _t in eng.drain_partial_outputs():
+            chunks[r.rid].extend(toks)
+    eng.drain_completions()
+    return reqs, chunks
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("quant", ["none", "int8"])
+def test_cuda_pressure_serve_graph_matches_uncaptured_and_oracle(quant):
+    """The staging ring and preemption inside the captured step: with
+    every prompt teacher-forced (``chunk_threshold`` 0), an optimistic,
+    staged, streaming serve on a pool of a quarter of the slots' worst
+    case gives the tokens of a worst-case serve bit for bit, its counts
+    show refills and preemptions, every decode step is a replay of one
+    graph, and an uncaptured engine with the same knobs gives the same
+    tokens, counts and launches."""
+    dev = _need_cuda()
+    m, params = _kernel_llama(dev, quant)
+    stream = _pressure_stream()
+    geo = dict(max_batch=4, max_len=64, decode_block=4, min_bucket=4,
+               page_size=8)
+    oracle = ServingEngine(m, params, chunk_threshold=0, **geo)
+    oracle.warmup()
+    want, _ = _serve(oracle, stream)
+    runs = []
+    for cls in (ServingEngine, _Uncaptured):
+        eng = cls(m, params, **dict(geo, **PRESSURE))
+        eng.warmup()
+        build.reset_launch_counts()
+        reqs, chunks = _serve(eng, stream)
+        torch.cuda.synchronize(dev)
+        runs.append((reqs, chunks, dict(eng.stats),
+                     dict(build.launch_counts)))
+        assert eng._alloc.n_free == eng.n_pages
+        assert eng._alloc.committed == 0
+    (rg, cg, sg, lg), (ru, _cu, su, lu) = runs
+    for a, b, c in zip(want, rg, ru):
+        np.testing.assert_array_equal(b.tokens, a.tokens, err_msg=str(a.rid))
+        np.testing.assert_array_equal(c.tokens, a.tokens, err_msg=str(a.rid))
+        assert cg[b.rid] == [int(x) for x in b.tokens]
+    assert sg["inseg_admissions"] > 0 and sg["pressure_stalls"] > 0
+    assert sg["preempt_readmits"] == sg["preemptions"] > 0
+    assert sg["decode_traces"] == 1
+    assert sg["graph_replays"] == sg["decode_steps"] > 0
+    for key in ("staged", "inseg_admissions", "preemptions",
+                "preempt_readmits", "pressure_stalls", "decode_dispatches",
+                "decode_steps", "busy_slot_steps", "chunk_admits"):
+        assert sg[key] == su[key], key
+    assert lg == lu and lg["fused_paged_decode_attention"] > 0
+
+
+@pytest.mark.cuda
+def test_cuda_forced_preempt_and_cancel_on_graphed_engine():
+    """A forced ``preempt`` and a ``cancel`` between replays: the preempted
+    request's tokens equal the oracle's, the cancelled one's are a prefix
+    of them, and the pool drains."""
+    dev = _need_cuda()
+    m, params = _kernel_llama(dev)
+    stream = _pressure_stream(n=6)
+    geo = dict(max_batch=2, max_len=64, decode_block=4, min_bucket=4,
+               page_size=8, chunk_threshold=0)
+    oracle = ServingEngine(m, params, **geo)
+    oracle.warmup()
+    want, _ = _serve(oracle, stream)
+    eng = ServingEngine(m, params, stage_slots=2, stream=True, **geo)
+    eng.warmup()
+    got, chunks = _serve(eng, stream, forced=[(1, "preempt", 0),
+                                              (2, "cancel", 1)])
+    assert eng.stats["decode_traces"] == 1
+    assert eng.stats["graph_replays"] == eng.stats["decode_steps"]
+    cut = [r for r in got if r.cancelled]
+    assert len(cut) == 1 and eng.stats["preemptions"] == 1
+    for a, b in zip(want, got):
+        n = len(b.tokens)
+        np.testing.assert_array_equal(b.tokens, a.tokens[:n])
+        assert n == len(a.tokens) or b.cancelled
+        assert chunks[b.rid] == [int(x) for x in b.tokens]
+    assert eng._alloc.n_free == eng.n_pages
+
+
+@pytest.mark.cuda
+def test_cuda_capture_mid_pressure_serve_leaves_ring_and_log_intact():
+    """A capture taken while requests are staged and live changes no bit
+    of any pool, the slot state, the ring or the completion log."""
+    dev = _need_cuda()
+    m, params = _kernel_llama(dev)
+    eng = ServingEngine(m, params, max_batch=2, max_len=64, decode_block=4,
+                        min_bucket=4, page_size=8, **PRESSURE)
+    for i, (p, k) in enumerate(_pressure_stream(n=6)):
+        eng.submit(Request(rid=i, prompt=p, max_new_tokens=k))
+    eng.step()
+    eng._sync_ring()
+    assert eng._staged and int(eng._n_stage.item()) == len(eng._staged)
+    state = lambda: [t.clone() for t in (  # noqa: E731
+        *eng._cache.values(), eng._tok, eng._pos, eng._rem_dev,
+        eng._plen_dev, eng._pbuf, eng._ring, eng._rb, eng._step_i,
+        eng._bt_dev)]
+    before = state()
+    eng._graph = None
+    eng._capture()
+    torch.cuda.synchronize(dev)
+    for a, b in zip(before, state()):
+        assert torch.equal(a, b)
+    while eng.busy:
+        eng.step()
+    assert eng._alloc.n_free == eng.n_pages

@@ -103,9 +103,8 @@ def test_open_loop_submit_step_drain():
 
 
 @pytest.mark.parametrize("knob", [
-    dict(page_size=None), dict(stage_slots=2),
-    dict(admission="optimistic"), dict(prefix_cache=True),
-    dict(swap="host"), dict(speculate=("draft", None)), dict(stream=True)])
+    dict(page_size=None), dict(prefix_cache=True), dict(swap="host"),
+    dict(speculate=("draft", None))])
 def test_unported_knobs_raise(knob):
     tm = t_build(T_ARCHS["llama3.2-1b"].reduced(), device="cpu")
     with pytest.raises(NotImplementedError, match="not ported"):

@@ -12,8 +12,9 @@
   ``VariantTarget`` payload queries, the port's executor serving the JAX
   executor's own weights (fp and int8 trees, carried by
   ``convert.params_from_jax``); the tokens must be equal.
-* The executor knobs this slice lacks raise by name, and a real cluster
-  asks for CUDA unless told otherwise.
+* The admission knobs and the query's SLO reach the engines, streamed
+  chunks reach the query; the executor knobs this slice lacks raise by
+  name, and a real cluster asks for CUDA unless told otherwise.
 """
 import dataclasses
 
@@ -312,9 +313,7 @@ def test_engine_executor_paged_knobs_reach_engines():
 
 
 @pytest.mark.parametrize("knob,value", [
-    ("stage_slots", 2), ("admission", "optimistic"),
-    ("preempt_policy", "lru"), ("prefix_cache", True),
-    ("prefix_evict", "fifo"), ("stream", True), ("speculate", "int8:2"),
+    ("prefix_cache", True), ("prefix_evict", "fifo"), ("speculate", "int8:2"),
     ("swap", "host"), ("swap_budget_bytes", 1 << 20),
     ("deadline_enforce", True), ("faults", object())])
 def test_unported_executor_knobs_raise_by_name(knob, value):
@@ -344,6 +343,33 @@ def test_executor_passes_chunk_threshold_to_its_engines():
     assert len(outs) == 1 and len(outs[0]) == len(prompts)
     for a, b in zip(outs[0], want):
         np.testing.assert_array_equal(a, b)
+
+
+def test_executor_passes_admission_knobs_and_slo_to_its_engines():
+    """``stage_slots``, ``admission``, ``preempt_policy`` and ``stream``
+    reach the engine, ``ExecRequest.slo`` each engine request, and the
+    streamed chunks reach the query's ``on_tokens`` sink in order,
+    concatenating to its outputs."""
+    ex = _executor(max_batch=2, max_len=32, decode_block=2, page_size=8,
+                   n_pages=4, stage_slots=2, admission="optimistic",
+                   preempt_policy="lru", stream=True)
+    v = next(iter(prof.generate_variants(LLAMA)))
+    ex.run(v, 1)                                # builds the engine
+    eng = ex.engines[v.name]
+    assert (eng.stage_slots, eng.admission, eng.preempt_policy,
+            eng.stream) == (2, "optimistic", "lru", True)
+    seen, outs, chunks = [], [], []
+    submit = eng.submit
+    eng.submit = lambda r: (seen.append(r), submit(r))
+    ex.run(v, len(PROMPTS), [ExecRequest(
+        n_inputs=len(PROMPTS), prompts=PROMPTS, max_new_tokens=MAX_NEW,
+        slo=3.0, on_outputs=outs.append,
+        on_tokens=lambda i, toks, t: chunks.append((i, list(toks))))])
+    assert [r.slo for r in seen] == [3.0] * len(PROMPTS)
+    for i, out in enumerate(outs[0]):
+        assert [t for j, ts in chunks if j == i for t in ts] == \
+            [int(x) for x in out]
+    assert ex.occupancy_log[-1]["admissions_per_segment"] >= 0.0
 
 
 def test_real_cluster_asks_for_cuda_unless_told_otherwise():
