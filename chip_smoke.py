@@ -32,8 +32,11 @@ fails:
    length, two calls give the same bits, and whisper-base's published 1500
    encoder frames (96 pages: 8 spans of 192 rows) with slots at 1500, 1025
    and on a page boundary; contiguous decode: ragged T = 1601, valid_len
-   < T and 0; the int8 GEMM at M in {1, 8, 8 x bucket} and N not a
-   multiple of the tile).
+   < T and 0, and per-slot device lengths over T = 512 at G = 4 and at
+   whisper-base's G = 1 (0, 1, a 64-row tile edge, T, mixed, and
+   whisper's prompt-bucket encoder lengths), which must also give the
+   fused paged kernel's bits on the same rows; the int8 GEMM at M in {1,
+   8, 8 x bucket} and N not a multiple of the tile).
    Each attention kernel is held twice: to the plain version on the bf16
    inputs, and, tightly, to the plain version on the same inputs widened
    to f32 (probabilities in f32, as the kernels and the Pallas bodies keep
@@ -114,6 +117,30 @@ fails:
    flash prefill, which differ in bf16. Prints tok/s (median of 3 serves,
    quartiles), the segment time, the replay host time a step, peak memory
    and the counts beside the card.
+
+7. **Prefix cache, host swap, contiguous layout**, on phase 3's
+   llama3.2-1b bf16 model and params, each on the captured step. The
+   shared-prefix serve: 32 requests on 4 seeded templates of 256 tokens
+   (suffixes 8-40, 16-64 new tokens, one prompt exactly its template), 8
+   slots, ``max_len`` 512, 256 pages, ``chunk_threshold`` 0, served 3
+   times with ``prefix_cache`` off and 3 times on, each on a fresh engine
+   (an empty cache): the tokens must be equal bit for bit, each prefix-on
+   serve must show the same hits, skipped positions and a copy on write,
+   and every page must be free or cached after a serve; a fourth serve on
+   the last prefix-on engine, over the pages it cached, is printed on its
+   own line as the warm repeat; the prefill variant's share of equal
+   tokens is printed, not gated. The
+   swap serve: phase 6's pressure configuration with ``swap="host"``, 3
+   serves, each forcing a preempt of a slot past its prompt feed, which
+   must swap out and back in, with phase 6's oracle tokens and as many
+   swaps in as out; then the same serve with a budget below one page,
+   which must fall back to recompute, with the oracle's tokens. The
+   contiguous serve (``page_size=None``) on phase 3's stream,
+   5 serves with phase 3's paged tokens bit for bit, and a profiled serve
+   whose decode is the contiguous kernel's tensor-core body once a layer a
+   step, never the fused paged kernel; whisper-base contiguous against its
+   paged serve. Phase 4 adds the contiguous cache's f32 teacher-forced
+   logits (llama3.2-1b, whisper-base) against the paged run's.
 
 The last lines are the card's ``name, power.limit``, one JSON line with
 every kernel's numbers, and the result line
@@ -753,11 +780,113 @@ def phase_decode(torch, dev, gen, B=8, K=8, G=8, D=128, T=1601):
     print(f"  decode_attention {shape} bf16: {ms:.4f} ms (plain "
           f"{plain_ms:.4f}, SDPA {lib_ms:.4f}, bound {b_ms:.5f} by {b_by}); "
           f"host {h_us:.1f} us a call")
+    # per-slot lengths: llama3.2-1b's contiguous self-attention (G = 4),
+    # whisper-base's contiguous self- and cross-attention (G = 1)
+    per_slot = [phase_decode_per_slot(torch, dev, gen),
+                phase_decode_per_slot(torch, dev, gen, G=1,
+                                      lens_lists=PER_SLOT_LENS + [ENC_LENS])]
+    worst = max([worst] + [p.pop("max_abs_err") for p in per_slot])
     return dict(name="decode_attention", route="cuda",
                 source="src/repro_torch/csrc/decode_attention.cu",
                 replaces="src/repro/kernels/decode_attention.py:109",
                 max_abs_err=worst, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
-                bound_by=b_by, library_ms=lib_ms, host_us=h_us, shape=shape)
+                bound_by=b_by, library_ms=lib_ms, host_us=h_us, shape=shape,
+                other_shapes=per_slot)
+
+
+# per-slot lengths of the contiguous kernel: nothing to attend, one row, a
+# 64-row tile edge, all T = 512 rows, and mixed; then phase 2's fused
+# decode positions (+ 1), to hold the kernel to the fused paged kernel's
+# bits on the same rows and time the two side by side
+PER_SLOT_LENS = [[0, 1, 64, 512, 65, 128, 300, 511],
+                 [512] * 8, [1] * 8, [p + 1 for p in FUSED_POS]]
+# whisper-base's contiguous cross-attention lengths: each slot's enc_len is
+# its admission's prompt bucket (16 to 512 rows of T = max_len = 512), 0 in
+# a slot never admitted
+ENC_LENS = [16, 32, 64, 128, 256, 512, 0, 256]
+
+
+def phase_decode_per_slot(torch, dev, gen, B=8, K=8, G=4, D=64, ps=16,
+                          P=32, lens_lists=PER_SLOT_LENS):
+    """The contiguous kernel's per-slot form ((B,) device lengths, the
+    fused kernel's span plan) over T = max_len = 512 rows, at llama3.2-1b's
+    G = 4 (the contiguous layout's self-attention) or whisper-base's G = 1
+    (its contiguous self- and cross-attention): against its plain version
+    (bf16 tolerance and the f32 ulp rule), two calls the same bits, zeros
+    at length 0, and the fused paged kernel's output bits on the same rows
+    behind an identity block table; timed beside the fused kernel on those
+    rows."""
+    from repro_torch.kernels.decode_attention import (
+        contiguous_plan, decode_attention, decode_attention_plain,
+        fused_paged_decode_attention)
+    tol = 3e-2
+    T = P * ps
+    q = torch.randn((B, K, G, D), generator=gen, device=dev).bfloat16()
+    k = torch.randn((B, T, K, D), generator=gen, device=dev).bfloat16()
+    v = torch.randn((B, T, K, D), generator=gen, device=dev).bfloat16()
+    kp = torch.zeros((B * P + 1, ps, K, D), dtype=k.dtype, device=dev)
+    vp = torch.zeros_like(kp)
+    kp[:B * P] = k.reshape(B * P, ps, K, D)
+    vp[:B * P] = v.reshape(B * P, ps, K, D)
+    bt = torch.arange(B * P, dtype=torch.int32, device=dev).reshape(B, P)
+    rows = torch.arange(B, device=dev)
+    worst = 0.0
+    for lens_list in lens_lists:
+        lens = torch.tensor(lens_list, dtype=torch.int32, device=dev)
+        out = decode_attention(q, k, v, lens)
+        again = decode_attention(q, k, v, lens)
+        want = decode_attention_plain(q, k, v, lens)
+        want32 = decode_attention_plain(q.float(), k.float(), v.float(),
+                                        lens)
+        pos = (lens - 1).clamp(min=0)
+        kn = k[rows, pos.long()].contiguous()
+        vn = v[rows, pos.long()].contiguous()
+        paged, _, _ = fused_paged_decode_attention(q, kn, vn, kp, vp, bt,
+                                                   pos)
+        torch.cuda.synchronize()
+        live = lens > 0
+        err = (out[live].float() - want[live].float()).abs().max().item()
+        what = f"decode_attention per slot G={G} {lens_list}"
+        check(err <= tol, f"{what}: {err}")
+        check(torch.equal(out, again), f"{what}: two calls differ")
+        check(not out[~live].any(), f"{what}: length 0 not zeros")
+        check_f32_ulps(torch, out[live], want32[live], what)
+        check(torch.equal(out[live], paged[live]),
+              f"{what}: bits differ from the fused paged kernel's on the "
+              f"same rows")
+        worst = max(worst, err)
+    _, _, n_split, split = contiguous_plan(q, T, lens, "mma")
+    print(f"  decode_attention per slot, B={B} K={K} G={G} D={D} T={T}: "
+          f"{n_split} spans of {split} rows (the fused kernel's plan); "
+          f"{len(lens_lists)} length lists; max_abs_err {worst:.3e} (tol "
+          f"{tol}); the same bits as the fused paged kernel on the same "
+          f"rows at every length")
+    lens = torch.tensor(PER_SLOT_LENS[-1], dtype=torch.int32, device=dev)
+    pos = lens - 1
+    kn, vn = k[rows, pos.long()].contiguous(), v[rows, pos.long()].contiguous()
+    ms = cuda_ms(lambda: decode_attention(q, k, v, lens))
+    h_us = host_us(lambda: decode_attention(q, k, v, lens))
+    fused_ms = cuda_ms(lambda: fused_paged_decode_attention(
+        q, kn, vn, kp, vp, bt, pos))
+    plain_ms = cuda_ms(lambda: decode_attention_plain(q, k, v, lens))
+    mask = (torch.arange(T, device=dev)[None, :] < lens[:, None].long())
+    qh = q.reshape(B, K * G, 1, D)
+    kh, vh = k.transpose(1, 2).contiguous(), v.transpose(1, 2).contiguous()
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    lib_ms = cuda_ms(lambda: sdpa(qh, kh, vh, attn_mask=mask[:, None, None],
+                                  enable_gqa=True))
+    n_rows = int(lens.sum())
+    n_bytes = 2 * (2 * n_rows * K * D + 2 * q.numel()) + 4 * B
+    n_flops = 4 * K * G * D * n_rows
+    b_ms, b_by = bound(n_bytes, n_flops, BF16_FLOPS)
+    shape = f"B={B} K={K} G={G} D={D} T={T}, per-slot lengths {lens.tolist()}"
+    print(f"  decode_attention per slot {shape} bf16: {ms:.4f} ms (fused "
+          f"paged on the same rows {fused_ms:.4f}, plain {plain_ms:.4f}, "
+          f"SDPA with a mask {lib_ms:.4f}, bound {b_ms:.5f} by {b_by}); "
+          f"host {h_us:.1f} us a call")
+    return dict(shape=shape, ms=ms, fused_ms=fused_ms, plain_ms=plain_ms,
+                bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms,
+                host_us=h_us, max_abs_err=worst)
 
 
 def time_int8(torch, x, w_q, s):
@@ -1021,6 +1150,7 @@ def serve_variant(torch, dev, model, params, stream, label, repeats,
           f"({toks / eager_wall:.1f} tok/s), mean decode segment "
           f"{eager_seg_ms:.2f} ms")
     return dict(tok_s=med, tok_s_all=rates, spread=spread, tokens=toks,
+                served=first_tokens,
                 launches=launches, stats=s, seg_ms=seg_ms,
                 prefill_s=timing["prefill_s"], peak_gb=peak_gb,
                 replay_us=replay_us, step_ms=step_ms,
@@ -1199,7 +1329,8 @@ def phase_main_path(torch, dev):
     qcfg = dataclasses.replace(base, quantize="int8").for_device(dev)
     check(qcfg.quantize == "int8_cuda", "config did not select the int8 GEMM")
     qparams = quantize_params_dense(params)
-    # phase 6 serves the bf16 model again; it frees the params after
+    # phases 6 and 7 serve the bf16 model again; main frees the params
+    # after them
     bf16["llama"] = (model, params, stream)
     qmodel = build_model(qcfg, dev)
     int8 = serve_variant(torch, dev, qmodel, qparams, stream, "int8 variant",
@@ -1257,14 +1388,15 @@ def phase_family(torch, dev, arch, n_layers=None):
 
 
 def teacher_forced(torch, dev, model, params, prompts, lengths, forced,
-                   stub, ps=16, max_len=512):
+                   stub, ps=16, max_len=512, contiguous=False):
     """Logits at each request's last prompt position and at every forced
     decode position, through ``model.prefill`` and ``model.decode``.
 
     Every cache leaf with a sequence axis becomes a page pool (with the
-    kernel layout's trash page) filled through an identity block table;
-    per-slot leaves pass as they are. ``stub`` holds the family's encoder
-    input, if any."""
+    kernel layout's trash page) filled through an identity block table,
+    or, with ``contiguous``, a (.., B, max_len, ..) leaf of the contiguous
+    layout (no block table) holding the prompt's rows; per-slot leaves
+    pass as they are. ``stub`` holds the family's encoder input, if any."""
     from repro_torch.models import kvcache as KV
     B, S = prompts.shape
     P = max_len // ps
@@ -1277,11 +1409,16 @@ def teacher_forced(torch, dev, model, params, prompts, lengths, forced,
         logits, pc = model.prefill(params, dict(stub, tokens=prompts,
                                                 length=lengths))
         out.append(logits[:, -1])
-        cache = {"bt": torch.from_numpy(bt).to(dev)}
+        cache = {} if contiguous else {"bt": torch.from_numpy(bt).to(dev)}
         for name, (dims, dtype) in shapes.items():
             bax, sax = axes[name]
             if sax == -1:
                 cache[name] = pc[name]
+                continue
+            if contiguous:
+                leaf = torch.zeros(dims, dtype=dtype, device=dev)
+                leaf.narrow(sax, 0, pc[name].shape[sax]).copy_(pc[name])
+                cache[name] = leaf
                 continue
             pool = torch.zeros(KV.pool_shape(dims, bax, sax, B * P + 1, ps),
                                dtype=dtype, device=dev)
@@ -1295,13 +1432,28 @@ def teacher_forced(torch, dev, model, params, prompts, lengths, forced,
     return torch.stack(out)                      # (1 + n_dec, B, V)
 
 
-def compare_forced(torch, dev, label, cfg, params, inputs, tol):
+def compare_forced(torch, dev, label, cfg, params, inputs, tol,
+                   contiguous=False):
     """Teacher-forced logits of ``cfg`` with the plain impls and with the
-    kernel impls on the same params and inputs; returns the worst gap."""
+    kernel impls on the same params and inputs; returns the worst gap.
+    With ``contiguous``, the kernel impls also decode over the contiguous
+    layout's cache (the contiguous kernel's per-slot form), which must
+    match the paged kernel run within ``tol`` too."""
     from repro_torch.models import build_model
     runs = [teacher_forced(torch, dev, build_model(c, dev), params, *inputs)
             for c in (cfg, cfg.for_device(dev))]
     plain, kern = runs
+    if contiguous:
+        kcfg = cfg.for_device(dev)
+        cont = teacher_forced(torch, dev, build_model(kcfg, dev), params,
+                              *inputs, contiguous=True)
+        check(bool(torch.isfinite(cont).all()),
+              f"{label} contiguous: non-finite logits")
+        dc = (cont - kern).abs().max().item()
+        print(f"  teacher-forced {label}, contiguous cache (kernel impls) "
+              f"against the paged kernel run: max |diff| {dc:.3e} (tol "
+              f"{tol})")
+        check(dc <= tol, f"teacher-forced {label} contiguous: {dc} > {tol}")
     check(bool(torch.isfinite(kern).all()), f"{label}: non-finite logits")
     d = (kern - plain).abs().amax(dim=(1, 2))
     worst = d.max().item()
@@ -1351,7 +1503,8 @@ def phase_teacher_forced(torch, dev):
     inputs = forced_inputs(torch, dev, base, rng)
     params = build_model(base, dev).init(SEED)
     diffs["llama3.2-1b fp32"] = compare_forced(
-        torch, dev, "llama3.2-1b fp32", base, params, inputs, tol)
+        torch, dev, "llama3.2-1b fp32", base, params, inputs, tol,
+        contiguous=True)
     qcfg = dataclasses.replace(base, quantize="int8")
     diffs["llama3.2-1b int8"] = compare_forced(
         torch, dev, "llama3.2-1b int8", qcfg, quantize_params_dense(params),
@@ -1367,7 +1520,7 @@ def phase_teacher_forced(torch, dev):
         params = build_model(cfg, dev).init(SEED)
         diffs[label] = compare_forced(torch, dev, label, cfg, params,
                                       forced_inputs(torch, dev, cfg, rng),
-                                      tol)
+                                      tol, contiguous=arch == "whisper-base")
         del params
         torch.cuda.empty_cache()
     return diffs
@@ -1725,10 +1878,390 @@ def phase_pressure(torch, dev, model, params, stream, card):
     torch.cuda.empty_cache()
     print(f"  phase launches {launches}")
     return dict(launches=launches, tok_s=med, tok_s_all=rates, seg_ms=seg_ms,
-                replay_us=replay_us, peak_gb=peak_gb,
+                replay_us=replay_us, peak_gb=peak_gb, oracle=want,
+                pressure_steps=d["decode_steps"],
                 resident_gb=resident_gb, counts=counts,
                 prefill_counts={k: dc[k] for k in PRESSURE_COUNTS},
                 prefill_same=same, oracle_steps=sa["decode_steps"])
+
+
+# ---------------------------------------------------------------------------
+# phase 7: the prefix cache, host swap and the contiguous layout, each on
+# the captured decode step
+
+PREFIX_TEMPLATES = 4        # seeded templates (system prompts' stand-ins)
+PREFIX_TEMPLATE_LEN = 256   # 16 pages of 16
+PREFIX_REQS = 32
+PREFIX_FULL_HIT = 12        # the request whose prompt is its template alone
+PREFIX_REPEATS = 3
+SWAP_REPEATS = 3
+CONTIGUOUS_REPEATS = 5
+
+
+def make_prefix_stream(vocab: int, seed: int = 7):
+    """32 requests on 4 seeded templates of 256 tokens (request i opens
+    with template i % 4), suffixes of 8-40 tokens, 16-64 new tokens;
+    request ``PREFIX_FULL_HIT``'s prompt is its template alone, a hit on
+    every page that must copy the last one on write. Lengths come from a
+    generator of their own, so that a reduced vocabulary (a CPU run at
+    reduced width) gives the same lengths."""
+    lens = np.random.default_rng(seed)
+    toks = np.random.default_rng(seed + 1)
+    tpls = [toks.integers(0, vocab, size=PREFIX_TEMPLATE_LEN)
+            for _ in range(PREFIX_TEMPLATES)]
+    out = []
+    for i in range(PREFIX_REQS):
+        n_sfx, new = int(lens.integers(8, 41)), int(lens.integers(16, 65))
+        sfx = toks.integers(0, vocab, size=n_sfx)
+        tpl = tpls[i % PREFIX_TEMPLATES]
+        prompt = tpl if i == PREFIX_FULL_HIT else np.concatenate([tpl, sfx])
+        out.append((prompt.astype(np.int32), new))
+    return out
+
+
+def repeat_serves(torch, dev, eng, stream, repeats, label, hook=None,
+                  launches=None):
+    """``repeats`` serves of the stream on one warm engine (``stream_serve``
+    with ``hook``); each one's tokens, stats and timing deltas, tok/s and
+    launches (added into ``launches``). Checks every serve's tokens for
+    length and vocabulary, one captured graph and a replay a decode step,
+    and the pool drained (free or cached)."""
+    from repro_torch.kernels import build
+    vocab = eng.model.cfg.vocab
+    out = []
+    for _ in range(repeats):
+        before, before_t = dict(eng.stats), dict(eng.timing)
+        build.reset_launch_counts()
+        t0 = time.perf_counter()
+        reqs, _ = stream_serve(eng, stream, hook)
+        torch.cuda.synchronize(dev)
+        wall = time.perf_counter() - t0
+        got = dict(build.launch_counts)
+        if launches is not None:
+            for k, n in got.items():
+                launches[k] = launches.get(k, 0) + n
+        for r in reqs:
+            check(r.tokens is not None and len(r.tokens) == r.max_new_tokens
+                  and bool(((r.tokens >= 0) & (r.tokens < vocab)).all()),
+                  f"{label}: request {r.rid} returned {r.tokens}")
+        st = eng.stats
+        check(st["decode_traces"] == 1
+              and st["graph_replays"] == st["decode_steps"] > 0,
+              f"{label}: {st['decode_traces']} captured graphs, "
+              f"{st['graph_replays']} replays for {st['decode_steps']} steps")
+        if eng._alloc is not None:
+            check(eng._alloc.n_free + eng._alloc.n_cached == eng.n_pages
+                  and eng._alloc.committed == 0 and not eng.busy,
+                  f"{label}: {eng._alloc.n_free} free + "
+                  f"{eng._alloc.n_cached} cached of {eng.n_pages} pages "
+                  f"after a serve")
+        delta = {k: v - before[k] for k, v in st.items()}
+        timing = {k: v - before_t[k] for k, v in eng.timing.items()}
+        toks = sum(len(r.tokens) for r in reqs)
+        out.append(dict(tokens=[r.tokens for r in reqs], delta=delta,
+                        timing=timing, tok_s=toks / wall, launches=got))
+    return out
+
+
+def summary(runs):
+    """(text, median tok/s, mean segment ms) of serves of one workload."""
+    rates = [r["tok_s"] for r in runs]
+    q1, med, q3 = statistics.quantiles(rates, n=4) if len(rates) > 1 \
+        else (rates[0],) * 3
+    segs = sum(r["delta"]["decode_dispatches"] for r in runs)
+    decode_s = sum(r["timing"]["decode_s"] for r in runs)
+    seg_ms = decode_s / segs * 1e3 if segs else 0.0
+    d = runs[0]["delta"]
+    prefill_s = sum(r["timing"]["prefill_s"] for r in runs) / len(runs)
+    return (f"median {med:.1f} tok/s (quartiles {q1:.1f}-{q3:.1f}; each "
+            f"{', '.join(f'{x:.1f}' for x in rates)}), mean decode segment "
+            f"{seg_ms:.2f} ms, {d['decode_steps']} decode steps in "
+            f"{d['decode_dispatches']} segments and {prefill_s:.3f} s of "
+            f"prefill a serve"), med, seg_ms
+
+
+def phase_prefix(torch, dev, model, params, card, launches):
+    """The shared-prefix serve: 32 templated requests, 8 slots, 256 pages
+    of 16, every prompt teacher-forced (``chunk_threshold`` 0), served 3
+    times with the prefix cache off on one engine and 3 times on, each on
+    a fresh engine (an empty cache, so the three serve one workload): the
+    same tokens bit for bit, hits, skipped positions and at least one copy
+    on write. The last prefix-on engine then serves the stream once more
+    over the pages it cached, printed on its own line as the warm repeat.
+    Then the prefill variant (``chunk_threshold`` None) once each way,
+    whose share of equal tokens is printed, not gated (ROADMAP Queue
+    C)."""
+    from repro_torch.serving.engine import ServingEngine
+    stream = make_prefix_stream(model.cfg.vocab)
+    geometry = dict(max_batch=8, max_len=512, decode_block=16, page_size=16)
+    lens = [len(p) for p, _ in stream]
+
+    def engine(**kw):
+        eng = ServingEngine(model, params, **dict(geometry, **kw))
+        eng.warmup(prompt_lens=lens)
+        return eng
+
+    res = {}
+    eng = engine(chunk_threshold=0)
+    off = repeat_serves(torch, dev, eng, stream, PREFIX_REPEATS,
+                        "prefix off", launches=launches)
+    del eng
+    on = []
+    for _ in range(PREFIX_REPEATS):
+        eng = engine(chunk_threshold=0, prefix_cache=True)
+        on += repeat_serves(torch, dev, eng, stream, 1, "prefix on, cold",
+                            launches=launches)
+    (warm,) = repeat_serves(torch, dev, eng, stream, 1, "prefix on, warm",
+                            launches=launches)
+    del eng
+    for label, runs in (("prefix off", off), ("prefix on", on)):
+        text, med, seg_ms = summary(runs)
+        res[label] = dict(runs=runs, tok_s=med, seg_ms=seg_ms,
+                          steps=runs[0]["delta"]["decode_steps"])
+        print(f"  {label}: {text}")
+    want = off[0]["tokens"]
+    for i, run in enumerate(off + on + [warm]):
+        check(all(np.array_equal(a, b) for a, b in zip(run["tokens"], want)),
+              f"prefix serve {i}: tokens differ from the first prefix-off "
+              "serve's")
+    counts = []
+    for run in on:
+        d = run["delta"]
+        check(d["prefix_hits"] > 0 and d["prefix_tokens_skipped"] > 0
+              and d["cow_copies"] >= 1,
+              f"prefix on: {d['prefix_hits']} hits, "
+              f"{d['prefix_tokens_skipped']} positions skipped, "
+              f"{d['cow_copies']} copies on write")
+        counts.append({k: d[k] for k in (
+            "prefix_hits", "prefix_pages_reused", "prefix_tokens_skipped",
+            "cow_copies", "evictions", "decode_steps")})
+    check(all(c == counts[0] for c in counts),
+          f"prefix on: the cold serves' counts differ: {counts}")
+    fed = sum(lens)
+    print(f"  prefix on: tokens equal the prefix-off serves' bit for bit in "
+          f"each of {PREFIX_REPEATS} serves, each on a fresh engine; counts "
+          f"a serve {counts[0]} ({fed} prompt positions in the stream); on "
+          f"{card}")
+    wd = warm["delta"]
+    print(f"  prefix on, warm repeat (the last engine again, its cache "
+          f"holding the first serve's pages; another workload, not in the "
+          f"median): {warm['tok_s']:.1f} tok/s, {wd['decode_steps']} decode "
+          f"steps, {wd['prefix_hits']} hits, {wd['prefix_tokens_skipped']} "
+          f"positions skipped; tokens equal the prefix-off serves'")
+    shares = {}
+    for label, kw in (("off", {}), ("on", dict(prefix_cache=True))):
+        eng = engine(**kw)
+        shares[label] = repeat_serves(torch, dev, eng, stream, 1,
+                                      f"prefill variant, prefix {label}",
+                                      launches=launches)[0]
+        del eng
+    same = sum(np.array_equal(a, b) for a, b in zip(
+        shares["on"]["tokens"], shares["off"]["tokens"]))
+    d = shares["on"]["delta"]
+    print(f"  prefill variant (chunk_threshold None): {same} of "
+          f"{len(stream)} requests' tokens equal between prefix on and off "
+          f"(not a gate: a hit feeds its uncached tail through the fused "
+          f"decode kernel where the off serve prefills it); on: "
+          f"{d['prefix_hits']} hits, {d['prefix_tokens_skipped']} positions "
+          f"skipped, {d['decode_steps']} steps, "
+          f"{d['prefill_dispatches']} prefill dispatches")
+    return dict(off=res["prefix off"], on=res["prefix on"], counts=counts[0],
+                warm_tok_s=warm["tok_s"], prefill_same=same)
+
+
+def phase_swap(torch, dev, model, params, stream, oracle, card, launches,
+               pressure_steps):
+    """The swap serve: phase 6's pressure configuration with
+    ``swap="host"``, 3 serves, each with one forced preempt of a slot past
+    its prompt feed (its pages must go to the host and come back), against
+    phase 6's oracle bit for bit; then the same serve with a budget below
+    one page's bytes, where every victim, the forced one included,
+    recomputes."""
+    from repro_torch.serving.engine import ServingEngine
+    knobs = dict(max_batch=8, max_len=512, decode_block=16, page_size=16,
+                 stage_slots=PRESSURE_STAGE, admission="optimistic",
+                 preempt_policy="slack", n_pages=PRESSURE_PAGES, stream=True,
+                 chunk_threshold=0, swap="host")
+    lens = [len(p) for p, _ in stream]
+
+    def engine(**kw):
+        eng = ServingEngine(model, params, **dict(knobs, **kw))
+        eng.warmup(prompt_lens=lens)
+        return eng
+
+    def forced_serve(eng, label):
+        """One serve that preempts, once, the first slot past its prompt
+        feed that still owes tokens; returns the run and that preempt's
+        swap count."""
+        forced = {}
+
+        def hook(e):
+            live = [s for s in range(e.max_batch) if e._swap_ok(s)]
+            if "rid" not in forced and live:
+                n0 = e.stats["swap_out"]
+                forced["rid"] = e._slot_req[live[0]].rid
+                e.preempt(live[0])
+                forced["swapped"] = e.stats["swap_out"] - n0
+
+        (run,) = repeat_serves(torch, dev, eng, stream, 1, label, hook=hook,
+                               launches=launches)
+        check("rid" in forced, f"{label}: no slot to force out")
+        check(all(np.array_equal(a, b) for a, b in zip(run["tokens"],
+                                                         oracle)),
+              f"{label}: tokens differ from phase 6's oracle")
+        check(eng._swap_live_bytes == 0, f"{label}: budget not back to 0")
+        d = run["delta"]
+        check(d["preempt_readmits"] == d["preemptions"],
+              f"{label}: {d['preemptions']} preemptions, "
+              f"{d['preempt_readmits']} re-admitted")
+        return run, forced
+
+    eng = engine()
+    runs = []
+    for _ in range(SWAP_REPEATS):
+        run, forced = forced_serve(eng, "swap serve")
+        d = run["delta"]
+        check(forced["swapped"] == 1 and d["swap_out"] == d["swap_in"] >= 1,
+              f"swap serve: forced preempt of request {forced['rid']} "
+              f"swapped {forced['swapped']}; {d['swap_out']} out, "
+              f"{d['swap_in']} in")
+        runs.append(run)
+    text, med, seg_ms = summary(runs)
+    d = runs[0]["delta"]
+    per_page = sum(leaf.numel() // leaf.shape[eng._axes[n][1] - 1]
+                   * leaf.element_size() for n, leaf in eng._cache.items())
+    counts = {k: d[k] for k in ("preemptions", "swap_out", "swap_in",
+                                "swap_fallbacks", "swap_bytes",
+                                "pressure_stalls", "decode_steps")}
+    print(f"  swap serve (a forced preempt of request {forced['rid']} past "
+          f"its prompt feed in each): {text}; against phase 6's recompute "
+          f"serve's {pressure_steps} steps; counts a serve {counts}; tokens "
+          f"equal phase 6's oracle bit for bit in each of {SWAP_REPEATS} "
+          f"serves; {per_page} bytes a page; on {card}")
+    del eng
+    tight = engine(swap_budget_bytes=per_page - 1)
+    brun, _ = forced_serve(tight, "swap serve, budget below a page")
+    bd = brun["delta"]
+    check(bd["swap_fallbacks"] > 0 and bd["swap_out"] == 0,
+          f"budget serve: {bd['swap_fallbacks']} fallbacks, "
+          f"{bd['swap_out']} swaps")
+    print(f"  the same serve with a budget of {per_page - 1} bytes (below one "
+          f"page): {bd['swap_fallbacks']} fallbacks to recompute, no swap, "
+          f"{bd['decode_steps']} decode steps against the swap serve's "
+          f"{d['decode_steps']}; tokens equal the oracle's")
+    del tight
+    torch.cuda.empty_cache()
+    return dict(tok_s=med, seg_ms=seg_ms, counts=counts,
+                budget_steps=bd["decode_steps"],
+                budget_fallbacks=bd["swap_fallbacks"])
+
+
+def phase_contiguous(torch, dev, model, params, stream, paged_tokens, card,
+                     launches, whisper_tokens):
+    """The contiguous layout (``page_size=None``) on phase 3's stream and
+    geometry: 5 serves whose tokens equal phase 3's paged bf16 serve's bit
+    for bit, a profiled serve whose decode runs the contiguous kernel's
+    tensor-core body once a layer a step and never the fused paged one,
+    in one captured graph; then whisper-base, contiguous, against its
+    paged serve of phase 3."""
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.configs.registry import ARCHS
+    from repro_torch.kernels import build
+    from repro_torch.models import build_model
+    from repro_torch.serving.engine import Request, ServingEngine
+    geometry = dict(max_batch=8, max_len=512, decode_block=16,
+                    page_size=None)
+    lens = [len(p) for p, _ in stream]
+    eng = ServingEngine(model, params, **geometry)
+    eng.warmup(prompt_lens=lens)
+    runs = repeat_serves(torch, dev, eng, stream, CONTIGUOUS_REPEATS,
+                         "contiguous serve", launches=launches)
+    for run in runs:
+        check(all(np.array_equal(a, b) for a, b in zip(run["tokens"],
+                                                         paged_tokens)),
+              "contiguous serve: tokens differ from the paged serve's")
+    text, med, seg_ms = summary(runs)
+    print(f"  contiguous llama3.2-1b bf16: {text}; tokens equal phase 3's "
+          f"paged serve bit for bit in each of {CONTIGUOUS_REPEATS} serves; "
+          f"on {card}")
+    reqs = [Request(rid=i, prompt=p, max_new_tokens=m)
+            for i, (p, m) in enumerate(stream)]
+    before = dict(eng.stats)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        torch.ones(1, device=dev).add_(1)
+        torch.cuda.synchronize(dev)
+        build.reset_launch_counts()
+        eng.serve(reqs)
+        torch.cuda.synchronize(dev)
+    got = dict(build.launch_counts)
+    for k, n in got.items():
+        launches[k] = launches.get(k, 0) + n
+    steps = eng.stats["decode_steps"] - before["decode_steps"]
+    n_layers = model.cfg.n_layers
+    events = {}
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            events[e.name] = events.get(e.name, 0) + 1
+    mma = sum(n for name, n in events.items() if DECODE_MMA.search(name))
+    fused = sum(n for name, n in events.items() if "fused_decode" in name)
+    check(got["decode_attention"] == steps * n_layers == mma
+          and fused == 0 and got["fused_paged_decode_attention"] == 0
+          and eng.stats["decode_traces"] == 1
+          and eng.stats["graph_replays"] == eng.stats["decode_steps"],
+          f"contiguous profiled serve: {got['decode_attention']} "
+          f"decode_attention launches, {mma} tensor-core body events, "
+          f"{fused} fused decode events for {steps} steps x {n_layers} "
+          f"layers")
+    print(f"  contiguous profiled serve: {steps} decode steps x {n_layers} "
+          f"layers = {mma} launches of the contiguous kernel's tensor-core "
+          f"body (decode_mma_kernel), 0 of the fused paged kernel, 1 "
+          f"captured graph")
+    del eng
+    torch.cuda.empty_cache()
+    wcfg = ARCHS["whisper-base"].for_device(dev)
+    wmodel = build_model(wcfg, dev)
+    wparams = wmodel.init(SEED)
+    wstream = make_stream(wcfg.vocab)
+    weng = ServingEngine(wmodel, wparams, **geometry)
+    weng.warmup(prompt_lens=[len(p) for p, _ in wstream])
+    (wrun,) = repeat_serves(torch, dev, weng, wstream, 1,
+                            "whisper-base contiguous", launches=launches)
+    check(all(np.array_equal(a, b) for a, b in zip(wrun["tokens"],
+                                                     whisper_tokens)),
+          "whisper-base contiguous: tokens differ from its paged serve's")
+    check(wrun["launches"]["decode_attention"] > 0
+          and wrun["launches"]["fused_paged_decode_attention"] == 0
+          and wrun["launches"]["paged_decode_attention"] == 0,
+          f"whisper-base contiguous launches {wrun['launches']}")
+    print(f"  whisper-base contiguous: tokens equal its paged serve's bit "
+          f"for bit; {wrun['tok_s']:.1f} tok/s, "
+          f"{wrun['delta']['decode_steps']} decode steps")
+    del weng, wparams
+    torch.cuda.empty_cache()
+    return dict(tok_s=med, seg_ms=seg_ms, steps=steps,
+                whisper_tok_s=wrun["tok_s"])
+
+
+def phase_prefix_swap_layout(torch, dev, model, params, stream, card,
+                             paged_tokens, pressure, whisper_tokens):
+    """Phase 7 on phase 3's llama3.2-1b bf16 model and params. Returns the
+    phase's launches and numbers."""
+    launches: dict = {}
+    t0 = time.perf_counter()
+    prefix = phase_prefix(torch, dev, model, params, card, launches)
+    t1 = time.perf_counter()
+    swap = phase_swap(torch, dev, model, params, stream, pressure["oracle"],
+                      card, launches, pressure["pressure_steps"])
+    t2 = time.perf_counter()
+    contiguous = phase_contiguous(torch, dev, model, params, stream,
+                                  paged_tokens, card, launches,
+                                  whisper_tokens)
+    print(f"  phase 7 parts: prefix {t1 - t0:.1f} s, swap {t2 - t1:.1f} s, "
+          f"contiguous {time.perf_counter() - t2:.1f} s")
+    print(f"  phase launches {launches}")
+    return dict(launches=launches, prefix=prefix, swap=swap,
+                contiguous=contiguous)
 
 
 # ---------------------------------------------------------------------------
@@ -1834,10 +2367,23 @@ def main() -> int:
     t0 = time.perf_counter()
     print("phase 6: admission under pressure (llama3.2-1b bf16, full width: "
           "staging ring, optimistic admission, preemption, streaming)")
-    pressure = phase_pressure(torch, dev, *bf16.pop("llama"), card)
+    llama = bf16.pop("llama")
+    pressure = phase_pressure(torch, dev, *llama, card)
     for k in kernels:
         k["launches"] += pressure["launches"][k["name"]]
     print(f"  phase 6 took {time.perf_counter() - t0:.1f} s")
+
+    t0 = time.perf_counter()
+    print("phase 7: prefix cache, host swap, contiguous layout (llama3.2-1b "
+          "bf16, full width; whisper-base contiguous)")
+    phase7 = phase_prefix_swap_layout(torch, dev, *llama, card,
+                                      bf16["served"], pressure,
+                                      whisper["served"])
+    del llama
+    torch.cuda.empty_cache()
+    for k in kernels:
+        k["launches"] += phase7["launches"].get(k["name"], 0)
+    print(f"  phase 7 took {time.perf_counter() - t0:.1f} s")
     print(f"all phases passed in {time.perf_counter() - t_start:.1f} s")
     for k in kernels:
         print(f"kernel {k['name']}: {k['launches']} main-path launches, "

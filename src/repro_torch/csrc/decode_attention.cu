@@ -7,16 +7,28 @@
 //
 // q (B, K, G, D) attends over k/v in the model layout (B, T, K, D), read
 // through its strides (no (B, K, T, D) transpose as the Pallas adapter
-// makes), up to one scalar valid_len <= T shared by every slot. T need not
-// be a multiple of any block: the ragged tail is masked here (the Pallas
-// kernel asserts T % min(512, T) == 0, so it cannot take the vision
-// config's T = 1601). valid_len 0 gives zeros.
+// makes), up to a valid length <= T. T need not be a multiple of any
+// block: the ragged tail is masked here (the Pallas kernel asserts
+// T % min(512, T) == 0, so it cannot take the vision config's T = 1601).
+// A valid length of 0 gives zeros. Two forms of the length:
+// - scalar: one valid_len shared by every slot (the vision model's
+//   cross-attention over its image tokens). The host cuts valid_len rows
+//   into n_split spans.
+// - per slot: vlen, a (B,) int32 device array, read here by each block
+//   (clamped into [0, T]), never on the host, so a CUDA graph captures
+//   the launch: the contiguous KV layout's self-attention at pos + 1 and
+//   whisper's cross-attention at enc_len. The host cuts all T rows into
+//   spans from T alone, with the fused paged kernel's plan (128-row spans,
+//   at most 8), and a span that starts at or past the slot's length
+//   attends nothing and reads no row; so a contiguous slot folds the same
+//   spans, in the same order, as the fused paged kernel over the same
+//   rows, and gives its bits.
 //
-// Two bodies, each split over the rows: valid_len rows are cut into n_split
-// (at most 8) spans of split_rows, one block per (span, KV head, slot), so
-// 8 slots x 8 KV heads fill the SMs instead of 64 blocks each walking all T
-// rows; the spans of one (slot, KV head) form a cluster and fold their
-// partials in span order through distributed shared memory (decode_split.cuh
+// Two bodies, each split over the rows into n_split (at most 8) spans of
+// split_rows, one block per (span, KV head, slot), so 8 slots x 8 KV
+// heads fill the SMs instead of 64 blocks each walking all T rows; the
+// spans of one (slot, KV head) form a cluster and fold their partials in
+// span order through distributed shared memory (decode_split.cuh
 // fold_cluster), in the same launch.
 // - bf16 at D in {64, 128}: the tensor-core body (decode_mma.cuh):
 //   cp.async ring of 64-row bf16 tiles, S and P.V on mma.sync.
@@ -35,6 +47,16 @@ using namespace repro::decode_split;
 
 namespace {
 
+// Block (s, kh, b)'s span: [x, y) of the slot's valid rows
+__device__ __forceinline__ int2 span_of(const int* __restrict__ vlen,
+                                        int valid_len, int T_len,
+                                        int split_rows) {
+  const int valid =
+      vlen != nullptr ? min(max(vlen[blockIdx.z], 0), T_len) : valid_len;
+  const int t0 = min((int)blockIdx.x * split_rows, valid);
+  return make_int2(t0, min(t0 + split_rows, valid));
+}
+
 struct ContiguousRows {
   size_t base, row_stride;
   __device__ __forceinline__ size_t operator()(int t) const {
@@ -46,20 +68,19 @@ struct ContiguousRows {
 template <int D>
 __global__ void __launch_bounds__(NT) decode_kernel(
     const float* __restrict__ q, const float* __restrict__ k,
-    const float* __restrict__ v, float* __restrict__ out, int T_len, int K,
-    int G, int valid_len, int split_rows, float sm_scale) {
+    const float* __restrict__ v, const int* __restrict__ vlen,
+    float* __restrict__ out, int T_len, int K, int G, int valid_len,
+    int split_rows, float sm_scale) {
   __shared__ Partial<D> part;
   __shared__ Inbox<D> inbox;
   cluster_started();
-  const int s = blockIdx.x;
   const size_t bk = (size_t)blockIdx.z * K + blockIdx.y;
-  const int t0 = min(s * split_rows, valid_len);
-  const int t1 = min(t0 + split_rows, valid_len);
+  const int2 sp = span_of(vlen, valid_len, T_len, split_rows);
   const ContiguousRows rows{(size_t)blockIdx.z * T_len * K * D +
                                 (size_t)blockIdx.y * D,
                             (size_t)K * D};
-  attend_span<float, D>(q + bk * G * D, k, v, rows, G, t0, t1, sm_scale,
-                        part.m, part.l, part.acc);
+  attend_span<float, D>(q + bk * G * D, k, v, rows, G, sp.x, sp.y,
+                        sm_scale, part.m, part.l, part.acc);
   fold_cluster<float, D>(part, inbox, G, out + bk * G * D);
 }
 
@@ -67,20 +88,19 @@ __global__ void __launch_bounds__(NT) decode_kernel(
 template <int D>
 __global__ void __launch_bounds__(decode_mma::NT) decode_mma_kernel(
     const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* k,
-    const __nv_bfloat16* v, __nv_bfloat16* __restrict__ out, int T_len,
-    int K, int G, int valid_len, int split_rows, float sm_scale) {
+    const __nv_bfloat16* v, const int* __restrict__ vlen,
+    __nv_bfloat16* __restrict__ out, int T_len, int K, int G, int valid_len,
+    int split_rows, float sm_scale) {
   extern __shared__ __align__(128) unsigned char smem[];
   __shared__ Partial<D> part;
   __shared__ Inbox<D> inbox;
   cluster_started();
-  const int s = blockIdx.x;
   const size_t bk = (size_t)blockIdx.z * K + blockIdx.y;
-  const int t0 = min(s * split_rows, valid_len);
-  const int t1 = min(t0 + split_rows, valid_len);
+  const int2 sp = span_of(vlen, valid_len, T_len, split_rows);
   const ContiguousRows rows{(size_t)blockIdx.z * T_len * K * D +
                                 (size_t)blockIdx.y * D,
                             (size_t)K * D};
-  decode_mma::attend_span_mma<D>(q + bk * G * D, k, v, rows, G, t0, t1,
+  decode_mma::attend_span_mma<D>(q + bk * G * D, k, v, rows, G, sp.x, sp.y,
                                  sm_scale, part.m, part.l, part.acc, smem,
                                  -1, nullptr, nullptr);
   fold_cluster<__nv_bfloat16, D>(part, inbox, G,
@@ -88,16 +108,18 @@ __global__ void __launch_bounds__(decode_mma::NT) decode_mma_kernel(
 }
 
 template <typename T, int D>
-cudaError_t launch(const void* q, const void* k, const void* v, void* out,
-                   int B, int T_len, int K, int G, int valid_len,
-                   int n_split, int split_rows, cudaStream_t stream) {
+cudaError_t launch(const void* q, const void* k, const void* v,
+                   const void* vlen, void* out, int B, int T_len, int K,
+                   int G, int valid_len, int n_split, int split_rows,
+                   cudaStream_t stream) {
+  const int* vl = static_cast<const int*>(vlen);
   const float scale = 1.0f / sqrtf(static_cast<float>(D));
   if constexpr (std::is_same_v<T, float>) {
     return launch_clusters(
         decode_kernel<D>, n_split, K, B, NT, 0, stream,
         static_cast<const float*>(q), static_cast<const float*>(k),
-        static_cast<const float*>(v), static_cast<float*>(out), T_len, K, G,
-        valid_len, split_rows, scale);
+        static_cast<const float*>(v), vl, static_cast<float*>(out), T_len,
+        K, G, valid_len, split_rows, scale);
   } else {
     constexpr int smem = decode_mma::Layout<D>::kBytes;
     const cudaError_t e = decode_mma::allow_smem<decode_mma_kernel<D>>(smem);
@@ -105,44 +127,54 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* out,
     return launch_clusters(
         decode_mma_kernel<D>, n_split, K, B, decode_mma::NT, smem, stream,
         static_cast<const T*>(q), static_cast<const T*>(k),
-        static_cast<const T*>(v), static_cast<T*>(out), T_len, K, G,
+        static_cast<const T*>(v), vl, static_cast<T*>(out), T_len, K, G,
         valid_len, split_rows, scale);
   }
 }
 
-cudaError_t dispatch(const void* q, const void* k, const void* v, void* out,
-                     int B, int T_len, int K, int G, int D,
+#define DECODE_ARGS q, k, v, vlen, out, B, T_len, K, G, valid_len, \
+    n_split, split_rows, st
+
+cudaError_t dispatch(const void* q, const void* k, const void* v,
+                     const void* vlen, void* out, int B, int T_len, int K,
+                     int G, int D,
                      int valid_len, int n_split, int split_rows, int dtype,
                      cudaStream_t st) {
   if (dtype == kBFloat16) {
     switch (D) {
-      case 64: return launch<__nv_bfloat16, 64>(q, k, v, out, B, T_len, K, G, valid_len, n_split, split_rows, st);
-      case 128: return launch<__nv_bfloat16, 128>(q, k, v, out, B, T_len, K, G, valid_len, n_split, split_rows, st);
+      case 64: return launch<__nv_bfloat16, 64>(DECODE_ARGS);
+      case 128: return launch<__nv_bfloat16, 128>(DECODE_ARGS);
     }
   } else if (dtype == kFloat32) {
     switch (D) {
-      case 16: return launch<float, 16>(q, k, v, out, B, T_len, K, G, valid_len, n_split, split_rows, st);
-      case 32: return launch<float, 32>(q, k, v, out, B, T_len, K, G, valid_len, n_split, split_rows, st);
-      case 64: return launch<float, 64>(q, k, v, out, B, T_len, K, G, valid_len, n_split, split_rows, st);
-      case 128: return launch<float, 128>(q, k, v, out, B, T_len, K, G, valid_len, n_split, split_rows, st);
+      case 16: return launch<float, 16>(DECODE_ARGS);
+      case 32: return launch<float, 32>(DECODE_ARGS);
+      case 64: return launch<float, 64>(DECODE_ARGS);
+      case 128: return launch<float, 128>(DECODE_ARGS);
     }
   }
   return cudaErrorInvalidValue;
 }
 
+#undef DECODE_ARGS
+
 }  // namespace
 
+// vlen: the per-slot lengths (B,) on the device, or null for the scalar
+// valid_len. The spans must cover valid_len rows (scalar) or all T rows
+// (per slot).
 extern "C" int decode_attention_fwd(const void* q, const void* k,
-                                    const void* v, void* out, int B,
-                                    int T_len, int K, int G, int D,
-                                    int valid_len, int n_split,
+                                    const void* v, const void* vlen,
+                                    void* out, int B, int T_len, int K,
+                                    int G, int D, int valid_len, int n_split,
                                     int split_rows, int dtype, void* stream) {
+  const int rows = vlen != nullptr ? T_len : valid_len;
   if (G < 1 || G > GMAX || B < 1 || K < 1 || T_len < 1 || valid_len < 0 ||
       valid_len > T_len || n_split < 1 ||
       n_split > MAX_SPLIT || split_rows < 1 ||
-      (long long)n_split * split_rows < valid_len)
+      (long long)n_split * split_rows < rows)
     return static_cast<int>(cudaErrorInvalidValue);
-  return static_cast<int>(dispatch(q, k, v, out, B, T_len, K, G, D,
+  return static_cast<int>(dispatch(q, k, v, vlen, out, B, T_len, K, G, D,
                                    valid_len, n_split, split_rows, dtype,
                                    static_cast<cudaStream_t>(stream)));
 }

@@ -54,7 +54,7 @@ KERNELS = {
         [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P]),
     "decode_attention": (
         "decode_attention.cu", "decode_attention_fwd",
-        [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P]),
+        [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P]),
 }
 
 # host-side helpers a library exports beside its kernel:

@@ -12,7 +12,8 @@ They replace the three Pallas TPU kernels of
 * ``paged_decode_attention`` (``_paged_decode_kernel``): attend only,
   through a block table, with per-slot valid lengths.
 * ``decode_attention`` (``_decode_kernel``): attend over a contiguous cache
-  with one scalar valid length; here k/v come in the model layout
+  with one scalar valid length or, beyond the Pallas kernel, per-slot
+  lengths read on the device; here k/v come in the model layout
   ``(B, T, K, D)``.
 
 All three are bound by the bytes of the live K/V rows; each source's note
@@ -48,11 +49,14 @@ BODIES = {torch.bfloat16: ("mma", (64, 128)),
 # at most MAX_SPLIT spans, one block each, one cluster of blocks per (slot,
 # KV head) that folds them in the same launch: SPLIT_ROWS each for the SIMT
 # body; for the tensor-core body whole 64-row tiles, FUSED_SPLIT_ROWS for
-# the two paged kernels (most of a slot's P * ps rows lie past its length,
-# which the host does not read) and, for the contiguous kernel, whose rows
-# are all live, as many spans as give its B * K pairs one block on each SM
-# at most (the fold's cost grows with the spans, and one block per SM
-# already streams at the card's rate). Longer rows get longer spans.
+# the two paged kernels and the contiguous kernel's per-slot form (most of
+# a slot's rows lie past its length, which the host does not read; the
+# per-slot form takes the fused kernel's plan so that a contiguous slot
+# folds the same spans as a paged one), and, for the contiguous kernel's
+# scalar form, whose rows are all live, as many spans as give its B * K
+# pairs one block on each SM at most (the fold's cost grows with the
+# spans, and one block per SM already streams at the card's rate). Longer
+# rows get longer spans.
 SPLIT_ROWS = 128
 TILE_ROWS = 64
 FUSED_SPLIT_ROWS = 128
@@ -88,7 +92,8 @@ def decode_body(dtype: torch.dtype, G: int, head_dim: int) -> str:
 def _split(name: str, body: str, rows: int, q) -> tuple:
     """(n_split, split_rows) of ``rows`` logical rows for ``body`` of the
     decode kernel ``name`` (q: the query, for its slots, heads and
-    device)."""
+    device). ``"decode_attention"`` is the contiguous kernel's scalar
+    form; its per-slot form plans as the fused kernel does."""
     if body != "mma":
         n = -(-rows // SPLIT_ROWS)
     elif name == "decode_attention":
@@ -172,8 +177,9 @@ def _check_common(what, q, tensors):
 
 
 def slot_lengths(valid_len, B: int, rows: int, device) -> torch.Tensor:
-    """``valid_len`` of the attend-only paged kernel as it reads it: an
-    int32 (B,) tensor on ``device``. Takes what ``repro``'s
+    """``valid_len`` of the attend-only paged kernel and of the contiguous
+    kernel's per-slot form as they read it: an int32 (B,) tensor on
+    ``device``. Takes what ``repro``'s
     ``paged_decode_attention`` takes: None (``rows``, all of every slot's
     logical rows), an int, or a tensor of shape (), (1,) or (B,), broadcast
     to the B slots."""
@@ -185,7 +191,7 @@ def slot_lengths(valid_len, B: int, rows: int, device) -> torch.Tensor:
         return valid_len
     t = torch.as_tensor(valid_len, device=device).to(torch.int32)
     if t.dim() > 1 or t.numel() not in (1, B):
-        raise ValueError(f"paged_decode_attention: valid_len of shape "
+        raise ValueError(f"decode attention: valid_len of shape "
                          f"{tuple(t.shape)} for {B} slots")
     return t.reshape(-1).expand(B).contiguous()
 
@@ -235,11 +241,34 @@ def decode_attention_plain(q, k, v, valid_len=None) -> torch.Tensor:
                                 valid_len)
 
 
-def decode_attention(q, k, v, valid_len=None) -> torch.Tensor:
-    """q: (B, K, G, D); k/v: (B, T, K, D), the model layout; valid_len an
-    int <= T shared by every slot (default T).
+def contiguous_plan(q, T: int, valid_len, body: str) -> tuple:
+    """How the contiguous kernel takes ``valid_len`` over T rows: ``(lens,
+    vlen, n_split, split_rows)``. A (B,) tensor is the per-slot form:
+    ``lens`` the int32 device lengths (``slot_lengths``), read by the
+    kernel alone, and the spans cut from T by the fused kernel's plan.
+    Anything else is the scalar form: ``lens`` None, ``vlen`` the int
+    (default T), the spans cut from it."""
+    if torch.is_tensor(valid_len) and valid_len.ndim > 0:
+        lens = slot_lengths(valid_len, q.shape[0], T, q.device)
+        return (lens, T) + _split("fused_paged_decode_attention", body, T, q)
+    vlen = T if valid_len is None else int(valid_len)
+    if not 0 <= vlen <= T:
+        raise ValueError(f"decode_attention: valid_len {vlen} outside "
+                         f"[0, {T}]")
+    return (None, vlen) + _split("decode_attention", body, vlen, q)
 
-    Returns (B, K, G, D) in q.dtype; zeros when valid_len is 0.
+
+def decode_attention(q, k, v, valid_len=None) -> torch.Tensor:
+    """q: (B, K, G, D); k/v: (B, T, K, D), the model layout; valid_len the
+    rows each slot attends: an int <= T shared by every slot (default T),
+    or a (B,) tensor of per-slot lengths (``slot_lengths``), which the
+    kernel reads on the device, clamped into [0, T].
+
+    The per-slot form reads no length on the host, so a CUDA graph
+    captures it; its spans come from T alone, as the fused paged kernel's
+    come from its P * ps rows.
+
+    Returns (B, K, G, D) in q.dtype; zeros for a slot whose length is 0.
     """
     if not q.is_cuda:
         return decode_attention_plain(q, k, v, valid_len)
@@ -251,15 +280,12 @@ def decode_attention(q, k, v, valid_len=None) -> torch.Tensor:
     _check_common("decode_attention", q, (k, v))
     body = decode_body(q.dtype, G, D)
     _check_aligned("decode_attention", body, (q, k, v))
-    vlen = T if valid_len is None else int(valid_len)
-    if not 0 <= vlen <= T:
-        raise ValueError(f"decode_attention: valid_len {vlen} outside "
-                         f"[0, {T}]")
-    n_split, split = _split("decode_attention", body, vlen, q)
+    lens, vlen, n_split, split = contiguous_plan(q, T, valid_len, body)
     out = torch.empty_like(q)
     rc = build.kernel_fn("decode_attention")(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), B, T, K, G,
-        D, vlen, n_split, split,
+        q.data_ptr(), k.data_ptr(), v.data_ptr(),
+        None if lens is None else lens.data_ptr(), out.data_ptr(),
+        B, T, K, G, D, vlen, n_split, split,
         DTYPE_CODES[q.dtype], torch.cuda.current_stream(q.device).cuda_stream)
     build.check_launch("decode_attention", rc)
     return out

@@ -13,6 +13,11 @@ dispatch counts:
     PYTHONPATH=src python -m repro_torch.launch.serve --real-engine \\
         --device cpu --reduced --n-pages 24 --stage-slots 4 \\
         --admission optimistic --preempt-policy lru
+    PYTHONPATH=src python -m repro_torch.launch.serve --real-engine \\
+        --device cpu --reduced --prefix-cache --n-pages 24 \\
+        --admission optimistic --swap host --swap-budget-mb 64
+    PYTHONPATH=src python -m repro_torch.launch.serve --real-engine \\
+        --device cpu --reduced --page-size 0
 
 ``--arch`` takes llama3.2-1b (dense), whisper-base (audio) and
 llama-3.2-vision-90b (vlm). On CUDA the config selects the kernel impls
@@ -22,7 +27,9 @@ is dense-only, as in ``repro``). A config whose weights do not fit the card
 is refused before anything is allocated: the published 100-layer
 llama-3.2-vision-90b takes 175 GB in bf16. Weights are random, made from a
 fixed seed on the device. The control plane (``--backend``, ``--clock`` and
-the Poisson cluster run) is not ported yet.
+the Poisson cluster run) is not ported yet. ``--page-size 0`` serves the
+contiguous KV layout. With ``--prefix-cache`` half the requests open with
+one shared template (a system prompt's stand-in), as in ``repro``.
 """
 from __future__ import annotations
 
@@ -53,13 +60,17 @@ def check_weights_fit(cfg, capacity_bytes: int, where: str) -> None:
 
 
 def _real_engine_demo(arch: str, n_reqs: int, slots: int,
-                      page_size: int = 16, quantize: str = "none",
+                      page_size: Optional[int] = 16,
+                      quantize: str = "none",
                       device="cuda", reduced: bool = False,
                       max_len: int = 64, seed: int = 0,
                       chunk_threshold: Optional[int] = None,
                       n_pages: Optional[int] = None, stage_slots: int = 0,
                       admission: str = "worstcase",
-                      preempt_policy: str = "slack") -> dict:
+                      preempt_policy: str = "slack",
+                      prefix_cache: bool = False, prefix_evict: str = "lru",
+                      swap: Optional[str] = None,
+                      swap_budget_bytes: Optional[int] = None) -> dict:
     dev = resolve_device(device)
     base = ARCHS[arch].reduced() if reduced else ARCHS[arch]
     if quantize != "none" and base.family != "dense":
@@ -78,12 +89,23 @@ def _real_engine_demo(arch: str, n_reqs: int, slots: int,
                         decode_block=16, page_size=page_size,
                         n_pages=n_pages, chunk_threshold=chunk_threshold,
                         stage_slots=stage_slots, admission=admission,
-                        preempt_policy=preempt_policy)
+                        preempt_policy=preempt_policy,
+                        prefix_cache=prefix_cache, prefix_evict=prefix_evict,
+                        swap=swap, swap_budget_bytes=swap_budget_bytes)
     rng = np.random.default_rng(seed)
-    reqs = [Request(rid=i,
-                    prompt=rng.integers(0, cfg.vocab,
-                                        size=int(rng.integers(4, 29))
-                                        ).astype(np.int32),
+    # with the prefix cache on, half the requests open with one template
+    tpl = (rng.integers(0, cfg.vocab, size=24).astype(np.int32)
+           if prefix_cache else None)
+
+    def prompt(i):
+        body = rng.integers(0, cfg.vocab,
+                            size=int(rng.integers(4, 29))).astype(np.int32)
+        if tpl is not None and i % 2 == 0:
+            # stays inside max_len 64 with max_new up to 32
+            return np.concatenate([tpl, body])[:32]
+        return body
+
+    reqs = [Request(rid=i, prompt=prompt(i),
                     max_new_tokens=int(rng.integers(4, 33)))
             for i in range(n_reqs)]
     eng.warmup(prompt_lens=[len(r.prompt) for r in reqs])
@@ -95,8 +117,10 @@ def _real_engine_demo(arch: str, n_reqs: int, slots: int,
     toks = sum(len(r.tokens) for r in reqs)
     s = eng.stats
     where = torch.cuda.get_device_name(dev) if dev.type == "cuda" else "cpu"
+    layout = (f"paged {eng.n_pages}x{eng.page_size}" if eng._paged
+              else "contiguous")
     print(f"real engine [{cfg.name} {cfg.quantize} attn={cfg.attention_impl}"
-          f" on {where}] (paged {eng.n_pages}x{eng.page_size}): "
+          f" on {where}] ({layout}): "
           f"{len(reqs)} reqs / {toks} tokens in {wall * 1e3:.1f} ms = "
           f"{toks / wall:.0f} tok/s ({s['prefill_dispatches']}+"
           f"{s['decode_dispatches']} dispatches, "
@@ -111,6 +135,15 @@ def _real_engine_demo(arch: str, n_reqs: int, slots: int,
               f"{s['staged']} staged, {s['preempt_readmits']} preempted "
               f"requests re-admitted, {s['pressure_stalls']} pressure "
               f"stalls")
+    if eng._prefix is not None:
+        print(f"  prefix cache: {s['prefix_hits']} hits, "
+              f"{s['prefix_pages_reused']} pages reused, "
+              f"{s['prefix_tokens_skipped']} prefill tokens skipped, "
+              f"{s['cow_copies']} COW copies, {s['evictions']} evictions")
+    if eng.swap is not None:
+        print(f"  host swap: {s['swap_out']} out, {s['swap_in']} in, "
+              f"{s['swap_fallbacks']} fallbacks to recompute, "
+              f"{s['swap_bytes']} bytes")
     return {"tokens": toks, "wall_s": wall, "stats": dict(s)}
 
 
@@ -122,8 +155,8 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
     ap.add_argument("--real-reqs", type=int, default=32)
     ap.add_argument("--real-slots", type=int, default=8)
     ap.add_argument("--page-size", type=int, default=16,
-                    help="paged KV page size in positions (the contiguous "
-                         "layout is not ported)")
+                    help="paged KV page size in positions (0: the "
+                         "contiguous layout)")
     ap.add_argument("--n-pages", type=int, default=None,
                     help="paged KV pool size in pages (default: every slot "
                          "at max_len)")
@@ -140,6 +173,19 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
                     default="slack",
                     help="optimistic-admission victim choice: most SLO "
                          "slack, or the most recently admitted")
+    ap.add_argument("--prefix-cache", action="store_true",
+                    help="share common prompt prefixes at page "
+                         "granularity, copy on write (dense, paged)")
+    ap.add_argument("--prefix-evict", choices=["lru", "fifo"],
+                    default="lru",
+                    help="which cached prefix page a dry pool reclaims")
+    ap.add_argument("--swap", choices=["host"], default=None,
+                    help="copy a preempted request's KV pages to host "
+                         "memory and restore them at re-admission instead "
+                         "of replaying its prefix (paged)")
+    ap.add_argument("--swap-budget-mb", type=int, default=None,
+                    help="cap on parked host-swapped KV bytes; past it a "
+                         "victim recomputes (needs --swap host)")
     ap.add_argument("--quantize", choices=["none", "int8"], default="none")
     ap.add_argument("--chunk-threshold", type=int, default=None,
                     help="chunk prompts longer than this through the "
@@ -153,13 +199,21 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
     if not args.real_engine:
         ap.error("only --real-engine is ported; the control plane "
                  "(--backend/--clock) comes in a later slice")
+    if args.swap_budget_mb is not None and args.swap is None:
+        ap.error("--swap-budget-mb bounds the host swap buffer; it needs "
+                 "--swap host")
     _real_engine_demo(args.arch, args.real_reqs, args.real_slots,
-                      page_size=args.page_size, quantize=args.quantize,
+                      page_size=args.page_size or None,
+                      quantize=args.quantize,
                       device=args.device, reduced=args.reduced,
                       chunk_threshold=args.chunk_threshold,
                       n_pages=args.n_pages, stage_slots=args.stage_slots,
                       admission=args.admission,
-                      preempt_policy=args.preempt_policy)
+                      preempt_policy=args.preempt_policy,
+                      prefix_cache=args.prefix_cache,
+                      prefix_evict=args.prefix_evict, swap=args.swap,
+                      swap_budget_bytes=(None if args.swap_budget_mb is None
+                                         else args.swap_budget_mb << 20))
 
 
 if __name__ == "__main__":

@@ -1,6 +1,7 @@
-"""Paged KV cache primitives (the paged part of ``repro.models.kvcache``)
-and the leaf layout helpers the serving engine pages any family's cache
-with.
+"""KV cache primitives (``repro.models.kvcache``): the contiguous per-slot
+write, the paged write and views, the page copies of copy-on-write and
+host swap, and the leaf layout helpers the serving engine pages any
+family's cache with.
 
 A shared page pool ``(n_pages, page_size, K, D)`` per layer plus a per-slot
 block table ``(B, P)`` of page indices: logical position ``p`` of slot ``b``
@@ -14,10 +15,33 @@ masks and clamps. Unlike the JAX versions they update pools in place.
 """
 from __future__ import annotations
 
-from typing import Any, Callable, Dict, Tuple
+from typing import Any, Callable, Dict, Optional, Tuple
 
 import numpy as np
 import torch
+
+
+def update_layer_cache(k_cache: torch.Tensor, v_cache: torch.Tensor,
+                       k_new: torch.Tensor, v_new: torch.Tensor,
+                       pos: Any) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Write (B, S_new, K, D) rows at position ``pos`` of a contiguous
+    (B, S_max, K, D) buffer, in place: the contiguous layout's decode
+    write. ``pos`` is a shared scalar or a (B,) tensor of per-slot
+    positions; as ``lax.dynamic_update_slice`` does, a start is clamped so
+    that the rows fit.
+
+    One ``index_put_`` over (slot, row) index tensors: no mask, no read
+    back to the host, so a CUDA graph captures it."""
+    B, S_max = k_cache.shape[:2]
+    S_new = k_new.shape[1]
+    pos = torch.as_tensor(pos, device=k_cache.device).long()
+    pos = pos.expand(B) if pos.ndim == 0 else pos
+    start = torch.clamp(pos, 0, S_max - S_new)
+    rows = start[:, None] + torch.arange(S_new, device=k_cache.device)
+    slots = torch.arange(B, device=k_cache.device)[:, None].expand(B, S_new)
+    k_cache.index_put_((slots, rows), k_new.to(k_cache.dtype))
+    v_cache.index_put_((slots, rows), v_new.to(v_cache.dtype))
+    return k_cache, v_cache
 
 
 def page_coords(block_table: torch.Tensor, pos: Any,
@@ -115,6 +139,68 @@ def pool_shape(dims, bax: int, sax: int, n_pages: int,
                          f"axis {sax}")
     return (tuple(dims[:bax]) + tuple(dims[bax + 1:sax])
             + (n_pages, page_size) + tuple(dims[sax + 1:]))
+
+
+def _page_ids(page_ids, n_pages: int, what: str) -> torch.Tensor:
+    ids = np.asarray(page_ids, np.int64).reshape(-1)
+    if ((ids < 0) | (ids >= n_pages)).any():
+        raise ValueError(f"{what}: page ids {ids.tolist()} outside the "
+                         f"{n_pages} allocatable pages")
+    return torch.from_numpy(ids)
+
+
+def copy_pool_page(pool: torch.Tensor, src: int, dst: int, seq_axis: int,
+                   n_pages: Optional[int] = None) -> torch.Tensor:
+    """Copy physical page ``src`` of a pool leaf into page ``dst`` (page
+    axis at ``seq_axis - 1``), in place: the device half of copy-on-write,
+    run at a host boundary when a cache-hit seat must rewrite a position
+    inside a shared page. ``n_pages`` is the allocator's page count (the
+    pool's by default): a ``dst`` at or past it is dropped, as JAX's
+    ``mode="drop"`` drops it, so the kernel layout's trash page at index
+    ``n_pages`` is never written."""
+    pa = seq_axis - 1
+    n = pool.shape[pa] if n_pages is None else n_pages
+    if not 0 <= int(src) < n:
+        raise ValueError(f"copy_pool_page: source page {src} outside the "
+                         f"{n} allocatable pages")
+    if 0 <= int(dst) < n:
+        pool.select(pa, int(dst)).copy_(pool.select(pa, int(src)))
+    return pool
+
+
+def gather_pool_pages(pool: torch.Tensor, page_ids: Any, seq_axis: int,
+                      n_pages: Optional[int] = None) -> torch.Tensor:
+    """Copy the listed physical pages of a pool leaf to host memory: the
+    swap-out payload, ``(n, page_size, ...)`` with the page and in-page
+    axes leading, a plain CPU tensor. The bytes are copied, so the pages
+    can be reclaimed (and rewritten) at once. Every id must be an
+    allocatable page (below ``n_pages``, the pool's count by default):
+    the gather never lists the trash page."""
+    pa = seq_axis - 1
+    n = pool.shape[pa] if n_pages is None else n_pages
+    ids = _page_ids(page_ids, n, "gather_pool_pages").to(pool.device)
+    return pool.movedim((pa, pa + 1), (0, 1)).index_select(0, ids).cpu()
+
+
+def scatter_pool_pages(pool: torch.Tensor, host_pages: torch.Tensor,
+                       page_ids: Any, seq_axis: int,
+                       n_pages: Optional[int] = None) -> torch.Tensor:
+    """Write host page bytes (from ``gather_pool_pages``) back into a pool
+    leaf at the listed physical pages, in place: the swap-in half of host
+    swap. Ids at or past ``n_pages`` (the pool's count by default) are
+    dropped, as every pool scatter drops the sentinel, so the kernel
+    layout's trash page is never written."""
+    pa = seq_axis - 1
+    n = pool.shape[pa] if n_pages is None else n_pages
+    ids = np.asarray(page_ids, np.int64).reshape(-1)
+    keep = np.nonzero((ids >= 0) & (ids < n))[0]
+    if keep.size == 0:
+        return pool
+    dst = torch.from_numpy(ids[keep]).to(pool.device)
+    src = host_pages[torch.from_numpy(keep)]
+    view = pool.movedim((pa, pa + 1), (0, 1))
+    view[dst] = src.to(device=pool.device, dtype=pool.dtype)
+    return pool
 
 
 def scatter_pages(pool: torch.Tensor, new: torch.Tensor,

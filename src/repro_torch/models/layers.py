@@ -83,16 +83,20 @@ def attention_core(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     """Grouped-query attention. q (B, S, K, G, D), k/v (B, T, K, D).
 
     ``kv_valid_len`` masks kv positions ``>=`` it: an int, or a (B,) tensor
-    of per-slot lengths. ``impl="cuda"`` runs the flash kernel, which takes
-    only a scalar length: per-slot lengths need ``impl="torch"``, as the JAX
-    layer sends them to XLA.
+    of per-slot lengths. ``impl="cuda"`` runs the kernels: a one-token
+    query goes to the contiguous decode kernel, which takes either form
+    (per-slot lengths are read on the device: the contiguous layout's
+    decode and whisper's contiguous cross-attention), a longer one to
+    flash prefill, which takes only a scalar, so per-slot lengths there
+    raise by name (the JAX layer sends them to XLA; the port's callers
+    ask for ``impl="torch"``).
     """
     vec_valid = torch.is_tensor(kv_valid_len) and kv_valid_len.ndim > 0
     if impl == "cuda":
-        if vec_valid:
+        if vec_valid and q.shape[1] != 1:
             raise NotImplementedError(
                 "attention_core: the flash kernel takes a scalar kv_valid_len;"
-                " per-slot lengths need impl='torch'")
+                " per-slot lengths at prefill need impl='torch'")
         return kops.flash_attention_grouped(
             q, k, v, causal=causal, q_offset=q_offset,
             kv_valid_len=kv_valid_len, impl="cuda")

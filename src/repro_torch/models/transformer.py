@@ -5,8 +5,9 @@ part of ``repro.models.transformer``).
 Parameters are stacked on a leading layer axis, as in the JAX package, and
 the layer loop is a Python loop over per-layer views. Prefill returns the
 per-layer k/v of the prompt (and the cross-attention k/v of the context);
-decode runs one token per slot against the paged KV pools, which it
-updates in place.
+decode runs one token per slot against the cache, which it updates in
+place: paged KV pools read and written through a ``"bt"`` block table, or,
+for a cache without one, the contiguous layout's per-slot rows.
 
 The encoder inputs are stubs, as in ``repro``: audio takes precomputed
 frame embeddings (B, S, d_model), vlm precomputed patch embeddings
@@ -19,6 +20,7 @@ from typing import Any, Dict, Optional, Tuple
 import torch
 
 from repro_torch.configs.base import ArchConfig
+from repro_torch.models import kvcache as KV
 from repro_torch.models import layers as L
 from repro_torch.models.quantize import QuantizedWeight, qimpl_for
 
@@ -127,27 +129,26 @@ def _cross_block(x, blk, attend):
     return _ffn_residual(x, attend(q), blk, "torch")
 
 
-def _decode_block(cfg: ArchConfig, x, blk, k_pool, v_pool, bt, pos):
-    """One decode step through one self block against its paged pools,
-    which are updated in place. x: (B, 1, d)."""
+def _decode_block(cfg: ArchConfig, x, blk, kc, vc, bt, pos):
+    """One decode step through one self block, updating its cache in
+    place. x: (B, 1, d). With a (B, P) block table ``bt``, kc/vc are the
+    shared (n_phys, ps, K, D) pools; with ``bt`` None they are the
+    contiguous (B, S_max, K, D) slot rows, written at ``pos`` and attended
+    up to ``pos + 1``, per slot."""
     qi = qimpl_for(cfg.quantize)
     positions = pos.reshape(-1, 1)
     h = L.rmsnorm(x, blk["ln1"])
     q, k, v = L.attn_qkv(h, blk["attn"], qimpl=qi)
     q = L.apply_rope(q, positions, cfg.rope_theta)
     k = L.apply_rope(k, positions, cfg.rope_theta)
-    o, _, _ = L.paged_update_attend(q, k, v, k_pool, v_pool, bt, pos,
-                                    impl=cfg.attention_impl)
-    return _ffn_residual(x, o, blk, qi)
-
-
-def _paged_bt(cache, who: str) -> torch.Tensor:
-    bt = cache.get("bt")
     if bt is None:
-        raise NotImplementedError(
-            f"{who}: the contiguous KV layout is not ported; pass a paged "
-            "cache with a 'bt' block table")
-    return bt
+        KV.update_layer_cache(kc, vc, k, v, pos)
+        o = L.attention_core(q, kc, vc, causal=False, kv_valid_len=pos + 1,
+                             impl=cfg.attention_impl)
+    else:
+        o, _, _ = L.paged_update_attend(q, k, v, kc, vc, bt, pos,
+                                        impl=cfg.attention_impl)
+    return _ffn_residual(x, o, blk, qi)
 
 
 def _head(cfg: ArchConfig, params: Params, x, length=None):
@@ -179,10 +180,11 @@ def decode_dense(cfg: ArchConfig, params: Params, cache, token: torch.Tensor,
     """One new token per slot: token (B, 1), pos (B,) int32.
 
     ``cache`` holds the shared page pools ``"k"``/``"v"`` (L, n_phys, ps, K,
-    D) and the block table ``"bt"`` (B, P) int32; the pools are updated in
+    D) and the block table ``"bt"`` (B, P) int32, or, without ``"bt"``, the
+    contiguous ``"k"``/``"v"`` (L, B, S_max, K, D); either is updated in
     place. Returns (logits (B, 1, V) f32, cache).
     """
-    bt = _paged_bt(cache, "decode_dense")
+    bt = cache.get("bt")
     x = L.embed_tokens(token, params["embed"], DTYPES[cfg.dtype])
     for i in range(cfg.n_layers):
         x = _decode_block(cfg, x, layer_params(params["layers"], i),
@@ -239,11 +241,12 @@ def prefill_vlm(cfg: ArchConfig, params: Params, tokens: torch.Tensor,
 def decode_vlm(cfg: ArchConfig, params: Params, cache, token: torch.Tensor,
                pos: torch.Tensor):
     """One token per slot. ``cache``: self pools ``"k"``/``"v"`` (n_cross,
-    n_self_per, n_phys, ps, K, D), updated in place, the block table
-    ``"bt"``, and per-slot cross k/v ``"xk"``/``"xv"`` (n_cross, B, T, K,
-    D). The cross-attention decode is the contiguous decode kernel with
-    valid length T (``impl="cuda"``)."""
-    bt = _paged_bt(cache, "decode_vlm")
+    n_self_per, n_phys, ps, K, D) and the block table ``"bt"``, or, without
+    ``"bt"``, contiguous self k/v (n_cross, n_self_per, B, S_max, K, D),
+    updated in place; and per-slot cross k/v ``"xk"``/``"xv"`` (n_cross,
+    B, T, K, D). The cross-attention decode is the contiguous decode kernel
+    with valid length T (``impl="cuda"``)."""
+    bt = cache.get("bt")
     n_cross, per = _vlm_groups(cfg)
     x = L.embed_tokens(token, params["embed"], DTYPES[cfg.dtype])
     for c in range(n_cross):
@@ -311,18 +314,27 @@ def decode_audio(cfg: ArchConfig, params: Params, cache, token: torch.Tensor,
                  pos: torch.Tensor):
     """One token per slot. ``cache``: decoder self pools ``"k"``/``"v"``
     and encoder pools ``"xk"``/``"xv"`` (L, n_phys, ps, K, D) sharing the
-    block table ``"bt"``, and per-slot ``"enc_len"`` (B,) int32. The
-    cross-attention decode is the paged decode kernel, masked by
-    ``enc_len`` (``impl="cuda"``)."""
-    bt = _paged_bt(cache, "decode_audio")
+    block table ``"bt"``, or, without ``"bt"``, the contiguous (L, B, S, K,
+    D) leaves; and per-slot ``"enc_len"`` (B,) int32. The cross-attention
+    decode is masked by ``enc_len``: the paged decode kernel over the
+    encoder pools, or the contiguous decode kernel's per-slot form over
+    the contiguous ``xk``/``xv`` (``impl="cuda"``)."""
+    bt = cache.get("bt")
     enc_len = cache["enc_len"]
     x = L.embed_tokens(token, params["embed"], DTYPES[cfg.dtype])
     for i in range(cfg.n_layers):
         x = _decode_block(cfg, x, layer_params(params["decoder"], i),
                           cache["k"][i], cache["v"][i], bt, pos)
         xk, xv = cache["xk"][i], cache["xv"][i]
-        x = _cross_block(x, layer_params(params["cross"], i),
-                         lambda q: L.paged_attention_core(
-                             q, xk, xv, bt, kv_valid_len=enc_len,
-                             impl=cfg.attention_impl))
+        if bt is None:
+            def attend(q, xk=xk, xv=xv):
+                return L.attention_core(q, xk, xv, causal=False,
+                                        kv_valid_len=enc_len,
+                                        impl=cfg.attention_impl)
+        else:
+            def attend(q, xk=xk, xv=xv):
+                return L.paged_attention_core(q, xk, xv, bt,
+                                              kv_valid_len=enc_len,
+                                              impl=cfg.attention_impl)
+        x = _cross_block(x, layer_params(params["cross"], i), attend)
     return _head(cfg, params, x), cache

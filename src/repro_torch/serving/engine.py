@@ -1,4 +1,4 @@
-"""Continuous-batching serving engine over a paged KV cache
+"""Continuous-batching serving engine over a paged or contiguous KV cache
 (the open-loop core of ``repro.serving.engine``).
 
 The engine owns the model's cache leaves, a per-slot block table, and
@@ -106,18 +106,50 @@ decode kernel's clamped sentinel reads land there as well. The plain path
 keeps the exact-size pool and drops those writes instead. Either way no
 write touches a live page.
 
+**Prefix cache** (``prefix_cache``, ``prefix_evict``; dense, paged).
+Prompts are hashed a page at a time with a chained sha1 (``PrefixCache``);
+a prompt page fully written by a slot is registered at the harvest that
+passes it, and stays indexed while held and, once released, in the
+allocator's cached pool until a dry free list evicts it (LRU or FIFO).
+Admission attaches the longest indexed run of a new prompt's pages to its
+slot (refcounted) and seats it to feed from the first uncached token
+(``_seat_prefix(start=)``). A hit covering the whole prompt still writes
+its last position: that page is copied on write first (``_copy_page``, a
+device page copy at the host boundary, outside the graph) unless the slot
+is its only holder. The step graph writes only at each slot's ``pos``
+through ``_bt_dev``, so no write lands in a page of refcount above 1.
+
+**Host swap** (``swap="host"``, ``swap_budget_bytes``; dense, paged). A
+preempted request past its prompt feed has its pages copied to plain host
+tensors before they are released; at re-admission fresh pages take the
+bytes back and ``tok``, ``pos``, ``rem`` and ``plen`` are written in place
+(``_swap_in``), so it resumes with no replay. A victim the gates refuse —
+the contiguous layout, a slot still feeding, a payload past the budget —
+recomputes and counts ``swap_fallbacks``.
+
+**Contiguous layout** (``page_size=None``). Every leaf keeps its
+``(.., B, max_len, ..)`` shape and a slot owns its rows: no allocator, no
+block table, no ring block-table rows. Prefill writes a slot's rows, and
+the decode step writes each slot's k/v at ``pos`` and attends up to
+``pos + 1`` (``kvcache.update_layer_cache``; on the card the contiguous
+decode kernel's per-slot form, inside the same captured step). Admission
+is gated on free slots alone, so optimistic admission clamps to worst
+case, and the prefix cache and swap (page mechanisms) are off.
+
 **In place.** Pools and the loop state are updated in place (the JAX
 engine is functional). The warm-up steps a capture needs run with every
 slot inactive, every block-table row at the sentinel and the ring empty,
-so their writes are dropped, and the loop state is restored afterwards.
+so their writes are dropped (in the contiguous layout they land on rows
+no slot has read yet, ``_quiesced``), and the loop state is restored
+afterwards.
 
-Knobs of the JAX engine that this slice lacks — the contiguous layout
-(``page_size=None``), ``prefix_cache``, ``swap`` and ``speculate`` — raise
+``speculate``, the one knob of the JAX engine this slice lacks, raises
 ``NotImplementedError`` rather than being ignored.
 """
 from __future__ import annotations
 
 import dataclasses
+import hashlib
 import time
 from collections import deque
 from contextlib import contextmanager
@@ -164,6 +196,10 @@ class _Parked:
     req: Request
     prefix: np.ndarray      # prompt + every token generated before preempt
     done: List[int]         # tokens already generated (re-credited at seat)
+    # host swap payload (``swap="host"``): paged leaf name -> a host copy
+    # of the victim's pages in block-table order; None = recompute
+    kv: Optional[Dict[str, torch.Tensor]] = None
+    swap_bytes: int = 0     # budget charge, released at swap-in or cancel
 
 
 def bucket_len(n: int, minimum: int = 8, maximum: Optional[int] = None) -> int:
@@ -186,8 +222,19 @@ class PageAllocator:
     re-keyed to the slot that the staging ring promotes them into
     (``rekey``). Optimistic admission reserves with ``strict=False`` (the
     commitments may exceed the pool) and probes growth with
-    ``can_cover``. No page is held by two holders, free + held pages ==
-    ``n_pages`` at all times, and a full drain returns every page.
+    ``can_cover``.
+
+    **Sharing** (the prefix cache): pages are refcounted. ``attach()``
+    points another holder at pages already resident, ``release()``
+    decrements, and a page whose count reaches 0 goes to the free list or,
+    when the ``retain`` hook claims it (the prefix cache keeps the pages it
+    has indexed), to a *cached* pool of reclaimable pages. ``cover()`` and
+    ``cow()`` evict a cached page (``evict_choice`` picks it, ``on_evict``
+    tells the index) when the free list is dry, so caching never costs
+    capacity. Invariants: free + cached + unique held pages == ``n_pages``,
+    a page's refcount equals the number of holders listing it, eviction
+    takes only pages of refcount 0, and a full drain returns every page to
+    the free or the cached pool.
     """
 
     def __init__(self, n_pages: int, page_size: int):
@@ -198,6 +245,16 @@ class PageAllocator:
         self._free: List[int] = list(range(n_pages))[::-1]
         self._pages: Dict[Any, List[int]] = {}
         self._reserved: Dict[Any, int] = {}
+        self._refcnt: Dict[int, int] = {}          # page -> holders
+        self._cached: Dict[int, None] = {}         # retained, refcount 0
+        # the prefix cache's seams (all optional): ``retain(page) -> bool``
+        # keeps a released page cached instead of free; ``evict_choice()
+        # -> page`` picks the cached page to reclaim; ``on_evict(page)``
+        # tells the index its contents are about to be overwritten
+        self.retain = None
+        self.evict_choice = None
+        self.on_evict = None
+        self.evictions = 0
 
     def pages_needed(self, n_positions: int) -> int:
         return max(0, -(-int(n_positions) // self.page_size))
@@ -212,9 +269,17 @@ class PageAllocator:
         return len(self._free)
 
     @property
+    def n_cached(self) -> int:
+        """Pages of refcount 0 the prefix cache retains (reclaimable)."""
+        return len(self._cached)
+
+    @property
     def n_avail(self) -> int:
-        """Pages a cover can obtain (the free list: no cached pool yet)."""
-        return len(self._free)
+        """Pages a cover or a cow can obtain: free + evictable."""
+        return len(self._free) + len(self._cached)
+
+    def refcount(self, page: int) -> int:
+        return self._refcnt.get(page, 0)
 
     def live_pages(self) -> List[int]:
         return [p for pages in self._pages.values() for p in pages]
@@ -240,12 +305,36 @@ class PageAllocator:
         self._pages[holder] = []
 
     def can_cover(self, holder: Any, n_positions: int) -> bool:
-        """Enough free pages for ``cover(holder, n_positions)``? Always
-        true under worst-case admission; the pressure probe of optimistic
-        admission."""
+        """Enough obtainable pages for ``cover(holder, n_positions)``?
+        Always true under worst-case admission; the pressure probe of
+        optimistic admission. Cached pages count: they evict on demand."""
         held = len(self._pages[holder])
         target = min(self.pages_needed(n_positions), self._reserved[holder])
         return target - held <= self.n_avail
+
+    def _grab(self) -> int:
+        """One physical page at refcount 1: the free list first, else an
+        evicted cached page (refcount 0, so no holder references it)."""
+        if self._free:
+            page = self._free.pop()
+        else:
+            page = (self.evict_choice() if self.evict_choice
+                    else next(iter(self._cached)))
+            del self._cached[page]
+            if self.on_evict is not None:
+                self.on_evict(page)
+            self.evictions += 1
+        self._refcnt[page] = 1
+        return page
+
+    def _deref(self, page: int) -> None:
+        self._refcnt[page] -= 1
+        if self._refcnt[page] == 0:
+            del self._refcnt[page]
+            if self.retain is not None and self.retain(page):
+                self._cached[page] = None
+            else:
+                self._free.append(page)
 
     def cover(self, holder: Any, n_positions: int) -> List[int]:
         """Grow ``holder`` to cover positions [0, n); returns the new pages."""
@@ -253,16 +342,41 @@ class PageAllocator:
         target = min(self.pages_needed(n_positions), self._reserved[holder])
         grown = []
         while len(held) < target:
-            page = self._free.pop()
+            page = self._grab()
             grown.append(page)
             held.append(page)
         return grown
 
+    def attach(self, holder: Any, pages: Sequence[int]) -> None:
+        """Point ``holder`` at resident pages (a prefix-cache hit): each
+        page's refcount grows by one, cached pages come back live, and the
+        pages count toward the holder's reservation like covered ones."""
+        held = self._pages[holder]
+        for p in pages:
+            self._cached.pop(p, None)
+            self._refcnt[p] = self._refcnt.get(p, 0) + 1
+            held.append(p)
+
+    def cow(self, holder: Any, idx: int) -> Tuple[int, int]:
+        """Copy-on-write ``holder``'s ``idx``-th page: grab a private page
+        at refcount 1, put it in the holder's list and drop the holder's
+        reference to the shared one. Returns ``(shared, private)``; the
+        caller copies the page's device contents."""
+        held = self._pages[holder]
+        old = held[idx]
+        new = self._grab()
+        held[idx] = new
+        self._deref(old)
+        return old, new
+
     def release(self, holder: Any) -> List[int]:
-        """Return all of ``holder``'s pages to the free list."""
+        """Drop all of ``holder``'s page references. A page nobody else
+        references goes to the free list, or to the cached pool when the
+        prefix cache indexes it."""
         pages = self._pages.pop(holder)
         del self._reserved[holder]
-        self._free.extend(pages)
+        for p in pages:
+            self._deref(p)
         return pages
 
     def rekey(self, old: Any, new: Any) -> None:
@@ -272,6 +386,100 @@ class PageAllocator:
             raise ValueError(f"holder {new!r} already live")
         self._reserved[new] = self._reserved.pop(old)
         self._pages[new] = self._pages.pop(old)
+
+
+class PrefixCache:
+    """Host-side prefix index over the shared KV page pool.
+
+    Prompts are hashed a page at a time with a chained digest,
+    ``h_i = sha1(h_{i-1} || tokens[i*ps:(i+1)*ps])``, so a page's digest
+    commits to every token before it. ``register()`` maps a digest to the
+    physical page holding that page's KV once the page is fully written
+    with prompt tokens; ``lookup()`` walks a new prompt's chain and returns
+    the longest run of indexed pages, which admission attaches to the new
+    slot's block table (refcounted; a seat that must write inside a shared
+    page copies it first).
+
+    Indexed pages stay indexed while held and move to the allocator's
+    cached pool when their last holder releases them; a cached page is
+    evicted (and unindexed, through ``on_evict``) only when the free list
+    is dry. ``policy="lru"`` evicts the page released longest ago,
+    ``"fifo"`` the one registered first.
+    """
+
+    def __init__(self, alloc: PageAllocator, page_size: int,
+                 policy: str = "lru"):
+        if policy not in ("lru", "fifo"):
+            raise ValueError(f"unknown prefix eviction policy {policy!r}")
+        self._alloc = alloc
+        self.page_size = page_size
+        self.policy = policy
+        self._index: Dict[bytes, int] = {}       # chain digest -> page
+        self._hash_of: Dict[int, bytes] = {}     # page -> chain digest
+        self._reg_seq: Dict[int, int] = {}       # page -> registration no.
+        self._seq = 0
+        alloc.retain = self._retain
+        alloc.on_evict = self._on_evict
+        alloc.evict_choice = self._evict_choice
+
+    def _retain(self, page: int) -> bool:
+        return page in self._hash_of
+
+    def _on_evict(self, page: int) -> None:
+        h = self._hash_of.pop(page)
+        del self._index[h]
+        del self._reg_seq[page]
+
+    def _evict_choice(self) -> int:
+        cached = self._alloc._cached
+        if self.policy == "fifo":
+            return min(cached, key=lambda p: self._reg_seq[p])
+        return next(iter(cached))       # dict order is release order
+
+    def chain(self, tokens: np.ndarray) -> List[bytes]:
+        """Chained digests of every *full* page of ``tokens``."""
+        ps = self.page_size
+        toks = np.ascontiguousarray(np.asarray(tokens), np.int32)
+        h, out = b"", []
+        for i in range(len(toks) // ps):
+            h = hashlib.sha1(h + toks[i * ps:(i + 1) * ps].tobytes()).digest()
+            out.append(h)
+        return out
+
+    def lookup(self, tokens: np.ndarray) -> List[int]:
+        """The longest indexed page run covering a prefix of ``tokens``."""
+        pages = []
+        for h in self.chain(tokens):
+            page = self._index.get(h)
+            if page is None:
+                break
+            pages.append(page)
+        return pages
+
+    def register(self, digests: Sequence[bytes],
+                 pages: Sequence[int]) -> None:
+        """Index ``pages[i]``, fully written with the tokens ``digests[i]``
+        commits to. A digest already indexed keeps its first page: two
+        slots that raced the same prompt each keep their own copy."""
+        for h, p in zip(digests, pages):
+            if h in self._index or p in self._hash_of:
+                continue
+            self._index[h] = p
+            self._hash_of[p] = h
+            self._reg_seq[p] = self._seq
+            self._seq += 1
+
+    def unindex(self, page: int) -> None:
+        """Drop ``page`` from the index: its sole holder is about to write
+        it in place. It registers again (same digest, same contents) once
+        the holder's writes are harvested."""
+        h = self._hash_of.pop(page, None)
+        if h is not None:
+            del self._index[h]
+            del self._reg_seq[page]
+
+    def __len__(self) -> int:
+        return len(self._index)
 
 
 class SegmentPlan(NamedTuple):
@@ -335,23 +543,19 @@ class ServingEngine:
                  chunk_threshold: Optional[int] = None,
                  stage_slots: int = 0, admission: str = "worstcase",
                  preempt_policy: str = "slack",
-                 prefix_cache: bool = False, swap: Optional[str] = None,
+                 prefix_cache: bool = False, prefix_evict: str = "lru",
+                 swap: Optional[str] = None,
+                 swap_budget_bytes: Optional[int] = None,
                  speculate: Optional[Any] = None, stream: bool = False):
-        unported = {
-            "page_size=None (the contiguous KV layout)": page_size is None,
-            "prefix_cache": bool(prefix_cache),
-            "swap": swap is not None,
-            "speculate": speculate is not None,
-        }
-        missing = [k for k, on in unported.items() if on]
-        if missing:
-            raise NotImplementedError(
-                "not ported yet: " + ", ".join(missing))
+        if speculate is not None:
+            raise NotImplementedError("not ported yet: speculate")
         if admission not in ("worstcase", "optimistic"):
             raise ValueError(f"unknown admission mode {admission!r}")
         if preempt_policy not in ("slack", "lru"):
             raise ValueError(f"unknown preempt policy {preempt_policy!r}")
-        if max_len % page_size != 0:
+        if swap not in (None, "host"):
+            raise ValueError(f"unknown swap mode {swap!r}")
+        if page_size is not None and max_len % page_size != 0:
             raise ValueError(f"max_len {max_len} not a multiple of "
                              f"page_size {page_size}")
         cfg = model.cfg
@@ -370,33 +574,77 @@ class ServingEngine:
         self._chunk_ok = cfg.family == "dense"
         self.chunk_threshold = chunk_threshold if self._chunk_ok else None
         self.stage_slots = int(stage_slots) if self._chunk_ok else 0
-        self.admission = admission if self._chunk_ok else "worstcase"
         self.preempt_policy = preempt_policy
         self.page_size = page_size
-        self.pages_per_slot = max_len // page_size
-        self.n_pages = (max_batch * self.pages_per_slot if n_pages is None
-                        else n_pages)
-        self._alloc = PageAllocator(self.n_pages, page_size)
-        # the fused kernel writes inactive slots' rows into a trash page at
-        # the sentinel index; the plain path drops those writes instead
-        self._pool_pages = self.n_pages + (
-            1 if cfg.attention_impl == "cuda" else 0)
+        # every ported family has leaves with a sequence axis, so a page
+        # size always pages the cache; None is the contiguous layout
+        self._paged = page_size is not None
         shapes = model.cache_shapes(max_batch, max_len, enc_len=max_len)
         self._axes = KV.leaf_axes(model.cache_shapes, max_len)
+        # every leaf position-addressable (no per-slot state): the gate of
+        # the prefix cache and of host swap, which rebuild a slot from pool
+        # pages alone
+        self._all_paged = all(sax != -1 for _, sax in self._axes.values())
         self._cache = {}
-        for name, (dims, dtype) in shapes.items():
-            bax, sax = self._axes[name]
-            if sax != -1:
-                dims = KV.pool_shape(dims, bax, sax, self._pool_pages,
-                                     page_size)
-            self._cache[name] = torch.zeros(dims, dtype=dtype,
-                                            device=self.device)
-        # the block table: a host copy that admission and growth edit, and
-        # its static device buffer, refreshed in place before a segment
-        self._bt = KV.sentinel_block_table(max_batch, self.pages_per_slot,
-                                           self.n_pages)
-        self._bt_dev = torch.from_numpy(self._bt).to(self.device)
+        if self._paged:
+            self.pages_per_slot = max_len // page_size
+            self.n_pages = (max_batch * self.pages_per_slot
+                            if n_pages is None else n_pages)
+            self._alloc: Optional[PageAllocator] = PageAllocator(
+                self.n_pages, page_size)
+            # the fused kernel writes inactive slots' rows into a trash
+            # page at the sentinel index; the plain path drops those writes
+            self._pool_pages = self.n_pages + (
+                1 if cfg.attention_impl == "cuda" else 0)
+            for name, (dims, dtype) in shapes.items():
+                bax, sax = self._axes[name]
+                if sax != -1:
+                    dims = KV.pool_shape(dims, bax, sax, self._pool_pages,
+                                         page_size)
+                self._cache[name] = torch.zeros(dims, dtype=dtype,
+                                                device=self.device)
+            # the block table: a host copy that admission and growth edit,
+            # and its static device buffer, refreshed in place before a
+            # segment
+            self._bt = KV.sentinel_block_table(
+                max_batch, self.pages_per_slot, self.n_pages)
+            self._bt_dev = torch.from_numpy(self._bt).to(self.device)
+        else:
+            # the contiguous layout: every leaf keeps its (.., B, max_len,
+            # ..) shape and a slot owns its rows; no allocator, no table
+            self.pages_per_slot = self.n_pages = self._pool_pages = 0
+            self._alloc = None
+            self._bt = self._bt_dev = None
+            for name, (dims, dtype) in shapes.items():
+                self._cache[name] = torch.zeros(dims, dtype=dtype,
+                                                device=self.device)
         self._bt_stale = False
+        # optimistic admission is a page-pool discipline: the contiguous
+        # layout (and the families that cannot replay) clamp it off
+        self.admission = admission if (self._paged and self._chunk_ok) \
+            else "worstcase"
+        # the prefix cache needs the paged layout, the teacher-forced seat
+        # (a hit resumes the prompt at its first uncached token) and every
+        # leaf in the pool: audio's enc_len and vlm's image k/v are
+        # per-slot state, so those families (and the contiguous layout)
+        # clamp it off
+        self._prefix: Optional[PrefixCache] = None
+        if prefix_cache and self._paged and self._chunk_ok \
+                and self._all_paged:
+            self._prefix = PrefixCache(self._alloc, page_size,
+                                       policy=prefix_evict)
+        # per-slot registration frontier: prompt pages [0, _reg_upto[s])
+        # of slot s are indexed; the chain digests of its seated row are
+        # taken at seat time
+        self._reg_upto = np.zeros((max_batch,), np.int64)
+        self._seat_digests: List[List[bytes]] = [[] for _ in
+                                                 range(max_batch)]
+        # host swap: a victim's pages copied to host memory at preemption
+        # and scattered back at re-admission, bounded by the budget (None
+        # = unbounded); whatever the gates refuse recomputes
+        self.swap = swap
+        self.swap_budget_bytes = swap_budget_bytes
+        self._swap_live_bytes = 0
         # the decode loop state (the reference's carry), static buffers
         # that a captured step reads and writes at fixed addresses
         i32 = dict(dtype=torch.int32, device=self.device)
@@ -410,7 +658,8 @@ class ServingEngine:
         self._slot_ids = torch.arange(max_batch, **i32)
         # the staging ring, one buffer written by one host copy: prompt
         # rows (R, max_len), prompt lengths and max_new (R,), block-table
-        # rows (R, pages_per_slot) and the count of valid entries
+        # rows (R, pages_per_slot; none in the contiguous layout) and the
+        # count of valid entries
         R = self._ring_cap = max(self.stage_slots, 1)
         pps = self.pages_per_slot
         self._ring_host = np.zeros((R * (max_len + 2 + pps) + 1,), np.int32)
@@ -433,7 +682,8 @@ class ServingEngine:
         self._counters = self._rb[nb + 3 * C:]
         self._n_comp, self._busy, self._head = (
             self._counters[k:k + 1] for k in range(3))
-        self._dcache = dict(self._cache, bt=self._bt_dev)
+        self._dcache = (dict(self._cache, bt=self._bt_dev) if self._paged
+                        else dict(self._cache))
         self._graph: Optional[Any] = None
         self._graph_launches: Dict[str, int] = {}
         # host mirrors of rem, pos and plen: they plan each segment and
@@ -448,7 +698,10 @@ class ServingEngine:
             "peak_concurrency": 0, "staged": 0, "inseg_admissions": 0,
             "busy_slot_steps": 0, "bubble_slot_steps": 0,
             "preemptions": 0, "preempt_readmits": 0, "pressure_stalls": 0,
-            "graph_replays": 0,
+            "prefix_hits": 0, "prefix_pages_reused": 0, "cow_copies": 0,
+            "evictions": 0, "prefix_tokens_skipped": 0,
+            "swap_out": 0, "swap_in": 0, "swap_fallbacks": 0,
+            "swap_bytes": 0, "graph_replays": 0,
         }
         # host wall seconds spent in prefill dispatches and decode
         # segments, each ending in its host sync, and in the graph
@@ -464,8 +717,8 @@ class ServingEngine:
         # many of its _gen entries that row already holds (re-credits)
         self._slot_prefix: List[Optional[np.ndarray]] = [None] * max_batch
         self._seat_credit = np.zeros((max_batch,), np.int64)
-        # the staged FIFO (request, allocator ticket, block-table row),
-        # mirrored into the device ring
+        # the staged FIFO (request, allocator ticket, block-table row; the
+        # last two None in the contiguous layout), mirrored into the ring
         self._staged: deque = deque()
         self._stage_seq = 0
         # preempted requests parked on the host (``_Parked``), FIFO
@@ -491,7 +744,7 @@ class ServingEngine:
 
     def _sync_bt(self) -> None:
         """Copy the host block table into its device buffer after a change."""
-        if self._bt_stale:
+        if self._bt_stale and self._paged:
             self._bt_dev.copy_(torch.from_numpy(self._bt))
             self._bt_stale = False
 
@@ -507,7 +760,8 @@ class ServingEngine:
             tok[j, :len(r.prompt)] = r.prompt
             plen[j] = len(r.prompt)
             new[j] = max(r.max_new_tokens, 1)
-            bt[j] = bt_row
+            if bt_row is not None:
+                bt[j] = bt_row
         n_stage[0] = len(self._staged)
         self._ring.copy_(torch.from_numpy(h))
         self._ring_stale = False
@@ -560,9 +814,12 @@ class ServingEngine:
         rem.copy_(torch.where(adm, self._ring_new.index_select(0, src), rem))
         plen.copy_(torch.where(adm, self._ring_plen.index_select(0, src),
                                plen))
-        # the refilled slot's block-table row, read by the next step
-        self._bt_dev.copy_(torch.where(
-            adm[:, None], self._ring_bt.index_select(0, src), self._bt_dev))
+        # the refilled slot's block-table row, read by the next step (the
+        # layout is fixed at construction; the contiguous one has no table)
+        if self._paged:
+            self._bt_dev.copy_(torch.where(
+                adm[:, None], self._ring_bt.index_select(0, src),
+                self._bt_dev))
         self._head.add_(torch.minimum(nfin, avail.clamp(min=0)))
         self._n_comp.add_(nfin)
         self._busy.add_(torch.sum(active.to(torch.int32), dtype=torch.int32))
@@ -576,12 +833,20 @@ class ServingEngine:
         which the fused kernel drops, and no slot is refilled; ``tok``,
         ``pos``, ``rem``, ``plen``, the prompt buffer, the ring, the
         emitted tokens, the completion log and its counters, the step
-        counter and the block table are restored on exit."""
+        counter and the block table are restored on exit.
+
+        The contiguous layout has no block table to point at a sentinel:
+        a step there writes each slot's row at its ``pos``, which no slot
+        has read yet (a live slot's rows [0, pos) hold its KV, and the row
+        at ``pos`` is the next it writes), so the next write of the
+        slot's occupant at that row comes before any read of it."""
         saved = [(t, t.clone()) for t in (
             self._tok, self._pos, self._rem_dev, self._plen_dev,
-            self._pbuf, self._ring, self._rb, self._step_i, self._bt_dev)]
+            self._pbuf, self._ring, self._rb, self._step_i)]
+        if self._paged:
+            saved.append((self._bt_dev, self._bt_dev.clone()))
+            self._bt_dev.fill_(self.n_pages)
         self._rem_dev.zero_()
-        self._bt_dev.fill_(self.n_pages)
         self._n_stage.zero_()
         try:
             yield
@@ -691,7 +956,7 @@ class ServingEngine:
                 device=dev)
         return batch
 
-    def _insert_prefill(self, pcache, page_rows: np.ndarray,
+    def _insert_prefill(self, pcache, page_rows: Optional[np.ndarray],
                         slot_t: torch.Tensor) -> None:
         """Write an admit batch's prefill cache into the engine's leaves.
 
@@ -699,16 +964,23 @@ class ServingEngine:
         is the sentinel land in the trash page when the pool has one and are
         dropped otherwise (JAX's ``mode="drop"``): they are the padding rows
         of the admit batch and bucket padding past a slot's pages, and never
-        reach a live page. State leaves take their first ``len(slot_t)`` rows
-        by slot; the padding rows after them are dropped.
+        reach a live page. State leaves, and every leaf of the contiguous
+        layout, take their first ``len(slot_t)`` rows by slot (a sequence
+        axis in its first ``bucket`` positions); the padding rows after them
+        are dropped.
         """
         for name, leaf in self._cache.items():
             bax, sax = self._axes[name]
-            if sax == -1:
-                rows = pcache[name].movedim(bax, 0)[:len(slot_t)]
-                leaf.movedim(bax, 0)[slot_t] = rows.to(leaf.dtype)
-            else:
+            if sax != -1 and self._paged:
                 KV.scatter_pages(leaf, pcache[name], page_rows, bax, sax)
+                continue
+            rows = pcache[name].movedim(bax, 0)[:len(slot_t)]
+            dst = leaf.movedim(bax, 0)
+            if sax != -1:
+                # the batch axis lies before the sequence axis, which the
+                # move leaves where it was
+                dst = dst.narrow(sax, 0, rows.shape[sax])
+            dst[slot_t] = rows.to(leaf.dtype)
 
     def _admit_group(self, bucket: int, rs: List[Request],
                      slots: List[int]) -> np.ndarray:
@@ -720,11 +992,13 @@ class ServingEngine:
         for j, r in enumerate(rs):
             tokens[j, :len(r.prompt)] = r.prompt        # right-pad
             lengths[j] = len(r.prompt)
-        n_rows = self._page_rows_for(bucket)
-        page_rows = np.full((nb, n_rows), self.n_pages, np.int32)
-        for j, (r, s) in enumerate(zip(rs, slots)):
-            self._grow_slot(s, len(r.prompt))
-            page_rows[j] = self._bt[s, :n_rows]
+        page_rows = None
+        if self._paged:
+            n_rows = self._page_rows_for(bucket)
+            page_rows = np.full((nb, n_rows), self.n_pages, np.int32)
+            for j, (r, s) in enumerate(zip(rs, slots)):
+                self._grow_slot(s, len(r.prompt))
+                page_rows[j] = self._bt[s, :n_rows]
         rem = np.asarray([max(r.max_new_tokens, 1) - 1 for r in rs],
                          np.int32)
         t0 = time.perf_counter()
@@ -746,33 +1020,94 @@ class ServingEngine:
         for r, s in zip(rs, slots):
             self._slot_prefix[s] = np.asarray(r.prompt, np.int32)
             self._seat_credit[s] = 0
+            self._set_digests(s, r.prompt)
         self.stats["prefill_dispatches"] += 1
         self.stats["admitted"] += m
         return firsts_np
 
+    def _set_digests(self, slot: int, tokens: Optional[np.ndarray]) -> None:
+        """Restart ``slot``'s prefix registration over the seated tokens
+        (None: register nothing for this occupancy)."""
+        if self._prefix is not None:
+            self._seat_digests[slot] = ([] if tokens is None
+                                        else self._prefix.chain(tokens))
+            self._reg_upto[slot] = 0
+
+    def _lookup_attach(self, slot: int,
+                       tokens: np.ndarray) -> Optional[int]:
+        """Prefix-cache lookup for a request about to be seated in
+        ``slot`` (which already holds its reservation): attach the hit
+        pages to the slot's block table (refcounted) and return the
+        position the seat feeds from (the first uncached token), or None
+        on a miss.
+
+        When the hit covers every full page of the prompt, the seat still
+        writes position ``plen - 1`` (its logits give the first token),
+        inside the last shared page: that page is copied first unless the
+        slot is its only holder, in which case it is written in place and
+        unindexed until the write is harvested. So no write ever lands in
+        a page of refcount above 1: the step writes only at each slot's
+        ``pos`` through ``_bt_dev``, which takes the private copy before
+        the next replay (``_sync_bt``)."""
+        if self._prefix is None:
+            return None
+        hit = self._prefix.lookup(tokens)
+        if not hit:
+            return None
+        ps = self.page_size
+        plen = len(tokens)
+        self._alloc.attach(slot, hit)
+        self._bt[slot, :len(hit)] = hit
+        self._bt_stale = True
+        start = min(len(hit) * ps, plen - 1)
+        if len(hit) * ps >= plen:
+            if self._alloc.refcount(hit[-1]) > 1:
+                old, new = self._alloc.cow(slot, len(hit) - 1)
+                self._bt[slot, len(hit) - 1] = new
+                self._copy_page(old, new)
+                self.stats["cow_copies"] += 1
+            else:
+                self._prefix.unindex(hit[-1])
+        self.stats["prefix_hits"] += 1
+        self.stats["prefix_pages_reused"] += len(hit)
+        self.stats["prefix_tokens_skipped"] += start
+        return start
+
+    def _copy_page(self, src: int, dst: int) -> None:
+        """The device half of copy-on-write: physical page ``src`` copied
+        into ``dst`` in every paged leaf, at a host boundary, outside the
+        step graph (the copies are queued before the next replay)."""
+        for name, leaf in self._cache.items():
+            sax = self._axes[name][1]
+            if sax != -1:
+                KV.copy_pool_page(leaf, src, dst, sax, n_pages=self.n_pages)
+
     def _seat_prefix(self, slot: int, prefix: np.ndarray,
-                     max_new: int) -> None:
+                     max_new: int, start: int = 0) -> None:
         """Seat a token prefix in ``slot`` for teacher-forced feeding: no
         prefill dispatch. The prefix goes to the slot's row of the device
-        prompt buffer, and the next segments feed it one token a step
-        before the slot emits ``max_new`` greedy tokens. The primitive
-        under chunked admission (prefix == prompt), the boundary seat of a
-        staged request and preemption recovery (prefix == prompt + the
-        tokens already generated). The dense family has no O(1) state to
-        reset."""
+        prompt buffer, and the next segments feed it one token a step from
+        position ``start`` before the slot emits ``max_new`` greedy
+        tokens. The primitive under chunked admission (prefix == prompt),
+        the boundary seat of a staged request and preemption recovery
+        (prefix == prompt + the tokens already generated). A prefix-cache
+        hit passes ``start`` > 0: positions [0, start) are resident in the
+        slot's attached pages, so the feed starts at ``row[start]``. The
+        dense family has no O(1) state to reset."""
         n = len(prefix)
         row = np.zeros((self.max_len,), np.int32)
         row[:n] = prefix
         max_new = max(max_new, 1)
         self._pbuf[slot] = torch.from_numpy(row).to(self.device)
         self._plen_dev[slot] = n
-        self._pos[slot] = 0
-        self._tok[slot, 0] = int(prefix[0])
+        self._pos[slot] = start
+        self._tok[slot, 0] = int(prefix[start])
         self._rem_dev[slot] = max_new
         self._plen[slot], self._slot_pos[slot], self._rem[slot] = \
-            n, 0, max_new
+            n, start, max_new
         self._slot_prefix[slot] = np.asarray(prefix, np.int32)
         self._seat_credit[slot] = 0
+        self._set_digests(slot, prefix)
 
     def _admit_chunk(self, r: Request, slot: int) -> None:
         """Chunked admission: the prompt is seated for feeding through the
@@ -797,6 +1132,8 @@ class ServingEngine:
             raise ValueError(
                 f"request {r.rid}: prompt_len {len(r.prompt)} + max_new "
                 f"{r.max_new_tokens} exceeds engine max_len {self.max_len}")
+        if self._alloc is None:
+            return
         need = self._alloc.pages_needed(self._n_positions(r))
         if need > self.n_pages:
             raise ValueError(
@@ -815,35 +1152,55 @@ class ServingEngine:
         """Fill free slots, then top up the staging ring.
 
         Parked requests come first, never optimistically: a parked request
-        waits until its whole worst case fits in free pages. Then staged
-        requests that no segment pulled in take free slots (a boundary
-        seat). Then, while nothing is parked, pending requests FIFO: under
-        worst-case admission while the pool holds the head's worst case,
-        under optimistic admission while free pages hold its expected
-        usage (a prefill its prompt pages, a chunked prompt its first
-        ``decode_block`` stride). Prompts longer than ``chunk_threshold``
-        are seated for chunked prefill, the rest prefilled grouped by
-        prompt bucket. Last, the overflow is staged, each staged request
-        reserving under a ticket with its first ``decode_block``
-        positions' pages covered: no host boundary can grow them inside a
-        segment."""
+        waits until its whole worst case fits in free pages. One with a
+        host swap payload is restored into fresh pages (``_swap_in``);
+        the others re-hit the prefix cache where they can and replay the
+        rest. Then staged requests that no segment pulled in take free
+        slots (a boundary seat). Then, while nothing is parked, pending
+        requests FIFO: under worst-case admission while the pool holds the
+        head's worst case, under optimistic admission while free and
+        cached pages hold its expected usage (a prefill its prompt pages,
+        a chunked prompt its first ``decode_block`` stride, a prefix-cache
+        hit the stride past its cached pages plus one for a copy). A hit
+        is seated to feed from its first uncached token; prompts longer
+        than ``chunk_threshold`` are seated for chunked prefill; the rest
+        are prefilled grouped by prompt bucket. Last, the overflow is
+        staged, each staged request reserving under a ticket with its
+        first ``decode_block`` positions' pages covered: no host boundary
+        can grow them inside a segment. Staged requests never look up the
+        prefix cache (no page can be attached inside a segment), but their
+        prompt pages register. The contiguous layout gates on free slots
+        alone."""
         now = time.perf_counter()
+        alloc = self._alloc
         strict = self.admission != "optimistic"
         while self._preempted and self._free:
             p = self._preempted[0]
             npos = self._n_positions(p.req)
-            if strict:
-                if not self._alloc.can_reserve(npos):
+            if alloc is not None:
+                if not strict:
+                    if alloc.pages_needed(npos) > alloc.n_avail:
+                        break
+                elif not alloc.can_reserve(npos):
                     break
-            elif self._alloc.pages_needed(npos) > self._alloc.n_avail:
-                break
             self._preempted.popleft()
             slot = self._free.pop()
-            self._alloc.reserve(slot, npos, strict=strict)
-            if not strict:
-                self._grow_slot(slot, min(npos, self.decode_block))
+            if p.kv is not None:
+                alloc.reserve(slot, npos, strict=strict)
+                self._swap_in(slot, p)
+                continue
+            start = None
+            if alloc is not None:
+                alloc.reserve(slot, npos, strict=strict)
+                # the victim's registered prompt pages went cached when it
+                # was preempted, so its replay usually re-hits them
+                start = self._lookup_attach(slot, p.prefix)
+                if not strict:
+                    self._grow_slot(slot, min(npos, (start or 0)
+                                              + self.decode_block))
             self._seat_prefix(slot, p.prefix,
-                              p.req.max_new_tokens - len(p.done))
+                              p.req.max_new_tokens - len(p.done),
+                              start=start or 0)
             self.stats["preempt_readmits"] += 1
             self._gen[slot] = list(p.done)
             # the seated prefix already holds the re-credited tokens
@@ -853,9 +1210,10 @@ class ServingEngine:
             r, ticket, bt_row = self._staged.popleft()
             self._ring_stale = True
             slot = self._free.pop()
-            self._alloc.rekey(ticket, slot)
-            self._bt[slot, :] = bt_row
-            self._bt_stale = True
+            if alloc is not None:
+                alloc.rekey(ticket, slot)
+                self._bt[slot, :] = bt_row
+                self._bt_stale = True
             r.admitted = now
             self._seat_prefix(slot, np.asarray(r.prompt, np.int32),
                               r.max_new_tokens)
@@ -870,20 +1228,42 @@ class ServingEngine:
                 len(r.prompt) > self.chunk_threshold
             first = min(npos, self.decode_block) if chunked \
                 else len(r.prompt)
-            if strict:
-                if not self._alloc.can_reserve(npos):
+            if alloc is not None:
+                if not strict:
+                    hit_est = len(self._prefix.lookup(r.prompt)) \
+                        if self._prefix is not None else 0
+                    if hit_est:
+                        first = min(npos, hit_est * self.page_size
+                                    + self.decode_block)
+                        need = alloc.pages_needed(first) - hit_est + 1
+                    else:
+                        need = alloc.pages_needed(first)
+                    if need > alloc.n_avail:
+                        break
+                elif not alloc.can_reserve(npos):
                     break                   # FIFO: nothing jumps the line
-            elif self._alloc.pages_needed(first) > self._alloc.n_avail:
-                break
             self._pending.popleft()
             slot = self._free.pop()
-            self._alloc.reserve(slot, npos, strict=strict)
-            if not strict:
-                # cover the expected pages now, so the free-page count
-                # stays exact for the next head
-                self._grow_slot(slot, first)
+            start = None
+            if alloc is not None:
+                alloc.reserve(slot, npos, strict=strict)
+                start = self._lookup_attach(slot, r.prompt)
+                if not strict:
+                    # cover the expected pages now, so the obtainable-page
+                    # count stays exact for the next head
+                    if start is not None:
+                        first = min(npos, start + self.decode_block)
+                    self._grow_slot(slot, first)
             r.admitted = now
-            if chunked:
+            if start is not None:
+                # a cache hit skips the covered prompt: the seat feeds from
+                # the first uncached token
+                self._seat_prefix(slot, np.asarray(r.prompt, np.int32),
+                                  r.max_new_tokens, start=start)
+                self.stats["admitted"] += 1
+                self._gen[slot] = []        # first token comes via emit
+                self._slot_req[slot] = r
+            elif chunked:
                 self._admit_chunk(r, slot)
                 self._gen[slot] = []        # first token comes via emit
                 self._slot_req[slot] = r
@@ -905,19 +1285,22 @@ class ServingEngine:
                 not self._preempted and len(self._staged) < self.stage_slots:
             r = self._pending[0]
             npos = self._n_positions(r)
-            if strict:
-                if not self._alloc.can_reserve(npos):
+            ticket = bt_row = None
+            if alloc is not None:
+                if strict:
+                    if not alloc.can_reserve(npos):
+                        break
+                elif alloc.pages_needed(min(npos, self.decode_block)) > \
+                        alloc.n_avail:
                     break
-            elif self._alloc.pages_needed(min(npos, self.decode_block)) > \
-                    self._alloc.n_avail:
-                break
+                ticket = ("stage", self._stage_seq)
+                self._stage_seq += 1
+                alloc.reserve(ticket, npos, strict=strict)
+                pages = alloc.cover(ticket, min(npos, self.decode_block))
+                bt_row = np.full((self.pages_per_slot,), self.n_pages,
+                                 np.int32)
+                bt_row[:len(pages)] = pages
             self._pending.popleft()
-            ticket = ("stage", self._stage_seq)
-            self._stage_seq += 1
-            self._alloc.reserve(ticket, npos, strict=strict)
-            pages = self._alloc.cover(ticket, min(npos, self.decode_block))
-            bt_row = np.full((self.pages_per_slot,), self.n_pages, np.int32)
-            bt_row[:len(pages)] = pages
             self._staged.append((r, ticket, bt_row))
             self._ring_stale = True
             self.stats["staged"] += 1
@@ -925,23 +1308,120 @@ class ServingEngine:
     # ------------------------------------------------------------------
     # preemption: park / pick victim / relieve pressure
     def _preempt_slot(self, v: int) -> None:
-        """Preempt ``v``'s occupant between segments: free its pages, park
-        it with its prompt plus every token generated so far, and
-        deactivate the slot on the device (``rem`` 0 in place)."""
+        """Preempt ``v``'s occupant between segments: copy its pages to the
+        host (``swap="host"``, where the gates allow), free them, park it
+        with its prompt plus every token generated so far, and deactivate
+        the slot on the device (``rem`` 0 in place)."""
         r = self._slot_req[v]
-        done = self._gen.pop(v)[: r.max_new_tokens]
+        done = self._gen[v][: r.max_new_tokens]
         prefix = np.concatenate([np.asarray(r.prompt, np.int32),
                                  np.asarray(done, np.int32)])
         r.preemptions += 1
         self.stats["preemptions"] += 1
+        # the swap capture comes before the release: pages_of() is the
+        # victim's block-table order, and a released page may be handed out
+        # again and rewritten
+        kv, swap_bytes = (self._swap_out(v)
+                          if self.swap is not None else (None, 0))
+        del self._gen[v]
         self._slot_req[v] = None
         self._free.append(v)
-        self._alloc.release(v)
-        self._bt[v, :] = self.n_pages
-        self._bt_stale = True
-        self._preempted.append(_Parked(r, prefix, list(done)))
+        if self._alloc is not None:
+            # shared pages only lose this slot's reference; the victim's
+            # registered prompt pages stay indexed (cached once idle)
+            self._alloc.release(v)
+            self._bt[v, :] = self.n_pages
+            self._bt_stale = True
+        self._preempted.append(_Parked(r, prefix, list(done), kv=kv,
+                                       swap_bytes=swap_bytes))
         self._rem[v] = 0
         self._rem_dev[v] = 0
+
+    def _swap_ok(self, v: int) -> bool:
+        """Whether slot ``v``'s occupant passes the state gates of
+        ``_swap_out``: past its seated-prefix feed (its fed tokens are
+        ``pos``, and its prompt plus the tokens generated so far are them
+        plus the pending token), still owing tokens, and holding pages.
+        The layout and budget gates are ``_swap_out``'s own."""
+        r = self._slot_req[v]
+        if r is None or self._alloc is None:
+            return False
+        done_n = min(len(self._gen[v]), r.max_new_tokens)
+        return (0 < done_n < r.max_new_tokens
+                and int(self._slot_pos[v]) + 1 == len(r.prompt) + done_n
+                and bool(self._alloc.pages_of(v)))
+
+    def _swap_out(self, v: int):
+        """Copy slot ``v``'s pages to host memory (``swap="host"``).
+
+        Returns ``(payload, nbytes)``, or ``(None, 0)`` where a gate
+        refuses, which counts ``swap_fallbacks`` and parks the victim for
+        recompute: the paged layout with every leaf in the pool
+        (``_all_paged``); the state gates of ``_swap_ok``; and the payload
+        within ``swap_budget_bytes`` beside the payloads already parked.
+        The payload is one plain host tensor a paged leaf, ``(pages held,
+        page_size, ...)`` in block-table order: the bytes are copied, so
+        shared pages are safe to take and every page can be reclaimed at
+        once."""
+        if not (self._paged and self._all_paged) or not self._swap_ok(v):
+            self.stats["swap_fallbacks"] += 1
+            return None, 0
+        page_ids = self._alloc.pages_of(v)
+        nbytes = 0
+        for name, leaf in self._cache.items():
+            pa = self._axes[name][1] - 1
+            nbytes += (leaf.numel() // leaf.shape[pa]) * leaf.element_size() \
+                * len(page_ids)
+        if self.swap_budget_bytes is not None and \
+                self._swap_live_bytes + nbytes > self.swap_budget_bytes:
+            self.stats["swap_fallbacks"] += 1
+            return None, 0
+        payload = {name: KV.gather_pool_pages(leaf, page_ids,
+                                              self._axes[name][1],
+                                              n_pages=self.n_pages)
+                   for name, leaf in self._cache.items()}
+        self._swap_live_bytes += nbytes
+        self.stats["swap_out"] += 1
+        self.stats["swap_bytes"] += nbytes
+        return payload, nbytes
+
+    def _swap_in(self, slot: int, p: _Parked) -> None:
+        """Re-admit a swapped-out victim into ``slot`` with no replay:
+        fresh pages, the host payload scattered into them, and the decode
+        state restored in place at this host boundary — ``tok`` the
+        pending token, ``pos`` the fed tokens, ``rem`` the tokens still
+        owed, ``plen`` 0 — with the host mirrors to match. The state is
+        exactly what the victim was parked with, so the continuation is
+        bit-identical. The caller has reserved the slot's worst case."""
+        prefix = p.prefix
+        n_held = next(iter(p.kv.values())).shape[0]
+        pages = self._alloc.cover(slot, n_held * self.page_size)
+        if len(pages) != n_held:
+            raise RuntimeError(f"swap-in of request {p.req.rid}: "
+                               f"{len(pages)} pages for {n_held} swapped")
+        self._bt[slot, :n_held] = pages
+        self._bt_stale = True
+        for name, leaf in self._cache.items():
+            KV.scatter_pool_pages(leaf, p.kv[name], pages,
+                                  self._axes[name][1], n_pages=self.n_pages)
+        pos = len(prefix) - 1
+        rem = p.req.max_new_tokens - len(p.done)
+        self._tok[slot, 0] = int(prefix[-1])
+        self._pos[slot] = pos
+        self._rem_dev[slot] = rem
+        self._plen_dev[slot] = 0
+        self._rem[slot], self._slot_pos[slot], self._plen[slot] = \
+            rem, pos, 0
+        self._gen[slot] = list(p.done)
+        self._seat_credit[slot] = len(p.done)
+        self._slot_prefix[slot] = np.asarray(prefix, np.int32)
+        self._slot_req[slot] = p.req
+        # the restored pages are private copies of unknown digests: no
+        # prefix registration for this occupancy
+        self._set_digests(slot, None)
+        self._swap_live_bytes -= p.swap_bytes
+        self.stats["swap_in"] += 1
+        self.stats["preempt_readmits"] += 1
 
     def _pick_victim(self, exclude: int) -> Optional[int]:
         """A live slot to preempt, never ``exclude`` (the slot whose growth
@@ -986,8 +1466,10 @@ class ServingEngine:
 
     def preempt(self, slot: int) -> None:
         """Preempt the request in ``slot`` (fault injection and tests; the
-        engine preempts on its own under page pressure). It re-admits by
-        replaying its prefix. Call between ``step()`` calls only."""
+        engine preempts on its own under page pressure). It re-admits
+        through a host swap-in where ``swap="host"`` and the swap gates
+        (``_swap_out``) allow, and by replaying its prefix otherwise. Call
+        between ``step()`` calls only."""
         if not self._chunk_ok:
             raise ValueError(
                 f"family {self.model.cfg.family!r} cannot recover a "
@@ -1029,6 +1511,10 @@ class ServingEngine:
                 if r.slo is None or now - r.arrival <= r.slo:
                     keep.append(item)
                     continue
+                if parked:
+                    # its pages were freed at preemption; only its host
+                    # swap payload, if any, still charges the budget
+                    self._swap_live_bytes -= item.swap_bytes
                 r.tokens = np.asarray(
                     item.done[: r.max_new_tokens] if parked else (),
                     np.int32)
@@ -1065,9 +1551,11 @@ class ServingEngine:
         self.stats["tokens_generated"] += len(r.tokens)
         self._slot_req[slot] = None
         self._rem[slot] = 0
-        self._alloc.release(slot)
-        self._bt[slot, :] = self.n_pages
-        self._bt_stale = True
+        if self._alloc is not None:
+            # the prefix cache keeps the pages it indexed, cached
+            self._alloc.release(slot)
+            self._bt[slot, :] = self.n_pages
+            self._bt_stale = True
         self._completed.append(r)
 
     def _decode_segment(self, plan: SegmentPlan) -> Tuple[np.ndarray,
@@ -1119,7 +1607,7 @@ class ServingEngine:
         # reservations pre-fund every cover; under optimistic admission a
         # dry pool un-stages and then preempts until the cover fits
         for s, r in enumerate(self._slot_req):
-            if r is None:
+            if r is None or self._alloc is None:
                 continue
             cover = min(int(self._slot_pos[s]) + self.decode_block,
                         self._n_positions(r))
@@ -1160,14 +1648,18 @@ class ServingEngine:
             if adm:
                 nr, ticket, bt_row = self._staged.popleft()
                 self._ring_stale = True
-                self._alloc.rekey(ticket, s)
-                self._bt[s, :] = bt_row
-                self._bt_stale = True
+                if self._alloc is not None:
+                    self._alloc.rekey(ticket, s)
+                    self._bt[s, :] = bt_row
+                    self._bt_stale = True
                 nr.admitted = now
                 self._slot_req[s] = nr
                 self._gen[s] = []
                 self._slot_prefix[s] = np.asarray(nr.prompt, np.int32)
                 self._seat_credit[s] = 0
+                # a staged seat never looked the cache up (no page can be
+                # attached inside a segment), but its prompt pages register
+                self._set_digests(s, nr.prompt)
                 self.stats["admitted"] += 1
                 self.stats["inseg_admissions"] += 1
             else:
@@ -1184,7 +1676,28 @@ class ServingEngine:
             if r is not None and self._rem[s] == 0:
                 self._retire_slot(s, r, now)
                 self._free.append(s)
+        self._register_prefix_pages()
         return plan.n_steps
+
+    def _register_prefix_pages(self) -> None:
+        """Index every prompt page the last segment fully wrote (the slot's
+        position passed its end). Host bookkeeping only: the pages' bytes
+        come from that segment's device work, which any later use of them
+        is queued behind."""
+        if self._prefix is None:
+            return
+        for s, r in enumerate(self._slot_req):
+            if r is None or not self._seat_digests[s]:
+                continue
+            done = int(self._reg_upto[s])
+            n_ready = min(int(self._slot_pos[s]) // self.page_size,
+                          len(self._seat_digests[s]))
+            if n_ready > done:
+                self._prefix.register(
+                    self._seat_digests[s][done:n_ready],
+                    [int(p) for p in self._bt[s, done:n_ready]])
+                self._reg_upto[s] = n_ready
+        self.stats["evictions"] = self._alloc.evictions
 
     def drain_completions(self) -> List[Request]:
         """Return (and clear) the requests completed since the last drain."""
@@ -1202,16 +1715,23 @@ class ServingEngine:
     @property
     def occupancy(self) -> Dict[str, float]:
         """Slot-busy fraction over all decode segments so far, in-segment
-        admissions per segment and the idle slot-steps."""
+        admissions per segment, the idle slot-steps and the prefix cache's
+        counts (zeros with it off)."""
         busy = self.stats["busy_slot_steps"]
         bubble = self.stats["bubble_slot_steps"]
         segs = self.stats["decode_dispatches"]
         total = busy + bubble
-        return {"slot_busy_frac": busy / total if total else 0.0,
-                "admissions_per_segment":
-                    self.stats["inseg_admissions"] / segs if segs else 0.0,
-                "bubble_slot_steps": float(bubble),
-                "segments": float(segs)}
+        if self._alloc is not None:
+            self.stats["evictions"] = self._alloc.evictions
+        occ = {"slot_busy_frac": busy / total if total else 0.0,
+               "admissions_per_segment":
+                   self.stats["inseg_admissions"] / segs if segs else 0.0,
+               "bubble_slot_steps": float(bubble),
+               "segments": float(segs)}
+        for key in ("prefix_hits", "prefix_pages_reused",
+                    "prefix_tokens_skipped", "cow_copies", "evictions"):
+            occ[key] = float(self.stats[key])
+        return occ
 
     def serve(self, reqs: Sequence[Request]) -> List[Request]:
         """Serve requests to completion: submit all, step until done.

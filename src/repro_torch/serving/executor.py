@@ -40,21 +40,22 @@ captures the decode step's CUDA graph — keeping both out of the measured
 service times. With ``max_engines`` set,
 the per-variant engine map is an LRU.
 
-The port's engine pages its KV cache and refuses the contiguous layout, so
-``page_size`` defaults to 16 here (``repro``'s default ``None`` is the
-contiguous layout). ``chunk_threshold``, ``stage_slots``, ``admission``,
-``preempt_policy`` and ``stream`` reach every engine (the engine clamps the
-first three off for the audio and vlm families): chunked prefill,
-in-segment admission and optimistic admission with preemption run under
-the full control plane. ``ExecRequest.slo`` reaches each engine
-``Request``, for the slack policy's victim choice; each run's record in
-``occupancy_log`` (the executor's decision log) carries its slot-busy
-fraction, in-segment admissions per segment, preemptions and pressure
-stalls; ``on_report`` says whether a query's work was preempted or cut
-short; with ``stream`` set, each step's partial outputs go to the
-queries' ``on_tokens`` sinks. The knobs this slice lacks — the prefix
-cache and its eviction policy, speculation, host swap, deadline
-enforcement (only the wall-clock runtime, not ported, calls
+``page_size`` defaults to 16 here, the paged layout (``repro``'s default
+``None``, the contiguous layout, is taken too). ``chunk_threshold``,
+``stage_slots``, ``admission``, ``preempt_policy``, ``prefix_cache``,
+``prefix_evict``, ``swap``, ``swap_budget_bytes`` and ``stream`` reach
+every engine (the engine clamps chunking, staging, optimism and the
+prefix cache off where they do not apply): chunked prefill, in-segment
+admission, optimistic admission with preemption, prefix sharing and host
+swap run under the full control plane. ``ExecRequest.slo`` reaches each
+engine ``Request``, for the slack policy's victim choice; each run's
+record in ``occupancy_log`` (the executor's decision log) carries its
+slot-busy fraction, in-segment admissions per segment, preemptions,
+pressure stalls, prefix hits, reused pages, copies on write, evictions
+and swap counts; ``on_report`` says whether a query's work was preempted
+or cut short; with ``stream`` set, each step's partial outputs go to the
+queries' ``on_tokens`` sinks. The knobs this slice lacks — speculation,
+deadline enforcement (only the wall-clock runtime, not ported, calls
 ``cancel_overdue``) and the threaded runtime's fault sites — raise
 ``NotImplementedError`` by name when the executor is built.
 """
@@ -89,7 +90,7 @@ class EngineExecutorConfig:
     refit_min_points: int = 2   # distinct batch sizes before an m,c refit
     obs_window: int = 32        # measurements kept per (variant, batch)
     seed: int = 0
-    page_size: int = 16               # paged KV cache (the only layout)
+    page_size: Optional[int] = 16     # paged KV page (None = contiguous)
     n_pages: Optional[int] = None     # pool size (None = slot parity)
     chunk_threshold: Optional[int] = None  # chunked prefill past this len
     max_engines: Optional[int] = None  # LRU cap on live engines (None = off)
@@ -112,12 +113,7 @@ class EngineExecutorConfig:
     def unported(self) -> List[str]:
         """The knobs set away from their defaults that this slice lacks."""
         knobs = {
-            "prefix_cache": bool(self.prefix_cache),
-            f"prefix_evict={self.prefix_evict!r}":
-                self.prefix_evict != "lru",
             "speculate": self.speculate is not None,
-            "swap": self.swap is not None,
-            "swap_budget_bytes": self.swap_budget_bytes is not None,
             "deadline_enforce": bool(self.deadline_enforce),
             "faults (the threaded runtime's fault sites)":
                 self.faults is not None,
@@ -227,6 +223,10 @@ class EngineExecutor:
                 stage_slots=self.cfg.stage_slots,
                 admission=self.cfg.admission,
                 preempt_policy=self.cfg.preempt_policy,
+                prefix_cache=self.cfg.prefix_cache,
+                prefix_evict=self.cfg.prefix_evict,
+                swap=self.cfg.swap,
+                swap_budget_bytes=self.cfg.swap_budget_bytes,
                 stream=self.cfg.stream)
             eng.warmup(prompt_lens=[self.cfg.prompt_len])
         # dict order doubles as the LRU list: reinsert on every access
@@ -240,7 +240,9 @@ class EngineExecutor:
 
     _OCC_KEYS = ("busy_slot_steps", "bubble_slot_steps",
                  "inseg_admissions", "decode_dispatches", "preemptions",
-                 "pressure_stalls")
+                 "pressure_stalls", "prefix_hits", "prefix_pages_reused",
+                 "cow_copies", "evictions", "swap_out", "swap_in",
+                 "swap_fallbacks")
 
     def _make_requests(self, er: ExecRequest, vocab: int,
                        t0: float) -> List[Request]:
@@ -293,6 +295,18 @@ class EngineExecutor:
             "bubble_slot_steps": d["bubble_slot_steps"],
             "preemptions": d["preemptions"],
             "pressure_stalls": d["pressure_stalls"],
+            # prefix-cache counts (zeros with it off): the hit rate that
+            # selection and autoscaling can key on to co-locate traffic
+            # that shares templates
+            "prefix_hits": d["prefix_hits"],
+            "prefix_pages_reused": d["prefix_pages_reused"],
+            "cow_copies": d["cow_copies"],
+            "evictions": d["evictions"],
+            # host swap (zeros with it off): how often preemption recovery
+            # restored pages instead of replaying a prefix
+            "swap_out": d["swap_out"],
+            "swap_in": d["swap_in"],
+            "swap_fallbacks": d["swap_fallbacks"],
         })
         self.pressure_events_total += \
             d["preemptions"] + d["pressure_stalls"]

@@ -13,9 +13,14 @@ must agree on every page handed out.
 """
 import numpy as np
 import pytest
+import torch
 
 from repro.serving.engine import PageAllocator as JAllocator
 from repro_torch.serving.engine import PageAllocator
+
+# six xdist workers share the cores with XLA's threads: one torch thread
+# each keeps them from oversubscribing
+torch.set_num_threads(1)
 
 
 def _invariants(alloc, strict=True):

@@ -12,6 +12,7 @@ import time
 
 import numpy as np
 import pytest
+import torch
 from hypothesis import given, settings, strategies as st
 
 from repro_torch.configs.registry import ARCHS
@@ -27,6 +28,10 @@ from repro_torch.sim.clock import Clock, EventLoop, RealClock
 from repro_torch.sim.cluster import make_cluster
 from repro_torch.sim.workload import (popularity_split, poisson_arrivals,
                                       zipf_weights)
+
+# six xdist workers share the cores with XLA's threads: one torch thread
+# each keeps them from oversubscribing
+torch.set_num_threads(1)
 
 LLAMA = ARCHS["llama3.2-1b"]
 

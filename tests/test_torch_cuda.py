@@ -771,3 +771,211 @@ def test_cuda_capture_mid_pressure_serve_leaves_ring_and_log_intact():
     while eng.busy:
         eng.step()
     assert eng._alloc.n_free == eng.n_pages
+
+
+# ----------------------------------------------------------------------
+# the contiguous decode kernel's per-slot form; the prefix cache, host
+# swap and the contiguous layout inside the captured step
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+@pytest.mark.parametrize("G,D", [(1, 64), (4, 64), (8, 128)])
+def test_cuda_decode_attention_per_slot_lengths(dtype, G, D):
+    """The contiguous kernel with (B,) device lengths at T = 512: lengths
+    0 (zeros), 1, on a 64-row tile edge, T, and mixed within the batch.
+    bf16 within the f32 ulp rule of the plain version on the widened
+    inputs, f32 within 1e-4 of it; two calls give the same bits."""
+    dev = _need_cuda()
+    dt = getattr(torch, dtype)
+    B, K, T = 8, 8, 512
+    gen = torch.Generator(device=dev).manual_seed(G + D)
+    q = torch.randn((B, K, G, D), generator=gen, device=dev).to(dt)
+    k = torch.randn((B, T, K, D), generator=gen, device=dev).to(dt)
+    v = torch.randn((B, T, K, D), generator=gen, device=dev).to(dt)
+    lens = torch.tensor([0, 1, 64, T, 127, 128, 300, 65], dtype=torch.int32,
+                        device=dev)
+    out = decode_attention(q, k, v, lens)
+    again = decode_attention(q, k, v, lens)
+    want32 = decode_attention_plain(q.float(), k.float(), v.float(), lens)
+    torch.cuda.synchronize()
+    if dt == torch.bfloat16:
+        assert ref.bf16_ulp_ratio(out, want32) <= 1.0
+    else:
+        np.testing.assert_allclose(out.cpu().numpy(), want32.cpu().numpy(),
+                                   rtol=1e-4, atol=1e-4)
+    assert torch.equal(out, again)
+    assert not out[0].any()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+def test_cuda_contiguous_decode_gives_the_fused_paged_bits(dtype):
+    """The per-slot form folds the fused paged kernel's spans over the same
+    rows: a slot's contiguous rows and the same rows behind an identity
+    block table (32 pages of 16, the fused kernel writing row ``pos`` from
+    ``k_new``) give the same output bits at every length."""
+    dev = _need_cuda()
+    dt = getattr(torch, dtype)
+    B, K, G, D, ps, P = 8, 8, 4, 64, 16, 32
+    T = P * ps
+    gen = torch.Generator(device=dev).manual_seed(7)
+    q = torch.randn((B, K, G, D), generator=gen, device=dev).to(dt)
+    k = torch.randn((B, T, K, D), generator=gen, device=dev).to(dt)
+    v = torch.randn((B, T, K, D), generator=gen, device=dev).to(dt)
+    pos = torch.tensor([0, 1, 63, 64, 127, 128, 300, T - 1],
+                       dtype=torch.int32, device=dev)
+    kp = torch.zeros((B * P + 1, ps, K, D), dtype=dt, device=dev)
+    vp = torch.zeros_like(kp)
+    kp[:B * P] = k.reshape(B * P, ps, K, D)
+    vp[:B * P] = v.reshape(B * P, ps, K, D)
+    bt = torch.arange(B * P, dtype=torch.int32, device=dev).reshape(B, P)
+    rows = torch.arange(B, device=dev)
+    paged, _, _ = fused_paged_decode_attention(
+        q, k[rows, pos.long()].contiguous(), v[rows, pos.long()].contiguous(),
+        kp, vp, bt, pos)
+    contiguous = decode_attention(q, k, v, pos + 1)
+    torch.cuda.synchronize()
+    assert torch.equal(paged, contiguous)
+
+
+@pytest.mark.cuda
+def test_cuda_page_copies_never_touch_the_trash_page():
+    """On the kernel pool layout (a trash page at ``n_pages``), a copy or a
+    scatter aimed at the sentinel is dropped and a gather refuses it; the
+    copies land bit for bit."""
+    from repro_torch.models import kvcache as KV
+    dev = _need_cuda()
+    n_pages = 6
+    gen = torch.Generator(device=dev).manual_seed(1)
+    pool = torch.randn((2, n_pages + 1, 4, 2, 8), generator=gen, device=dev)
+    trash = pool[:, n_pages].clone()
+    KV.copy_pool_page(pool, 2, n_pages, 2, n_pages=n_pages)
+    KV.copy_pool_page(pool, 2, 5, 2, n_pages=n_pages)
+    assert torch.equal(pool[:, 5], pool[:, 2])
+    host = KV.gather_pool_pages(pool, [1, 3], 2, n_pages=n_pages)
+    assert host.device.type == "cpu"
+    with pytest.raises(ValueError, match="allocatable"):
+        KV.gather_pool_pages(pool, [n_pages], 2, n_pages=n_pages)
+    KV.scatter_pool_pages(pool, torch.cat([host, host]), [0, n_pages, 4,
+                                                          n_pages], 2,
+                          n_pages=n_pages)
+    torch.cuda.synchronize()
+    assert torch.equal(pool[:, 0].cpu(), host[0].movedim(1, 0))
+    assert torch.equal(pool[:, 4].cpu(), host[0].movedim(1, 0))
+    assert torch.equal(pool[:, n_pages], trash)
+
+
+def _prefix_stream():
+    """Templated prompts on one two-page template: three long requests
+    keep its pages live while a short one frees its slot for a request
+    whose prompt is exactly the template (a full-page hit that must copy
+    on write), then three more hits."""
+    rng = np.random.default_rng(5)
+    tpl = rng.integers(0, 256, size=16).astype(np.int32)
+
+    def sfx():
+        return rng.integers(0, 256, size=int(rng.integers(2, 9))).astype(
+            np.int32)
+
+    out = [(np.concatenate([tpl, sfx()]), k) for k in (20, 18, 16, 2)]
+    out.append((tpl.copy(), 4))
+    out += [(np.concatenate([tpl, sfx()]), int(rng.integers(3, 9)))
+            for _ in range(3)]
+    return out
+
+
+def _serve_forcing_swap(eng, stream):
+    """Serve ``stream`` and preempt, once, the first slot past its prompt
+    feed that still owes tokens (a swap that the gates take)."""
+    reqs = [Request(rid=i, prompt=p, max_new_tokens=k)
+            for i, (p, k) in enumerate(stream)]
+    for r in reqs:
+        eng.submit(r)
+    forced = False
+    while eng.busy:
+        eng.step()
+        live = [s for s, r in enumerate(eng._slot_req) if r is not None
+                and 0 < len(eng._gen[s]) < r.max_new_tokens]
+        if not forced and live:
+            eng.preempt(live[0])
+            forced = True
+        eng.drain_partial_outputs()
+    eng.drain_completions()
+    return reqs
+
+
+CASES = {
+    "prefix": (dict(max_batch=4, max_len=64, decode_block=4, min_bucket=4,
+                    page_size=8, n_pages=24, chunk_threshold=0),
+               dict(prefix_cache=True), _prefix_stream),
+    "swap": (dict(max_batch=4, max_len=64, decode_block=4, min_bucket=4,
+                  page_size=8, chunk_threshold=0),
+             dict(PRESSURE, swap="host"), _pressure_stream),
+    "contiguous": (dict(max_batch=3, max_len=64, decode_block=4,
+                        min_bucket=4, page_size=8, chunk_threshold=8),
+                   dict(page_size=None), None),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", sorted(CASES))
+def test_cuda_prefix_swap_and_contiguous_graph_match_uncaptured(case):
+    """On the card, each of the prefix cache with a copy-on-write hit, a
+    host swap round trip under pressure, and the contiguous layout: the
+    graphed engine and an uncaptured one give the same tokens, counts and
+    launches per wrapper, every decode step a replay of one graph; the
+    tokens equal the plain worst-case paged serve's (prefix off, no swap,
+    the paged layout), bit for bit."""
+    dev = _need_cuda()
+    m, params = _kernel_llama(dev)
+    geo, knobs, make = CASES[case]
+    if make is None:
+        rng = np.random.default_rng(3)
+        stream = [(rng.integers(0, 256, size=n).astype(np.int32), k)
+                  for n, k in ((5, 6), (6, 1), (7, 9), (29, 4), (12, 12),
+                               (4, 3), (16, 5), (9, 8))]
+    else:
+        stream = make()
+    oracle = ServingEngine(m, params, **geo)
+    oracle.warmup()
+    want = oracle.serve([Request(rid=i, prompt=p, max_new_tokens=k)
+                         for i, (p, k) in enumerate(stream)])
+    runs = []
+    for cls in (ServingEngine, _Uncaptured):
+        eng = cls(m, params, **dict(geo, **knobs))
+        eng.warmup()
+        build.reset_launch_counts()
+        if case == "swap":
+            reqs = _serve_forcing_swap(eng, stream)
+        else:
+            reqs = eng.serve([Request(rid=i, prompt=p, max_new_tokens=k)
+                              for i, (p, k) in enumerate(stream)])
+        torch.cuda.synchronize(dev)
+        runs.append((reqs, dict(eng.stats), dict(build.launch_counts)))
+        if eng._alloc is not None:
+            assert eng._alloc.n_free + eng._alloc.n_cached == eng.n_pages
+            assert eng._alloc.committed == 0
+        assert eng._swap_live_bytes == 0
+    (rg, sg, lg), (ru, su, lu) = runs
+    for a, b, c in zip(want, rg, ru):
+        np.testing.assert_array_equal(b.tokens, a.tokens, err_msg=str(a.rid))
+        np.testing.assert_array_equal(c.tokens, a.tokens, err_msg=str(a.rid))
+    assert sg["decode_traces"] == 1 and su["decode_traces"] == 0
+    assert sg["graph_replays"] == sg["decode_steps"] > 0
+    for key in ("prefix_hits", "prefix_pages_reused", "prefix_tokens_skipped",
+                "cow_copies", "swap_out", "swap_in", "swap_fallbacks",
+                "swap_bytes", "preemptions", "decode_dispatches",
+                "decode_steps", "busy_slot_steps", "chunk_admits"):
+        assert sg[key] == su[key], key
+    assert lg == lu
+    if case == "prefix":
+        assert sg["prefix_hits"] > 0 and sg["cow_copies"] >= 1
+        assert lg["fused_paged_decode_attention"] > 0
+    if case == "swap":
+        assert sg["swap_out"] == sg["swap_in"] >= 1
+    if case == "contiguous":
+        n_layers = m.cfg.n_layers
+        assert lg["fused_paged_decode_attention"] == 0
+        assert lg["decode_attention"] == sg["decode_steps"] * n_layers
+        assert sg["chunk_admits"] > 0

@@ -37,6 +37,10 @@ from repro_torch.models import build_model as t_build
 from repro_torch.serving.engine import PageAllocator, Request, ServingEngine, \
     bucket_len
 
+# six xdist workers share the cores with XLA's threads: one torch thread
+# each keeps them from oversubscribing
+torch.set_num_threads(1)
+
 KW = dict(max_batch=3, max_len=64, decode_block=4, min_bucket=4,
           page_size=8, n_pages=12)
 COUNTS = ("prefill_dispatches", "decode_dispatches", "decode_steps",
@@ -102,9 +106,7 @@ def test_open_loop_submit_step_drain():
     assert 0.0 < teng.occupancy["slot_busy_frac"] <= 1.0
 
 
-@pytest.mark.parametrize("knob", [
-    dict(page_size=None), dict(prefix_cache=True), dict(swap="host"),
-    dict(speculate=("draft", None))])
+@pytest.mark.parametrize("knob", [dict(speculate=("draft", None))])
 def test_unported_knobs_raise(knob):
     tm = t_build(T_ARCHS["llama3.2-1b"].reduced(), device="cpu")
     with pytest.raises(NotImplementedError, match="not ported"):

@@ -12,14 +12,16 @@
   ``VariantTarget`` payload queries, the port's executor serving the JAX
   executor's own weights (fp and int8 trees, carried by
   ``convert.params_from_jax``); the tokens must be equal.
-* The admission knobs and the query's SLO reach the engines, streamed
-  chunks reach the query; the executor knobs this slice lacks raise by
-  name, and a real cluster asks for CUDA unless told otherwise.
+* The admission, prefix-cache, swap and layout knobs and the query's SLO
+  reach the engines, streamed chunks reach the query; the executor knobs
+  this slice lacks raise by name, and a real cluster asks for CUDA unless
+  told otherwise.
 """
 import dataclasses
 
 import numpy as np
 import pytest
+import torch
 
 from repro_torch.configs.registry import ARCHS
 from repro_torch.core import profiler as prof
@@ -29,6 +31,10 @@ from repro_torch.core.worker import Executor, ExecRequest, SimExecutor
 from repro_torch.serving.engine import Request, ServingEngine
 from repro_torch.serving.executor import EngineExecutor, EngineExecutorConfig
 from repro_torch.sim.cluster import make_cluster
+
+# six xdist workers share the cores with XLA's threads: one torch thread
+# each keeps them from oversubscribing
+torch.set_num_threads(1)
 
 LLAMA = ARCHS["llama3.2-1b"]
 PROMPTS = ((3, 1, 4, 1, 5, 9), (2, 7, 1, 8), (1, 6, 1, 8, 0, 3, 3, 9))
@@ -313,9 +319,8 @@ def test_engine_executor_paged_knobs_reach_engines():
 
 
 @pytest.mark.parametrize("knob,value", [
-    ("prefix_cache", True), ("prefix_evict", "fifo"), ("speculate", "int8:2"),
-    ("swap", "host"), ("swap_budget_bytes", 1 << 20),
-    ("deadline_enforce", True), ("faults", object())])
+    ("speculate", "int8:2"), ("deadline_enforce", True),
+    ("faults", object())])
 def test_unported_executor_knobs_raise_by_name(knob, value):
     with pytest.raises(NotImplementedError, match=knob):
         _executor(**{knob: value})
@@ -370,6 +375,55 @@ def test_executor_passes_admission_knobs_and_slo_to_its_engines():
         assert [t for j, ts in chunks if j == i for t in ts] == \
             [int(x) for x in out]
     assert ex.occupancy_log[-1]["admissions_per_segment"] >= 0.0
+
+
+@pytest.mark.parametrize("knobs", [
+    dict(page_size=None),
+    dict(page_size=8, n_pages=12, prefix_cache=True, prefix_evict="fifo"),
+    dict(page_size=4, n_pages=6, admission="optimistic", swap="host",
+         swap_budget_bytes=1 << 20)])
+def test_executor_passes_prefix_swap_and_layout_knobs_to_its_engines(knobs):
+    """``page_size=None`` (the contiguous layout), ``prefix_cache``,
+    ``prefix_evict``, ``swap`` and ``swap_budget_bytes`` reach the engine,
+    as in the reference's executor; payload prompts that share a two-page
+    template come back with a plain engine's tokens, and the decision log
+    carries the prefix and swap counts."""
+    tpl = tuple(range(1, 17))
+    prompts = tuple(tpl + p for p in PROMPTS) + (tpl + (7,),)
+    max_new = MAX_NEW
+    if knobs.get("swap"):
+        # short prompts and long decodes: optimistic admission packs four
+        # and the decode tails run the six-page pool dry
+        prompts, max_new = PROMPTS + (tpl[:5],), 12
+    ex = _executor(max_batch=4, max_len=32, decode_block=2, **knobs)
+    v = next(iter(prof.generate_variants(LLAMA)))
+    outs = []
+    for _ in range(2):
+        ex.run(v, len(prompts), [ExecRequest(
+            n_inputs=len(prompts), prompts=prompts, max_new_tokens=max_new,
+            on_outputs=outs.append)])
+    eng = ex.engines[v.name]
+    assert eng.page_size == knobs["page_size"]
+    assert eng._paged == (knobs["page_size"] is not None)
+    assert (eng._prefix is not None) == knobs.get("prefix_cache", False)
+    if eng._prefix is not None:
+        assert eng._prefix.policy == knobs["prefix_evict"]
+    assert (eng.swap, eng.swap_budget_bytes) == (
+        knobs.get("swap"), knobs.get("swap_budget_bytes"))
+    want = _oracle(ex, v, prompts, max_new)
+    for out in outs:
+        for a, b in zip(out, want):
+            np.testing.assert_array_equal(a, b)
+    log = ex.occupancy_log[-1]
+    for key in ("prefix_hits", "prefix_pages_reused", "cow_copies",
+                "evictions", "swap_out", "swap_in", "swap_fallbacks"):
+        assert log[key] >= 0
+    if eng._prefix is not None:
+        assert log["prefix_hits"] > 0
+    if eng.swap is not None:
+        assert eng.stats["preemptions"] > 0
+        assert eng.stats["swap_out"] == eng.stats["swap_in"] > 0
+        assert eng._swap_live_bytes == 0
 
 
 def test_real_cluster_asks_for_cuda_unless_told_otherwise():

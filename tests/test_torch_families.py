@@ -27,6 +27,10 @@ from repro_torch.launch.serve import main as launch_main
 from repro_torch.models import build_model as t_build
 from repro_torch.serving.engine import Request, ServingEngine
 
+# six xdist workers share the cores with XLA's threads: one torch thread
+# each keeps them from oversubscribing
+torch.set_num_threads(1)
+
 FAMILIES = ["whisper-base", "llama-3.2-vision-90b"]
 # f32 sums taken in another order by two frameworks, over a few layers
 TOL = dict(rtol=1e-4, atol=1e-4)

@@ -34,6 +34,10 @@ from repro_torch.convert import params_from_jax
 from repro_torch.models import build_model as t_build
 from repro_torch.serving.engine import Request, ServingEngine, plan_segment
 
+# six xdist workers share the cores with XLA's threads: one torch thread
+# each keeps them from oversubscribing
+torch.set_num_threads(1)
+
 # the counts the port must share with the JAX engine on the same stream
 COUNTS = ("staged", "inseg_admissions", "preemptions", "preempt_readmits",
           "pressure_stalls", "prefill_dispatches", "decode_dispatches",

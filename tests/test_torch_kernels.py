@@ -27,6 +27,10 @@ from repro_torch.kernels.decode_attention import (
 from repro_torch.kernels.flash_attention import flash_attention, flash_body
 from repro_torch.kernels.int8_matmul import int8_body, int8_matmul
 
+# six xdist workers share the cores with XLA's threads: one torch thread
+# each keeps them from oversubscribing
+torch.set_num_threads(1)
+
 TOL = dict(rtol=2e-5, atol=2e-5)
 
 

@@ -18,9 +18,14 @@ import time
 
 import numpy as np
 import pytest
+import torch
 
 from test_torch_inseg import (PAGED, T_ARCHS, Request, ServingEngine, both,
                               drained, llama, requests, stream)
+
+# six xdist workers share the cores with XLA's threads: one torch thread
+# each keeps them from oversubscribing
+torch.set_num_threads(1)
 
 
 def _first_live(eng):

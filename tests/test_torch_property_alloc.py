@@ -1,8 +1,14 @@
 """Property tests (hypothesis) of the port's page allocator under staged
-and optimistic admission, mirrors of the reference's
-``test_property_paged_alloc.py``; each op sequence also runs through the
-reference's allocator, which must hand out the same pages."""
+and optimistic admission, prefix sharing and host swap, mirrors of the
+reference's ``test_property_paged_alloc.py``; each op sequence also runs
+through the reference's allocator, which must hand out (and evict) the
+same pages."""
 import pytest
+import torch
+
+# six xdist workers share the cores with XLA's threads: one torch thread
+# each keeps them from oversubscribing
+torch.set_num_threads(1)
 
 pytest.importorskip("hypothesis")
 from hypothesis import given, settings, strategies as st  # noqa: E402
@@ -123,3 +129,53 @@ def test_optimistic_preempt_readmit_invariants(ops, n_pages, page_size,
     assert alloc.n_free == alloc.n_pages and alloc.committed == 0
     for h, want in parked:                  # every parked holder fits
         assert alloc.pages_needed(want) <= alloc.n_pages
+
+
+SHARE_OPS = st.lists(
+    st.tuples(st.sampled_from(["admit", "grow", "register", "attach",
+                               "cow", "finish"]),
+              st.integers(0, 2**31 - 1), st.integers(1, 96)),
+    min_size=1, max_size=100)
+
+# the op runners live beside their seeded fuzz mirrors, which run without
+# hypothesis
+from test_torch_prefix import run_share_ops  # noqa: E402
+from test_torch_swap import run_swap_ops  # noqa: E402
+from repro.serving.engine import PageAllocator as JAllocator  # noqa: E402
+
+
+@settings(max_examples=150, deadline=None)
+@given(SHARE_OPS, st.integers(1, 48), st.integers(1, 16), st.integers(1, 8))
+def test_refcount_sharing_invariants(ops, n_pages, page_size, max_slots):
+    """Refcounts, the cached pool and copy-on-write: free + cached +
+    unique held pages == the pool, refcounts equal the holder lists; the
+    reference evicts the same pages."""
+    got = run_share_ops(ops, n_pages, page_size, max_slots)
+    assert got == run_share_ops(ops, n_pages, page_size, max_slots,
+                                JAllocator)
+
+
+@settings(max_examples=100, deadline=None)
+@given(SHARE_OPS, st.integers(1, 8), st.integers(1, 4))
+def test_sharing_under_pressure_evicts_only_cached(ops, n_pages,
+                                                   page_size):
+    """Tiny pools force the evict path: the on_evict hook's refcount-0
+    check (inside run_share_ops) is what this case exists to exercise."""
+    got = run_share_ops(ops, n_pages, page_size, max_slots=4)
+    assert got == run_share_ops(ops, n_pages, page_size, 4, JAllocator)
+
+
+SWAP_OPS = st.lists(
+    st.tuples(st.sampled_from(["admit", "grow", "swap", "recompute",
+                               "readmit", "finish"]),
+              st.integers(0, 2**31 - 1), st.integers(1, 96)),
+    min_size=1, max_size=100)
+
+
+@settings(max_examples=150, deadline=None)
+@given(SWAP_OPS, st.integers(1, 48), st.integers(1, 16), st.integers(1, 8))
+def test_swap_parking_invariants(ops, n_pages, page_size, max_slots):
+    """Host-swap parking rides the optimistic preempt / re-admit cycle: a
+    parked holder, with or without a payload, owns no pages, and a
+    swap-in gets its exact page count back in one stride."""
+    run_swap_ops(ops, n_pages, page_size, max_slots)

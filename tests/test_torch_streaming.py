@@ -11,9 +11,14 @@ set pushes chunks through worker -> ``Query.on_tokens`` -> ``QueryHandle``
 on the control plane's virtual clock.
 """
 import numpy as np
+import torch
 
 from test_torch_inseg import (PAGED, T_ARCHS, JEngine, JRequest, Request,
                               ServingEngine, llama, requests, stream)
+
+# six xdist workers share the cores with XLA's threads: one torch thread
+# each keeps them from oversubscribing
+torch.set_num_threads(1)
 
 
 def _run_streaming(eng, reqs, hook=None):
