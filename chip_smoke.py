@@ -63,14 +63,24 @@ fails:
    contiguous one on the vision path and the attend-only paged one on the
    whisper path), never an old SIMT bf16 body or a second combine pass.
    Every decode segment is replays of the engine's one CUDA graph of its
-   step, captured at warmup: each engine must report one captured graph
-   and as many replays as decode steps. The launch counts of a profiled
+   step, and every prefill dispatch a replay of the graph of its
+   ``(nbatch, bucket)`` key, all captured at warmup: each engine must
+   report one captured step graph and as many replays as decode steps. The launch counts of a profiled
    serve are set to 0 inside the profiled window, and every wrapper's
-   launches (those of a captured step credited once per replay) must
-   equal the kernel events the profile holds for it. On each path an
+   launches (those of a captured graph credited once per replay) must
+   equal the kernel events the profile holds for it, in one of at most
+   five profiles of the serve (the profiler drops a run of kernel
+   records now and then at this event rate; each profile's coverage is
+   printed). On each path an
    uncaptured engine, whose segments loop the same step body, serves the
    stream once more: its tokens and every wrapper's launches must equal
-   the first graphed serve's. llama3.2-1b bf16 also serves the stream
+   the first graphed serve's. On each path a graphed engine and one
+   whose prefill runs its body op by op admit the stream in the same
+   rounds: after each round every leaf (trash page included) and the
+   slot state must be equal bit for bit, over every key the stream uses;
+   the prefill ms a dispatch of both, the number of prefill graphs and
+   what their captures added to device memory are printed.
+   llama3.2-1b bf16 also serves the stream
    with ``chunk_threshold`` 64: every prompt over 64 tokens must be a
    chunked admit, the rest prefilled. Each path prints the host time of a
    replay per step beside the step's device time (replays held back to
@@ -92,7 +102,8 @@ fails:
    variant's own params; flash prefill, fused decode and (int8) the int8
    GEMM must have launched, and every executor engine must have served its
    decode steps as replays of its one captured graph. Synthetic queries at two batch sizes then
-   re-fit both variants' t(b) = m*b + c, printed beside the analytic fit.
+   re-fit both variants' t(b) = m*b + c, printed beside the analytic fit,
+   and the measured c of both variants is printed on its own line.
 6. **Admission under pressure**, on phase 3's llama3.2-1b bf16 model,
    params and stream (8 slots, ``max_len`` 512, page 16): the staging
    ring and the completion log live in the captured step, so refills and
@@ -141,6 +152,24 @@ fails:
    step, never the fused paged kernel; whisper-base contiguous against its
    paged serve. Phase 4 adds the contiguous cache's f32 teacher-forced
    logits (llama3.2-1b, whisper-base) against the paged run's.
+8. **The wall clock**: a full-width llama3.2-1b
+   ``make_cluster(backend="real", clock="wall")`` with two workers, so
+   two stepper threads share the card, each holding both variants'
+   engines warmed for the stream's buckets, and both variants loaded on
+   both workers; a client thread submits 16 streamed payload queries
+   (one prompt of 16-300 tokens, 32 new tokens, alternating variants) as
+   seeded Poisson arrivals through ``ServingRuntime``. Every result must
+   be ok with no wait on a model load, its streamed concat equal to its
+   outputs and its tokens to a
+   direct engine's on the served variant's params (prefilled at the
+   batch size the served dispatch had); both steppers must have served;
+   no graph may be captured during the serve; ``shutdown(drain=True)``
+   must return True with every stepper joined. Prints TTFT and
+   completion p50/p99 and q/s. Then a one-worker cluster with the
+   ``stepper`` fault site scheduled mid-decode: the query is retried to
+   a direct engine's tokens, one restart, the rebuilt engine captures
+   anew and the dropped engine's device memory is released; and a 1 ms
+   SLO under ``deadline_enforce`` comes back ``timed_out``.
 
 The last lines are the card's ``name, power.limit``, one JSON line with
 every kernel's numbers, and the result line
@@ -1022,13 +1051,13 @@ def make_stream(vocab: int, n: int = 16, seed: int = 1):
 
 
 def uncaptured_engine():
-    """The engine class whose segments run the plain loop of its step body
-    on the card, captured nowhere: the oracle of the graph replays (not a
-    knob of the engine; only this comparison runs the body uncaptured)."""
+    """The engine class whose decode segments run the plain loop of its
+    step body and whose prefill dispatches run their body op by op on the
+    card, captured nowhere: the oracle of the graph replays (not a knob of
+    the engine; only these comparisons run the bodies uncaptured)."""
     import torch
-    from repro_torch.serving.engine import ServingEngine
 
-    class Uncaptured(ServingEngine):
+    class Uncaptured(eager_prefill_engine()):
         def _capture(self):
             pass
 
@@ -1038,6 +1067,114 @@ def uncaptured_engine():
                     self._step_body()
 
     return Uncaptured
+
+
+def eager_prefill_engine():
+    """The engine class whose prefill dispatches run their body op by op
+    (the decode step stays captured): the oracle of the prefill graphs."""
+    import torch
+    from repro_torch.serving.engine import ServingEngine
+
+    class EagerPrefill(ServingEngine):
+        def _capture_prefill(self, prog):
+            pass
+
+        def _run_prefill(self, prog):
+            with torch.no_grad():
+                self._prefill_body(prog)
+
+    return EagerPrefill
+
+
+def check_prefill_graphs(torch, dev, model, params, stream, label, card):
+    """Graphed prefill against its eager body on the card: a graphed engine
+    and an eager-prefill one (phase 3's geometry) admit the stream in the
+    same rounds; after each round every leaf (trash page included),
+    ``tok``, ``pos``, ``rem`` and ``plen`` must be equal bit for bit, and
+    so must the first tokens. Every key the stream's dispatches use is
+    checked this way. Prints the prefill ms a dispatch, eager against
+    graphed, the number of prefill graphs and what their capture added to
+    device memory."""
+    from repro_torch.serving.engine import Request, ServingEngine
+    geometry = dict(max_batch=8, max_len=512, decode_block=16, page_size=16)
+    lens = [len(p) for p, _ in stream]
+    torch.cuda.synchronize(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    alloc0 = torch.cuda.memory_allocated(dev)
+    res0 = torch.cuda.memory_reserved(dev)
+    graphed = ServingEngine(model, params, **geometry)
+    pools = torch.cuda.memory_allocated(dev) - alloc0
+    t0 = time.perf_counter()
+    graphed.warmup(prompt_lens=lens)
+    torch.cuda.synchronize(dev)
+    warm_s = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated(dev) - alloc0 - pools
+    reserved = torch.cuda.memory_reserved(dev) - res0 - pools
+    n_graphs = len(graphed._prefill_fns)
+    check(n_graphs == graphed.stats["prefill_traces"] and all(
+        p.graph is not None for p in graphed._prefill_fns.values()),
+        f"{label}: {n_graphs} prefill programs, "
+        f"{graphed.stats['prefill_traces']} traces, not all captured")
+    eager = eager_prefill_engine()(model, params, **geometry)
+    eager.warmup(prompt_lens=lens)
+    engs = (graphed, eager)
+    used = set()
+    run = graphed._run_prefill
+
+    def counted(prog):
+        used.add((prog.nb, prog.bucket))
+        run(prog)
+
+    graphed._run_prefill = counted
+    reqs = [[Request(rid=i, prompt=p, max_new_tokens=m)
+             for i, (p, m) in enumerate(stream)] for _ in engs]
+    for eng, rs in zip(engs, reqs):
+        for r in rs:
+            eng.submit(r)
+    rounds = 0
+    while any(e.busy for e in engs):
+        n0 = graphed.stats["prefill_dispatches"]
+        for eng in engs:
+            eng._admit_pending()
+        torch.cuda.synchronize(dev)
+        if graphed.stats["prefill_dispatches"] > n0:
+            rounds += 1
+            for name in graphed._cache:
+                check(torch.equal(graphed._cache[name], eager._cache[name]),
+                      f"{label}: prefill graphs wrote leaf {name} unlike "
+                      f"the eager body")
+            for t in ("_tok", "_pos", "_rem_dev", "_plen_dev"):
+                check(torch.equal(getattr(graphed, t), getattr(eager, t)),
+                      f"{label}: prefill graphs wrote {t} unlike the eager "
+                      f"body")
+            check(graphed._gen == eager._gen, f"{label}: prefill graphs' "
+                  f"first tokens differ from the eager body's")
+        for eng in engs:
+            eng.step()
+    check(all(np.array_equal(a.tokens, b.tokens) for a, b in zip(*reqs)),
+          f"{label}: tokens after graphed prefill differ from the eager "
+          f"body's")
+    sg, se = graphed.stats, eager.stats
+    check(sg["prefill_replays"] == sg["prefill_dispatches"]
+          == se["prefill_dispatches"] > 0 and se["prefill_replays"] == 0,
+          f"{label}: {sg['prefill_replays']} prefill replays for "
+          f"{sg['prefill_dispatches']} dispatches")
+    ms_g = graphed.timing["prefill_s"] / sg["prefill_dispatches"] * 1e3
+    ms_e = eager.timing["prefill_s"] / se["prefill_dispatches"] * 1e3
+    print(f"  {label} prefill graphs: {n_graphs} graphs (keys "
+          f"{sorted(graphed._prefill_fns)}), captured in {warm_s:.2f} s "
+          f"with the decode graph; the captures' peak {peak / 1e9:.3f} GB "
+          f"allocated, {reserved / 1e9:.3f} GB reserved beyond the "
+          f"pools ({pools / 1e9:.3f} GB); {sg['prefill_dispatches']} "
+          f"dispatches in {rounds} rounds over keys {sorted(used)}, every "
+          f"leaf and the slot state equal to the eager body's bit for bit "
+          f"after each round; prefill {ms_g:.3f} ms a dispatch graphed "
+          f"against {ms_e:.3f} eager (host time, ending in the firsts' "
+          f"read) on {card}")
+    del graphed, eager
+    torch.cuda.empty_cache()
+    return dict(graphs=n_graphs, keys=sorted(used), ms=ms_g, eager_ms=ms_e,
+                peak_gb=peak / 1e9, reserved_gb=reserved / 1e9)
 
 
 def graph_step_ms(eng) -> float:
@@ -1134,7 +1271,8 @@ def serve_variant(torch, dev, model, params, stream, label, repeats,
     eager_seg_ms = (oracle.timing["decode_s"]
                     / oracle.stats["decode_dispatches"] * 1e3)
     check(oracle.stats["decode_traces"] == 0
-          and oracle.stats["graph_replays"] == 0,
+          and oracle.stats["graph_replays"] == 0
+          and oracle.stats["prefill_replays"] == 0,
           f"{label}: the uncaptured engine captured or replayed")
     check(all(np.array_equal(a, r.tokens)
               for a, r in zip(first_tokens, reqs)),
@@ -1185,69 +1323,105 @@ def wrapper_of(kernel_name: str):
     return None
 
 
+# profiles of one serve, at most, of which one must hold every wrapper
+# launch: the profiler drops a run of kernel records now and then at
+# these event rates (a run of 1 to hundreds of records, other kernels'
+# too, with the same launches; NVIDIA H100 80GB HBM3, 700 W), in 5 of
+# 27 profiles before this bound was raised from 3
+PROFILE_ATTEMPTS = 5
+
+
+def profile_serve(torch, dev, eng, stream, label):
+    """Serve ``stream`` on the warm engine ``eng`` under ``torch.profiler``
+    until one profile holds, for every wrapper, as many kernel events as
+    the wrapper's launches in that serve (those of a captured graph
+    credited once per replay), at most ``PROFILE_ATTEMPTS`` times. Every
+    serve must be replays of the engine's one step graph. Returns that
+    profile's device time (us) and count by kernel name, the serve's
+    launches, decode steps and host wall time (us), and the launches of
+    every attempt summed."""
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.kernels import build
+    from repro_torch.serving.engine import Request
+    total = {}
+    for attempt in range(1, PROFILE_ATTEMPTS + 1):
+        steps0 = eng.stats["decode_steps"]
+        reqs = [Request(rid=i, prompt=p, max_new_tokens=m)
+                for i, (p, m) in enumerate(stream)]
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            # one kernel and a sync before the timed serve: a profiled
+            # serve (NVIDIA H100 80GB HBM3, 700 W) once missed two layers'
+            # kernels of a prefill dispatch, all launched early in the
+            # serve, and failed the int8 launch-count check. The counts
+            # are set to 0 here, inside the profiled window, so that they
+            # and the profile cover the same launches.
+            torch.ones(1, device=dev).add_(1)
+            torch.cuda.synchronize(dev)
+            build.reset_launch_counts()
+            t0 = time.perf_counter()
+            eng.serve(reqs)
+            torch.cuda.synchronize(dev)
+            wall_us = (time.perf_counter() - t0) * 1e6
+        launched = dict(build.launch_counts)
+        for k, n in launched.items():
+            total[k] = total.get(k, 0) + n
+        st = eng.stats
+        steps = st["decode_steps"] - steps0
+        check(st["decode_traces"] == 1
+              and st["graph_replays"] == st["decode_steps"] > 0,
+              f"{label}: profiled serve with {st['decode_traces']} captured "
+              f"graphs, {st['graph_replays']} replays for "
+              f"{st['decode_steps']} steps")
+        by_name = {}
+        for e in prof.events():
+            if e.device_type == torch.autograd.DeviceType.CUDA:
+                us = e.time_range.end - e.time_range.start
+                tot, n = by_name.get(e.name, (0.0, 0))
+                by_name[e.name] = (tot + us, n + 1)
+        # every wrapper's launches against the kernel events the profile
+        # holds for it
+        events = dict.fromkeys(launched, 0)
+        for name, (_us, n) in by_name.items():
+            wrapper = wrapper_of(name)
+            if wrapper is not None:
+                events[wrapper] += n
+        n_events = sum(n for _, n in by_name.values())
+        print(f"  {label} profile coverage (attempt {attempt}): "
+              f"{sum(launched.values())} wrapper launches, "
+              f"{sum(events.values())} profiled kernel events of theirs, "
+              f"{n_events} device events in all; per wrapper "
+              + ", ".join(f"{w} {launched[w]}/{events[w]}"
+                          for w in sorted(events)))
+        if events == launched:
+            return dict(by_name=by_name, launches=launched, steps=steps,
+                        wall_us=wall_us, total=total)
+    raise RuntimeError(
+        f"check failed: {label}: wrapper launches {launched} against "
+        f"profiled kernel events {events} in {PROFILE_ATTEMPTS} profiles")
+
+
 def profile_variant(torch, dev, model, params, stream, label,
                     contiguous_decode=False, paged_decode=False):
     """Where the time goes: ``torch.profiler`` over a short serve of the
-    stream's first 8 requests. Prints the device's busy share (summed
-    device kernel time over host wall time, profiler on) and the kernels
-    with the most device time. Checks which bodies the kernels ran: the
-    decode lines must show the fused kernel's tensor-core body (and, with
-    ``contiguous_decode``, the contiguous kernel's; with ``paged_decode``,
-    the attend-only paged kernel's) and no old bf16 decode body."""
-    from torch.profiler import ProfilerActivity, profile
-    from repro_torch.kernels import build
-    from repro_torch.serving.engine import Request, ServingEngine
+    stream's first 8 requests (``profile_serve``). Prints the device's
+    busy share (summed device kernel time over host wall time, profiler
+    on) and the kernels with the most device time. Checks which bodies
+    the kernels ran: the decode lines must show the fused kernel's
+    tensor-core body (and, with ``contiguous_decode``, the contiguous
+    kernel's; with ``paged_decode``, the attend-only paged kernel's) and
+    no old bf16 decode body."""
+    from repro_torch.serving.engine import ServingEngine
     eng = ServingEngine(model, params, max_batch=8, max_len=512,
                         decode_block=16, page_size=16)
-    reqs = [Request(rid=i, prompt=p, max_new_tokens=m)
-            for i, (p, m) in enumerate(stream[:8])]
-    eng.warmup(prompt_lens=[len(r.prompt) for r in reqs])
+    eng.warmup(prompt_lens=[len(p) for p, _ in stream[:8]])
     check(eng.stats["decode_traces"] == 1,
           f"{label}: warmup captured {eng.stats['decode_traces']} graphs")
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        # one kernel and a sync before the timed serve: a profiled serve
-        # (NVIDIA H100 80GB HBM3, 700 W) once missed two layers' kernels of
-        # a prefill dispatch, all launched early in the serve, and failed
-        # the int8 launch-count check below. The counts are set to 0 here,
-        # inside the profiled window, so that they and the profile cover
-        # the same launches.
-        torch.ones(1, device=dev).add_(1)
-        torch.cuda.synchronize(dev)
-        build.reset_launch_counts()
-        t0 = time.perf_counter()
-        eng.serve(reqs)
-        torch.cuda.synchronize(dev)
-        wall_us = (time.perf_counter() - t0) * 1e6
-    st = eng.stats
-    check(st["decode_traces"] == 1
-          and st["graph_replays"] == st["decode_steps"] > 0,
-          f"{label}: profiled serve with {st['decode_traces']} captured "
-          f"graphs, {st['graph_replays']} replays for {st['decode_steps']} "
-          "steps")
-    by_name = {}
-    for e in prof.events():
-        if e.device_type == torch.autograd.DeviceType.CUDA:
-            us = e.time_range.end - e.time_range.start
-            tot, n = by_name.get(e.name, (0.0, 0))
-            by_name[e.name] = (tot + us, n + 1)
+    prof = profile_serve(torch, dev, eng, stream[:8], label)
+    by_name, launched = prof["by_name"], prof["launches"]
+    steps, wall_us = prof["steps"], prof["wall_us"]
     busy_us = sum(t for t, _ in by_name.values())
-    # every wrapper's launches, credited once per replay of the step graph,
-    # against the kernel events the profile holds for it
-    events = dict.fromkeys(build.launch_counts, 0)
-    for name, (_us, n) in by_name.items():
-        wrapper = wrapper_of(name)
-        if wrapper is not None:
-            events[wrapper] += n
-    launched = sum(build.launch_counts.values())
-    print(f"  {label} profile coverage: {launched} wrapper launches, "
-          f"{sum(events.values())} profiled kernel events; per wrapper "
-          + ", ".join(f"{w} {build.launch_counts[w]}/{events[w]}"
-                      for w in sorted(events)))
-    check(events == build.launch_counts,
-          f"{label}: wrapper launches {dict(build.launch_counts)} against "
-          f"profiled kernel events {events}")
-    print(f"  {label} profile (8 reqs, {st['decode_steps']} decode "
+    print(f"  {label} profile (8 reqs, {steps} decode "
           f"steps, all graph replays): wall {wall_us / 1e3:.1f} ms, device "
           f"kernel time "
           f"{busy_us / 1e3:.1f} ms, device busy share "
@@ -1271,10 +1445,10 @@ def profile_variant(torch, dev, model, params, stream, label,
     for name, (us, n) in sorted(int8.items()):
         print(f"    int8 GEMM: {us / 1e3:9.2f} ms {n:6d} calls  {name[:90]}")
     calls = sum(n for _, n in int8.values())
-    check(calls == build.launch_counts["int8_matmul"]
+    check(calls == launched["int8_matmul"]
           and not any("splitk_reduce" in name for name in by_name),
           f"{label}: {calls} int8 kernels in the profile for "
-          f"{build.launch_counts['int8_matmul']} wrapper launches")
+          f"{launched['int8_matmul']} wrapper launches")
     # the decode kernels: the tensor-core bodies, one launch a call
     dec = {name: v for name, v in by_name.items() if "decode" in name}
     for name, (us, n) in sorted(dec.items()):
@@ -1292,7 +1466,7 @@ def profile_variant(torch, dev, model, params, stream, label,
                 decode_ms=sum(us for us, _ in dec.values()) / 1e3)
 
 
-def phase_main_path(torch, dev):
+def phase_main_path(torch, dev, card):
     from repro_torch.configs.registry import ARCHS
     from repro_torch.models import build_model
     from repro_torch.models.quantize import quantize_params_dense
@@ -1309,6 +1483,8 @@ def phase_main_path(torch, dev):
     reps = SERVE_REPEATS["llama3.2-1b"]
     bf16 = serve_variant(torch, dev, model, params, stream, "bf16 variant",
                          reps)
+    bf16["prefill"] = check_prefill_graphs(torch, dev, model, params, stream,
+                                           "bf16 variant", card)
     bf16["profile"] = profile_variant(torch, dev, model, params, stream,
                                       "bf16 variant")
     # chunked prefill: prompts past the threshold are fed through the
@@ -1335,6 +1511,8 @@ def phase_main_path(torch, dev):
     qmodel = build_model(qcfg, dev)
     int8 = serve_variant(torch, dev, qmodel, qparams, stream, "int8 variant",
                          reps)
+    int8["prefill"] = check_prefill_graphs(torch, dev, qmodel, qparams,
+                                           stream, "int8 variant", card)
     int8["profile"] = profile_variant(torch, dev, qmodel, qparams, stream,
                                       "int8 variant")
     del qparams
@@ -1348,7 +1526,7 @@ def phase_main_path(torch, dev):
     return bf16, int8
 
 
-def phase_family(torch, dev, arch, n_layers=None):
+def phase_family(torch, dev, arch, card, n_layers=None):
     """Serve the stream through one audio or vlm path at full width (depth
     cut to ``n_layers`` when given) and check that its kernels ran: flash
     prefill and fused decode everywhere, and the cross-attention decode
@@ -1369,6 +1547,8 @@ def phase_family(torch, dev, arch, n_layers=None):
     stream = make_stream(cfg.vocab)
     res = serve_variant(torch, dev, model, params, stream, arch,
                         SERVE_REPEATS[arch])
+    res["prefill"] = check_prefill_graphs(torch, dev, model, params, stream,
+                                          arch, card)
     res["profile"] = profile_variant(
         torch, dev, model, params, stream, arch,
         contiguous_decode=cfg.family == "vlm",
@@ -1661,8 +1841,13 @@ def phase_control_plane(torch, dev, card):
               f"{c0 * 1e3:.4f} ms; measured m {p.m * 1e3:.5f} ms, c "
               f"{p.c * 1e3:.4f} ms (refits {ex.refits.get(name, 0)}; "
               f"service ms by batch size {obs}) on {card}")
+    print("  measured c (the t(b) intercept, prefill graphed): "
+          + ", ".join(f"{name} {variants[name].profile.c * 1e3:.3f} ms"
+                      for name in names.values()) + f" on {card}")
     print(f"  phase launches {launches}")
-    return dict(launches=launches, wall_s=wall)
+    return dict(launches=launches, wall_s=wall,
+                c_ms={d: variants[n].profile.c * 1e3
+                      for d, n in names.items()})
 
 
 # ---------------------------------------------------------------------------
@@ -2164,11 +2349,9 @@ def phase_contiguous(torch, dev, model, params, stream, paged_tokens, card,
     tensor-core body once a layer a step and never the fused paged one,
     in one captured graph; then whisper-base, contiguous, against its
     paged serve of phase 3."""
-    from torch.profiler import ProfilerActivity, profile
     from repro_torch.configs.registry import ARCHS
-    from repro_torch.kernels import build
     from repro_torch.models import build_model
-    from repro_torch.serving.engine import Request, ServingEngine
+    from repro_torch.serving.engine import ServingEngine
     geometry = dict(max_batch=8, max_len=512, decode_block=16,
                     page_size=None)
     lens = [len(p) for p, _ in stream]
@@ -2184,31 +2367,16 @@ def phase_contiguous(torch, dev, model, params, stream, paged_tokens, card,
     print(f"  contiguous llama3.2-1b bf16: {text}; tokens equal phase 3's "
           f"paged serve bit for bit in each of {CONTIGUOUS_REPEATS} serves; "
           f"on {card}")
-    reqs = [Request(rid=i, prompt=p, max_new_tokens=m)
-            for i, (p, m) in enumerate(stream)]
-    before = dict(eng.stats)
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        torch.ones(1, device=dev).add_(1)
-        torch.cuda.synchronize(dev)
-        build.reset_launch_counts()
-        eng.serve(reqs)
-        torch.cuda.synchronize(dev)
-    got = dict(build.launch_counts)
-    for k, n in got.items():
+    prof = profile_serve(torch, dev, eng, stream, "contiguous")
+    got, steps = prof["launches"], prof["steps"]
+    for k, n in prof["total"].items():
         launches[k] = launches.get(k, 0) + n
-    steps = eng.stats["decode_steps"] - before["decode_steps"]
     n_layers = model.cfg.n_layers
-    events = {}
-    for e in prof.events():
-        if e.device_type == torch.autograd.DeviceType.CUDA:
-            events[e.name] = events.get(e.name, 0) + 1
+    events = {name: n for name, (_us, n) in prof["by_name"].items()}
     mma = sum(n for name, n in events.items() if DECODE_MMA.search(name))
     fused = sum(n for name, n in events.items() if "fused_decode" in name)
     check(got["decode_attention"] == steps * n_layers == mma
-          and fused == 0 and got["fused_paged_decode_attention"] == 0
-          and eng.stats["decode_traces"] == 1
-          and eng.stats["graph_replays"] == eng.stats["decode_steps"],
+          and fused == 0 and got["fused_paged_decode_attention"] == 0,
           f"contiguous profiled serve: {got['decode_attention']} "
           f"decode_attention launches, {mma} tensor-core body events, "
           f"{fused} fused decode events for {steps} steps x {n_layers} "
@@ -2262,6 +2430,271 @@ def phase_prefix_swap_layout(torch, dev, model, params, stream, card,
     print(f"  phase launches {launches}")
     return dict(launches=launches, prefix=prefix, swap=swap,
                 contiguous=contiguous)
+
+
+# ---------------------------------------------------------------------------
+# phase 8: the wall clock (threaded steppers, ServingRuntime, fault sites,
+# deadline enforcement)
+
+WALL_QUERIES = 16          # streamed payload queries of the wall serve
+WALL_RATE = 8.0            # their seeded Poisson arrival rate, queries/s
+WALL_MAX_NEW = 32
+WALL_FAULT_AT = 2          # the stepper consult that dies in the fault serve
+WALL_TIMEOUT = 300.0       # bound of every wait on a result
+
+
+def wall_cluster(dev, n_accel, **knobs):
+    """A full-width llama3.2-1b cluster on the wall clock (phase 5's engine
+    geometry), one threaded executor a worker."""
+    from repro_torch.configs.registry import ARCHS
+    from repro_torch.core.master import MasterConfig
+    from repro_torch.serving.executor import EngineExecutorConfig
+    from repro_torch.sim.cluster import make_cluster
+    return make_cluster(n_accel=n_accel, archs=[ARCHS[CP_ARCH]],
+                        autoscale=False,
+                        cfg=MasterConfig(worker_autoscale=False),
+                        backend="real", clock="wall", device=dev,
+                        engine_cfg=EngineExecutorConfig(
+                            max_batch=8, max_len=512, decode_block=16,
+                            min_bucket=8, page_size=16, **knobs))
+
+
+def record_prefill_batches(eng, batch_of):
+    """Record, by prompt, the batch size (1 or ``max_batch``) of the
+    prefill dispatch that admitted it: a request's tokens depend on its
+    prompt and on that shape alone (every decode step has the same shape,
+    and each row of a product is computed alone), so the oracle replays
+    that shape."""
+    admit = eng._admit_group
+
+    def recorded(bucket, rs, slots):
+        for r in rs:
+            batch_of[tuple(int(t) for t in r.prompt)] = \
+                1 if len(rs) == 1 else eng.max_batch
+        return admit(bucket, rs, slots)
+
+    eng._admit_group = recorded
+
+
+def oracle_tokens(torch, engines, variant, prompt, batch, max_new):
+    """A direct engine's tokens for one prompt on the variant's params, its
+    prefill dispatched at the served batch size (with a second copy of the
+    prompt as the other row when that is ``max_batch``)."""
+    from repro_torch.serving.engine import Request
+    eng = engines[variant]
+    reqs = [Request(rid=i, prompt=np.asarray(prompt, np.int32),
+                    max_new_tokens=max_new)
+            for i in range(1 if batch == 1 else 2)]
+    eng.serve(reqs)
+    return reqs[0].tokens
+
+
+def phase_wall(torch, dev, card):
+    """Phase 8: a wall-clock llama3.2-1b cluster at full width with two
+    workers, so two stepper threads share the card, each holding both
+    variants' engines, warmed for the stream's buckets, both variants
+    loaded on both workers before the serve. A client thread
+    submits streamed payload queries of both variants as seeded Poisson
+    arrivals through ``ServingRuntime``: each result must be ok, its
+    streamed concat its outputs, its tokens a direct engine's on the
+    served variant's params, both steppers must have served, no graph may
+    be captured during the serve, and ``shutdown(drain=True)`` must return
+    True with every stepper joined. Then, on a one-worker cluster, a
+    stepper death mid-decode (the injected ``stepper`` fault) must be
+    retried to a direct engine's tokens with one restart, the dropped
+    engine's device memory released, and a 1 ms SLO under
+    ``deadline_enforce`` must come back ``timed_out``."""
+    import gc
+    import threading
+    from repro_torch.core.api import QueryPayload, QuerySpec
+    from repro_torch.kernels import build
+    from repro_torch.serving.engine import ServingEngine
+    from repro_torch.serving.faults import FaultInjector
+    from repro_torch.serving.runtime import ServingRuntime
+    from repro_torch.configs.registry import ARCHS
+    cfg = ARCHS[CP_ARCH]
+    names = [f"{CP_ARCH}/h100-1/{d}-b8" for d in ("bf16", "int8")]
+    stream = make_stream(cfg.vocab, n=WALL_QUERIES, seed=8)
+    prompts = [p for p, _ in stream]
+    t0 = time.perf_counter()
+    c = wall_cluster(dev, 2)
+    variants = c.store.registry.variants
+    batch_of: dict = {}
+    for ex in c.executors:
+        with ex._lock:
+            for name in names:
+                eng = ex._engine(variants[name])
+                eng.warmup(prompt_lens=[len(p) for p in prompts])
+                record_prefill_batches(eng, batch_of)
+    # both variants' instances running on both workers before the first
+    # query: selection spreads the queries over the two workers, and no
+    # query waits on a model load (the serve times serving alone)
+    loads = [(w, n) for w in sorted(c.master.workers) for n in names]
+    for w, name in loads:
+        c.loop.schedule(0.0, (lambda w=w, name=name:
+                              c.master.workers[w].load_variant(
+                                  variants[name])))
+    deadline = time.monotonic() + 60.0
+    while not all(c.store.instance(n, w) is not None
+                  and c.store.instance(n, w).running for w, n in loads):
+        check(time.monotonic() < deadline, "variants never loaded")
+        time.sleep(0.05)
+    traces = {(i, n): (e.stats["prefill_traces"], e.stats["decode_traces"])
+              for i, ex in enumerate(c.executors)
+              for n, e in ex.engines.items()}
+    torch.cuda.synchronize(dev)
+    warm_s = time.perf_counter() - t0
+    rt = ServingRuntime(c)
+    handles: list = []
+    rng = np.random.default_rng(SEED + 8)
+    gaps = rng.exponential(1.0 / WALL_RATE, size=WALL_QUERIES)
+
+    def client():
+        for i, gap in enumerate(gaps):
+            time.sleep(float(gap))
+            h = rt.submit(QuerySpec.variant(
+                names[i % 2], latency_ms=600_000,
+                payload=QueryPayload.of([prompts[i]],
+                                        max_new_tokens=WALL_MAX_NEW)))
+            handles.append((i, h))
+
+    build.reset_launch_counts()
+    t1 = time.perf_counter()
+    sender = threading.Thread(target=client, name="wall-client")
+    sender.start()
+    sender.join(WALL_TIMEOUT)
+    check(not sender.is_alive() and len(handles) == WALL_QUERIES,
+          f"the client submitted {len(handles)} of {WALL_QUERIES} queries")
+    results = [(i, h, h.result(timeout=WALL_TIMEOUT)) for i, h in handles]
+    serve_s = time.perf_counter() - t1
+    drained = rt.shutdown(drain=True, timeout=WALL_TIMEOUT)
+    launches = dict(build.launch_counts)
+    check(drained, "shutdown(drain=True) returned False")
+    check(all(ex._thread is not None and not ex._thread.is_alive()
+              for ex in c.executors),
+          "a stepper thread is still alive after shutdown")
+    now = {(i, n): (e.stats["prefill_traces"], e.stats["decode_traces"])
+           for i, ex in enumerate(c.executors)
+           for n, e in ex.engines.items()}
+    check(now == traces, f"graphs captured during the serve: {traces} "
+          f"before, {now} after")
+    steps = [sum(e.stats["decode_steps"] for e in ex.engines.values())
+             for ex in c.executors]
+    check(all(n > 0 for n in steps),
+          f"decode steps by stepper {steps}: not both served")
+    oracles = {n: ServingEngine(*c.executors[0].served_model(variants[n]),
+                                max_batch=8, max_len=512, decode_block=16,
+                                min_bucket=8, page_size=16)
+               for n in names}
+    for eng in oracles.values():
+        eng.warmup(prompt_lens=[len(p) for p in prompts])
+    for i, h, res in results:
+        check(res.ok and res.load == 0.0, f"wall query {i}: failed="
+              f"{res.failed} variant={res.variant!r} load {res.load} s")
+        (out,) = res.outputs
+        cat = [t for ch in h.chunks for t in ch.tokens]
+        check(cat == [int(x) for x in out],
+              f"wall query {i}: streamed concat differs from its outputs")
+        want = oracle_tokens(torch, oracles, res.variant, prompts[i],
+                             batch_of[tuple(int(t) for t in prompts[i])],
+                             WALL_MAX_NEW)
+        check(np.array_equal(want, out), f"wall query {i} ({res.variant}): "
+              "tokens differ from a direct engine on the served params")
+    ttft = [h.ttft for _, h, _ in results]
+    lat = [res.latency for _, _, res in results]
+    q = statistics.quantiles
+    print(f"  wall serve: {WALL_QUERIES} streamed queries (1 prompt of "
+          f"16-300 tokens, {WALL_MAX_NEW} new tokens each, both variants) "
+          f"at {WALL_RATE:.0f} q/s Poisson from a client thread, 2 "
+          f"workers' steppers on one card (decode steps {steps}); "
+          f"{WALL_QUERIES / serve_s:.2f} q/s over {serve_s:.2f} s; TTFT "
+          f"p50 {statistics.median(ttft) * 1e3:.1f} ms p99 "
+          f"{q(ttft, n=100)[98] * 1e3:.1f} ms; completion p50 "
+          f"{statistics.median(lat) * 1e3:.1f} ms p99 "
+          f"{q(lat, n=100)[98] * 1e3:.1f} ms; prefill batches "
+          f"{sorted(batch_of.values())}; every result ok, streamed concat "
+          f"= outputs = a direct engine's tokens; no capture during the "
+          f"serve; drained clean (warm-up {warm_s:.1f} s) on {card}")
+    print(f"  wall serve launches {launches}")
+    for name in ("flash_attention", "fused_paged_decode_attention",
+                 "int8_matmul"):
+        check(launches[name] > 0, f"{name} was not launched in the wall "
+              "serve")
+    del rt, c, oracles, results, handles
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # a stepper death, then a deadline, on one worker
+    faults = FaultInjector(schedule={"stepper": [WALL_FAULT_AT]})
+    c = wall_cluster(dev, 1, faults=faults, deadline_enforce=True)
+    (ex,) = c.executors
+    variant = c.store.registry.variants[names[0]]
+    fault_prompts = prompts[:8]
+    with ex._lock:
+        ex._engine(variant).warmup(prompt_lens=[len(p)
+                                                for p in fault_prompts])
+    torch.cuda.synchronize(dev)
+    engine_gb = sum(t.numel() * t.element_size() for t in
+                    ex.engines[variant.name]._cache.values()) / 1e9
+    alloc0 = torch.cuda.memory_allocated(dev) / 1e9
+    res0 = torch.cuda.memory_reserved(dev) / 1e9
+    rt = ServingRuntime(c)
+    try:
+        res = rt.submit(QuerySpec.variant(
+            variant.name, latency_ms=600_000,
+            payload=QueryPayload.of(fault_prompts,
+                                    max_new_tokens=WALL_MAX_NEW))).result(
+                timeout=WALL_TIMEOUT)
+        check(res.ok and res.attempts > 1,
+              f"stepper fault: ok={res.ok} after {res.attempts} attempts")
+        check(faults.fired.get("stepper") == 1 and ex.stepper_restarts == 1,
+              f"stepper fault fired {faults.fired.get('stepper')}, "
+              f"{ex.stepper_restarts} restarts")
+        gc.collect()
+        torch.cuda.synchronize(dev)
+        alloc1 = torch.cuda.memory_allocated(dev) / 1e9
+        res1 = torch.cuda.memory_reserved(dev) / 1e9
+        eng = ex.engines[variant.name]
+        check(eng.stats["decode_traces"] == 1,
+              "the rebuilt engine did not capture its step")
+        want = served_tokens(torch, ex, variant, fault_prompts,
+                             WALL_MAX_NEW)
+        check(all(np.array_equal(a, b) for a, b in zip(want, res.outputs)),
+              "stepper fault: the retried query's tokens differ from a "
+              "direct engine's")
+        check(alloc1 - alloc0 < engine_gb / 2,
+              f"device memory {alloc0:.3f} GB before the fault, {alloc1:.3f}"
+              f" GB after the retry: the dropped engine ({engine_gb:.3f} GB "
+              "of pools) was not released")
+        print(f"  stepper fault at consult {WALL_FAULT_AT}: the query "
+              f"failed mid-decode, was retried ({res.attempts} attempts) "
+              f"to a direct engine's tokens; 1 restart; the rebuilt engine "
+              f"captured anew; device memory allocated {alloc0:.3f} -> "
+              f"{alloc1:.3f} GB, reserved {res0:.3f} -> {res1:.3f} GB "
+              f"(one engine's pools {engine_gb:.3f} GB) on {card}")
+        late = rt.submit(QuerySpec.variant(
+            variant.name, latency_ms=1,
+            payload=QueryPayload.of(prompts[8:9],
+                                    max_new_tokens=WALL_MAX_NEW))).result(
+                timeout=WALL_TIMEOUT)
+        check(late.timed_out is True and not late.failed,
+              f"deadline: timed_out={late.timed_out} failed={late.failed}")
+        got = len(late.outputs[0]) if late.outputs else 0
+        print(f"  deadline_enforce, 1 ms SLO: timed out after "
+              f"{got} of {WALL_MAX_NEW} tokens, latency "
+              f"{late.latency * 1e3:.1f} ms, not failed")
+    finally:
+        drained = rt.shutdown(drain=True, timeout=WALL_TIMEOUT)
+    check(drained and not ex._thread.is_alive(),
+          "the fault cluster did not drain clean")
+    del rt, c, ex
+    gc.collect()
+    torch.cuda.empty_cache()
+    return dict(launches=launches, q_s=WALL_QUERIES / serve_s,
+                ttft_ms=(statistics.median(ttft) * 1e3,
+                         q(ttft, n=100)[98] * 1e3),
+                lat_ms=(statistics.median(lat) * 1e3,
+                        q(lat, n=100)[98] * 1e3))
 
 
 # ---------------------------------------------------------------------------
@@ -2326,9 +2759,10 @@ def main() -> int:
 
     t0 = time.perf_counter()
     print("phase 3: main paths (ServingEngine.serve, full width)")
-    bf16, int8 = phase_main_path(torch, dev)
-    whisper = phase_family(torch, dev, "whisper-base")
-    vision = phase_family(torch, dev, "llama-3.2-vision-90b", VISION_LAYERS)
+    bf16, int8 = phase_main_path(torch, dev, card)
+    whisper = phase_family(torch, dev, "whisper-base", card)
+    vision = phase_family(torch, dev, "llama-3.2-vision-90b", card,
+                          VISION_LAYERS)
     paths = [bf16, bf16["chunked"], int8, whisper, vision]
     for k in kernels:
         k["launches"] = sum(r["launches"][k["name"]] for r in paths)
@@ -2349,6 +2783,12 @@ def main() -> int:
               f"{busy}; uncaptured body {r['eager_tok_s']:.1f} tok/s, "
               f"segment {r['eager_seg_ms']:.2f} ms; peak memory "
               f"{r['peak_gb']:.2f} GB on {card}")
+        pf = r.get("prefill")
+        if pf:
+            print(f"  {label}: prefill {pf['ms']:.3f} ms a dispatch as "
+                  f"graphs against {pf['eager_ms']:.3f} ms op by op; "
+                  f"{pf['graphs']} prefill graphs, capture peak "
+                  f"{pf['peak_gb']:.3f} GB on {card}")
     print(f"  phase 3 took {time.perf_counter() - t0:.1f} s")
 
     t0 = time.perf_counter()
@@ -2384,6 +2824,14 @@ def main() -> int:
     for k in kernels:
         k["launches"] += phase7["launches"].get(k["name"], 0)
     print(f"  phase 7 took {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    print("phase 8: the wall clock (ServingRuntime, two stepper threads on "
+          "one card, a stepper fault, deadline enforcement; llama3.2-1b "
+          "full width)")
+    wall = phase_wall(torch, dev, card)
+    for k in kernels:
+        k["launches"] += wall["launches"][k["name"]]
+    print(f"  phase 8 took {time.perf_counter() - t0:.1f} s")
     print(f"all phases passed in {time.perf_counter() - t_start:.1f} s")
     for k in kernels:
         print(f"kernel {k['name']}: {k['launches']} main-path launches, "

@@ -175,9 +175,8 @@ class Executor(Protocol):
     #   run_async(variant, batch, requests, on_done)
     # returning immediately; ``on_done(duration, error)`` fires later from
     # the executor's own thread. When present, the worker routes jobs
-    # through it instead of blocking the clock thread in ``run``. No
-    # executor of this package implements it yet (the wall-clock runtime
-    # is not ported).
+    # through it instead of blocking the clock thread in ``run`` — see
+    # ``repro_torch.serving.runtime.ThreadedEngineExecutor``.
 
 
 class SimExecutor:

@@ -14,9 +14,14 @@ has no ``nvcc``.
 Every wrapper counts its own launches in ``launch_counts``: it adds one
 where it launches its kernel and nowhere else, so a run can show that its
 main path went through the kernels. Under CUDA graph capture a wrapper runs
-once and launches nothing, and at replay it does not run at all: the
-engine takes the counts a capture added back out (``capturing``) and
-credits them once per replay (``credit``).
+once and launches nothing, and at replay it does not run at all: what a
+wrapper counts while its thread records a capture goes to that capture's
+own tally (``capturing``), not to ``launch_counts``, and the engine
+credits the tally once per replay (``credit``). So launches that other
+threads make or credit while one thread captures land in the totals and
+never in the capture's tally. The totals are updated under a lock, and
+building and binding the libraries under another: two threads that call a
+kernel first at the same time build it once.
 """
 from __future__ import annotations
 
@@ -25,6 +30,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 from contextlib import contextmanager
 from pathlib import Path
 from typing import Any, Dict, Iterator
@@ -68,33 +74,48 @@ HELPERS = {
 launch_counts: Dict[str, int] = {name: 0 for name in KERNELS}
 _libs: Dict[str, ctypes.CDLL] = {}   # kept alive beside their entry points
 _fns: Dict[str, Any] = {}
+_count_lock = threading.Lock()       # guards launch_counts
+_build_lock = threading.RLock()      # guards build_all, _libs and _fns
+_local = threading.local()           # .tally: the capture this thread records
 
 
 def reset_launch_counts() -> None:
-    for name in launch_counts:
-        launch_counts[name] = 0
+    with _count_lock:
+        for name in launch_counts:
+            launch_counts[name] = 0
+
+
+def _count(name: str, n: int = 1) -> None:
+    """Add ``n`` launches of ``name``: to the tally of the capture this
+    thread records, if any, else to the shared totals."""
+    tally = getattr(_local, "tally", None)
+    if tally is not None:
+        tally[name] = tally.get(name, 0) + n
+        return
+    with _count_lock:
+        launch_counts[name] += n
 
 
 @contextmanager
 def capturing() -> Iterator[Dict[str, int]]:
-    """Around a graph capture: yields a dict that, on exit, holds the
-    launches the wrappers counted inside the block, and takes them back out
-    of ``launch_counts`` (a capture launches nothing)."""
-    before = dict(launch_counts)
+    """Around a graph capture: yields a dict that holds, on exit, the
+    launches the wrappers counted on this thread inside the block, none of
+    which reach ``launch_counts`` (a capture launches nothing). Other
+    threads count into the totals meanwhile."""
+    if getattr(_local, "tally", None) is not None:
+        raise RuntimeError("capturing() does not nest")
     delta: Dict[str, int] = {}
+    _local.tally = delta
     try:
         yield delta
     finally:
-        for name, n in launch_counts.items():
-            if n != before[name]:
-                delta[name] = n - before[name]
-                launch_counts[name] = before[name]
+        _local.tally = None
 
 
 def credit(delta: Dict[str, int], n: int) -> None:
     """Count ``n`` replays of a graph whose capture held ``delta``."""
     for name, k in delta.items():
-        launch_counts[name] += k * n
+        _count(name, k * n)
 
 
 def nvcc_path() -> str:
@@ -121,15 +142,21 @@ def build_all() -> Dict[str, str]:
 
     Returns the ``-Xptxas -v`` report (registers, shared memory, spills) of
     each source, read back from the build directory. Raises if any compile
-    fails.
+    fails. One thread builds at a time; another that asks meanwhile waits
+    and finds the libraries built.
     """
+    with _build_lock:
+        return _build_all()
+
+
+def _build_all() -> Dict[str, str]:
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     procs = {}
     for name, (source, _sym, _args) in KERNELS.items():
         out = _lib_path(source)
         if out.exists():
             continue
-        tmp = out.with_suffix(f".tmp{os.getpid()}.so")
+        tmp = out.with_suffix(f".tmp{os.getpid()}.{threading.get_ident()}.so")
         cmd = [nvcc_path(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / source)]
         procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                         stderr=subprocess.STDOUT, text=True),
@@ -148,15 +175,23 @@ def build_all() -> Dict[str, str]:
             for name, (src, _sym, _args) in KERNELS.items()}
 
 
-def _bind(kernel: str, sym: str, argtypes):
-    lib = _libs.get(kernel)
-    if lib is None:
-        build_all()
-        lib = _libs[kernel] = ctypes.CDLL(str(_lib_path(KERNELS[kernel][0])))
-    fn = getattr(lib, sym)
-    fn.argtypes = argtypes
-    fn.restype = ctypes.c_int
-    return fn
+def _bind(key: str, kernel: str, sym: str, argtypes):
+    """Entry point ``sym`` of ``kernel``'s library, cached as ``key``; the
+    first caller builds and loads the library under the build lock."""
+    with _build_lock:
+        fn = _fns.get(key)
+        if fn is not None:
+            return fn
+        lib = _libs.get(kernel)
+        if lib is None:
+            build_all()
+            lib = _libs[kernel] = ctypes.CDLL(
+                str(_lib_path(KERNELS[kernel][0])))
+        fn = getattr(lib, sym)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+        _fns[key] = fn
+        return fn
 
 
 def kernel_fn(name: str):
@@ -164,7 +199,7 @@ def kernel_fn(name: str):
     fn = _fns.get(name)
     if fn is None:
         _source, sym, argtypes = KERNELS[name]
-        fn = _fns[name] = _bind(name, sym, argtypes)
+        fn = _bind(name, name, sym, argtypes)
     return fn
 
 
@@ -173,7 +208,7 @@ def helper_fn(sym: str):
     fn = _fns.get(sym)
     if fn is None:
         kernel, argtypes = HELPERS[sym]
-        fn = _fns[sym] = _bind(kernel, sym, argtypes)
+        fn = _bind(sym, kernel, sym, argtypes)
     return fn
 
 
@@ -181,4 +216,4 @@ def check_launch(name: str, rc: int) -> None:
     """Raise on the ``cudaGetLastError()`` code a C entry point returned."""
     if rc != 0:
         raise RuntimeError(f"{name}: kernel launch failed with CUDA error {rc}")
-    launch_counts[name] += 1
+    _count(name)

@@ -203,6 +203,38 @@ def scatter_pool_pages(pool: torch.Tensor, host_pages: torch.Tensor,
     return pool
 
 
+def page_rows_of(new: torch.Tensor, bax: int, sax: int,
+                 page_size: int) -> torch.Tensor:
+    """Prefill leaf ``new`` (batch at ``bax``, sequence at ``sax``) as
+    page-shaped rows ``(nb * n_rows, ..., page_size, ...)``: the sequence
+    padded to whole pages and split, row ``b * n_rows + j`` holding page
+    ``j`` of batch row ``b``."""
+    new = new.movedim(bax, 0)                       # (nb, ..., S@sax, ...)
+    nb = new.shape[0]
+    n_rows = -(-new.shape[sax] // page_size)
+    pad = [0, 0] * (new.ndim - 1 - sax) + [0, n_rows * page_size
+                                           - new.shape[sax]]
+    new = torch.nn.functional.pad(new, pad)
+    new = new.reshape(new.shape[:sax] + (n_rows, page_size)
+                      + new.shape[sax + 1:])
+    return new.movedim(sax, 1).reshape((nb * n_rows,) + new.shape[1:sax]
+                                       + new.shape[sax + 1:])
+
+
+def scatter_page_rows(pool: torch.Tensor, new: torch.Tensor,
+                      src: torch.Tensor, dst: torch.Tensor, bax: int,
+                      sax: int) -> None:
+    """Write prefill leaf ``new`` into its pool in place with index tensors
+    of a fixed length: page row ``src[i]`` (``page_rows_of``) goes to
+    physical page ``dst[i]``. The caller sends a page row that must be
+    dropped (a sentinel page, an admit batch's padding row) to a copy of a
+    kept one, its ``src`` and ``dst`` repeated, so duplicate indices carry
+    the same bytes: no mask and no read back, so a CUDA graph captures
+    it."""
+    rows = page_rows_of(new, bax, sax, pool.shape[sax])
+    pool.movedim(sax - 1, 0)[dst] = rows.index_select(0, src).to(pool.dtype)
+
+
 def scatter_pages(pool: torch.Tensor, new: torch.Tensor,
                   page_rows: np.ndarray, bax: int, sax: int) -> None:
     """Write prefill leaf ``new`` (batch at ``bax``, sequence at ``sax``)

@@ -13,9 +13,9 @@ dense and vlm self k/v, audio self and encoder k/v. A leaf without one is
 Requests are admitted FIFO while the pool can hold their worst case
 (``ceil((prompt + max_new - 1) / page_size)`` pages); same-bucket prompts
 are prefilled together in one dispatch (admit batches bucketed to
-{1, max_batch}; padding rows carry slot ``max_batch`` and are dropped),
-their paged leaves are scattered into the pools through the block table
-and their state rows are written by slot. The audio and vlm families get
+{1, max_batch}), their paged leaves are scattered into the pools through
+the block table and their state rows are written by slot. The audio and
+vlm families get
 all-zero stub encoder inputs at prefill, exactly as the JAX engine feeds
 them (``frames`` of the prompt's bucket width, ``image_embeds`` of
 ``n_image_tokens``). A slot never admitted keeps ``enc_len`` 0 and a freed
@@ -54,6 +54,23 @@ engine counts on the same stream; ``decode_traces`` counts captured graphs
 (1 per engine on the card, 0 on the CPU) and ``graph_replays`` the steps
 run as replays. The launch counts a capture records are credited once per
 replay (``kernels.build.credit``).
+
+**Prefill programs.** As the JAX engine compiles one prefill program per
+``(nbatch, bucket)`` key (``_prefill_fns``, counted in ``prefill_traces``),
+the port builds one ``_PrefillProgram`` per key: static device buffers for
+its tokens, lengths, target slots, ``max_new`` and page rows (one host copy
+a dispatch), and one body, ``_prefill_body``: the model's prefill, the
+first-token argmax, the scatter into the pools and the slots' ``tok``,
+``pos``, ``rem`` and ``plen``. Every write has a fixed shape: padding rows
+of an admit batch and page rows past a slot's pages repeat a live row's
+indices and bytes (where the JAX engine drops out-of-bounds indices), so
+nothing depends on the data's shape. On the card each program is captured
+as a CUDA graph when it is built (``warmup()``, or a dispatch of a new key)
+in one memory pool per engine, and a dispatch replays it; on the CPU the
+body runs as it is. ``warmup(prompt_lens)`` builds the keys the lengths
+cover and skips built ones. A capture's warm-up run writes only slot 0 and
+one page (the trash page of the kernel pool), which it restores, so a live
+engine may be warmed between steps.
 
 **Chunked prefill** (``chunk_threshold``). A prompt longer than the
 threshold takes a free slot FIFO but gets no prefill dispatch: it is
@@ -150,6 +167,7 @@ from __future__ import annotations
 
 import dataclasses
 import hashlib
+import threading
 import time
 from collections import deque
 from contextlib import contextmanager
@@ -532,6 +550,101 @@ def plan_segment(rem: np.ndarray, pos: np.ndarray, plen: np.ndarray,
 # iterations ``torch.cuda.graphs`` asks for)
 WARM_STEPS = 3
 
+# one graph capture at a time in the process: the caching allocator routes
+# a capture's allocations by the capturing stream, and emptying its cache
+# (which each capture does first) asserts while another capture is under
+# way
+_CAPTURE_LOCK = threading.Lock()
+
+
+_thread = threading.local()
+
+
+def side_stream(device: torch.device):
+    """This thread's side stream for graph warm-ups and captures, made
+    once: the libraries keep per-stream state (cuBLAS a workspace per
+    handle and stream), so a new stream per capture would leave a
+    workspace behind each time."""
+    stream = getattr(_thread, "stream", None)
+    if stream is None:
+        stream = _thread.stream = torch.cuda.Stream(device)
+    return stream
+
+
+def capture_graph(device: torch.device, body, pool=None):
+    """Capture ``body()`` as a CUDA graph on this thread's side stream, in
+    ``thread_local`` mode (other threads' syncs and launches go on), under
+    the process's capture lock, in memory pool ``pool`` (a private one by
+    default). Returns ``(graph, launches)``: the wrapper launches counted
+    on this thread while it recorded (``kernels.build.capturing``). The
+    caller has run the body on this engine's buffers first (the warm-up a
+    capture needs).
+
+    The allocator's cached blocks are released first, as
+    ``torch.cuda.graph`` does: a capture allocates from its pool alone and
+    cannot free cached memory mid-capture, so memory cached outside the
+    pool (a model's init temporaries, the warm-up's activations) would
+    otherwise leave it none."""
+    with _CAPTURE_LOCK:
+        torch.cuda.empty_cache()
+        graph = torch.cuda.CUDAGraph()
+        side = side_stream(device)
+        side.wait_stream(torch.cuda.current_stream(device))
+        with build.capturing() as launches, torch.no_grad(), \
+                torch.cuda.stream(side):
+            graph.capture_begin(pool=pool, capture_error_mode="thread_local")
+            try:
+                body()
+            finally:
+                graph.capture_end()
+        torch.cuda.current_stream(device).wait_stream(side)
+    return graph, launches
+
+
+class _PrefillProgram:
+    """One ``(nbatch, bucket)`` prefill program of an engine: its inputs
+    in one static device buffer that the host refills with one copy a
+    dispatch, its first tokens in a static output, the family's stub
+    encoder input, and, on the card, the captured graph of
+    ``ServingEngine._prefill_body`` over them with the launches it
+    recorded (credited per replay).
+
+    Inputs: ``tokens`` (nb, bucket) right-padded, ``lengths`` (nb,),
+    ``sel`` (nb,) the live row whose outputs each row writes (padding rows
+    repeat row 0), ``slots`` and ``rem`` (nb,) the target slot and
+    ``max_new - 1`` of that row, and, paged, ``src``/``dst`` (nb * n_rows,)
+    the page row written to each physical page (``scatter_page_rows``)."""
+
+    def __init__(self, eng: "ServingEngine", nb: int, bucket: int):
+        self.nb, self.bucket = nb, bucket
+        self.n_rows = eng._page_rows_for(bucket) if eng._paged else 0
+        nr = nb * self.n_rows
+        sizes = [nb * bucket, nb, nb, nb, nb, nr, nr]
+        self.host = np.zeros((sum(sizes),), np.int64)
+        self.inp = torch.zeros((sum(sizes),), dtype=torch.long,
+                               device=eng.device)
+        self._host_views = self._views(self.host, sizes)
+        (self.tokens, self.lengths, self.sel, self.slots, self.rem,
+         self.src, self.dst) = self._views(self.inp, sizes)
+        self.firsts = torch.zeros((nb,), dtype=torch.int32,
+                                  device=eng.device)
+        self.stub = eng._prefill_stub(self)
+        self.graph: Optional[Any] = None
+        self.launches: Dict[str, int] = {}
+
+    def _views(self, flat, sizes):
+        cuts = np.cumsum([0, *sizes])
+        out = [flat[a:b] for a, b in zip(cuts[:-1], cuts[1:])]
+        out[0] = out[0].reshape(self.nb, self.bucket)
+        return out
+
+    def load(self, *arrays) -> None:
+        """Write the inputs (in the order of the class docstring) into
+        the device buffer: one host copy."""
+        for view, a in zip(self._host_views, arrays):
+            view[...] = a
+        self.inp.copy_(torch.from_numpy(self.host))
+
 
 class ServingEngine:
     """Continuous-batching engine over one model + params (greedy decode)."""
@@ -686,12 +799,18 @@ class ServingEngine:
                         else dict(self._cache))
         self._graph: Optional[Any] = None
         self._graph_launches: Dict[str, int] = {}
+        # the prefill programs by (nbatch, bucket), the memory pool their
+        # graphs share on the card, and the vlm stub input they view
+        self._prefill_fns: Dict[Tuple[int, int], _PrefillProgram] = {}
+        self._prefill_pool: Optional[Any] = None
+        self._image_stub: Optional[torch.Tensor] = None
         # host mirrors of rem, pos and plen: they plan each segment and
         # split its emitted tokens between the slots
         self._rem = np.zeros((max_batch,), np.int64)
         self._slot_pos = np.zeros((max_batch,), np.int64)
         self._plen = np.zeros((max_batch,), np.int64)
         self.stats: Dict[str, int] = {
+            "prefill_traces": 0, "prefill_replays": 0,
             "decode_traces": 0, "prefill_dispatches": 0,
             "decode_dispatches": 0, "decode_steps": 0,
             "tokens_generated": 0, "admitted": 0, "chunk_admits": 0,
@@ -864,21 +983,20 @@ class ServingEngine:
                 self._step_body()
 
     def _capture(self) -> None:
-        """Capture one step of the body as a CUDA graph, once per engine.
+        """Capture one step of the body as a CUDA graph, once per engine,
+        after warm-up steps on quiesced state (``_warm_steps``) on a side
+        stream.
 
         Raises if the capture fails: no segment runs the eager loop on the
         card."""
         dev = self.device
-        side = torch.cuda.Stream(dev)
+        side = side_stream(dev)
         side.wait_stream(torch.cuda.current_stream(dev))
         with torch.cuda.stream(side):
             self._warm_steps()
         torch.cuda.current_stream(dev).wait_stream(side)
-        graph = torch.cuda.CUDAGraph()
         try:
-            with build.capturing() as launches, torch.no_grad(), \
-                    torch.cuda.graph(graph, capture_error_mode="thread_local"):
-                self._step_body()
+            graph, launches = capture_graph(dev, self._step_body)
         except Exception as e:
             raise RuntimeError(f"capturing the decode step of "
                                f"{self.model.cfg.name} failed: {e}") from e
@@ -902,24 +1020,26 @@ class ServingEngine:
 
     # ------------------------------------------------------------------
     def warmup(self, prompt_lens: Sequence[int] = ()) -> None:
-        """Build the kernels (on CUDA), run one prefill on scratch and, on
-        CUDA, capture the decode step.
+        """Build the kernels (on CUDA), the prefill programs of the
+        ``(nbatch, bucket)`` keys that ``prompt_lens`` (and the minimum
+        bucket) cover, and, on CUDA, capture the decode step.
 
-        The JAX engine compiles its programs here; the port builds its
-        kernel libraries, warms the device allocator and libraries with a
-        prefill whose outputs are discarded, and captures the step graph.
-        Nothing touches the live pools or slot state. Prompts that chunked
-        admission takes never prefill and are left out.
-        """
+        As in the JAX engine, a key already built is skipped, so a call on
+        covered lengths costs nothing, and prompts that chunked admission
+        takes never prefill and are left out. On the card each new program
+        is captured as a graph (``_capture_prefill``), whose warm-up runs
+        leave the pools and slot state as they were, so a live engine may
+        be warmed between steps."""
         cfg = self.model.cfg
         if cfg.attention_impl == "cuda" or cfg.quantize == "int8_cuda":
             build.build_all()
         lens = [n for n in prompt_lens if self.chunk_threshold is None
                 or n <= self.chunk_threshold]
-        b = bucket_len(max([1, *lens]), self.min_bucket, self.max_len)
-        with torch.no_grad():
-            self.model.prefill(self.params, self._prefill_batch(
-                np.zeros((1, b), np.int32)))
+        buckets = {bucket_len(max(n, 1), self.min_bucket, self.max_len)
+                   for n in lens + [1]}
+        for b in sorted(buckets):
+            for nb in sorted({1, self.max_batch}):
+                self._get_prefill(b, nb)
         if self.device.type == "cuda":
             if self._graph is None:
                 self._capture()
@@ -937,83 +1057,178 @@ class ServingEngine:
             self._bt[slot, held:held + len(new)] = new
             self._bt_stale = True
 
-    def _prefill_batch(self, tokens: np.ndarray,
-                       lengths: Optional[np.ndarray] = None):
-        """A prefill batch on the device, with the family's stub encoder
-        input: all zeros, as the JAX engine feeds it."""
-        cfg, dev = self.model.cfg, self.device
-        nb, bucket = tokens.shape
-        batch = {"tokens": torch.from_numpy(tokens).to(dev)}
-        if lengths is not None:
-            batch["length"] = torch.from_numpy(lengths).to(dev)
+    # ------------------------------------------------------------------
+    # prefill: one program per (nbatch, bucket) key, captured on the card
+    def _get_prefill(self, bucket: int, nbatch: int) -> _PrefillProgram:
+        """The prefill program of key ``(nbatch, bucket)``, built (and on
+        the card captured) on first use and counted once in
+        ``prefill_traces``, as the JAX engine counts its traces."""
+        key = (nbatch, bucket)
+        prog = self._prefill_fns.get(key)
+        if prog is None:
+            prog = _PrefillProgram(self, nbatch, bucket)
+            if self.device.type == "cuda":
+                self._capture_prefill(prog)
+            self._prefill_fns[key] = prog
+            self.stats["prefill_traces"] += 1
+        return prog
+
+    def _prefill_stub(self, prog: _PrefillProgram) -> Dict[str, Any]:
+        """The family's stub encoder input, all zeros as the JAX engine
+        feeds it, in static buffers: audio ``frames`` of the bucket's
+        width, vlm ``image_embeds`` of ``n_image_tokens`` (one buffer of
+        ``max_batch`` rows per engine, a view of ``nbatch`` rows each)."""
+        cfg = self.model.cfg
         dtype = DTYPES[cfg.dtype]
         if cfg.family == "audio":
-            batch["frames"] = torch.zeros((nb, bucket, cfg.d_model),
-                                          dtype=dtype, device=dev)
+            return {"frames": torch.zeros((prog.nb, prog.bucket, cfg.d_model),
+                                          dtype=dtype, device=self.device)}
         if cfg.family == "vlm":
-            batch["image_embeds"] = torch.zeros(
-                (nb, cfg.n_image_tokens, cfg.d_model), dtype=dtype,
-                device=dev)
-        return batch
+            if self._image_stub is None:
+                self._image_stub = torch.zeros(
+                    (self.max_batch, cfg.n_image_tokens, cfg.d_model),
+                    dtype=dtype, device=self.device)
+            return {"image_embeds": self._image_stub[:prog.nb]}
+        return {}
 
-    def _insert_prefill(self, pcache, page_rows: Optional[np.ndarray],
-                        slot_t: torch.Tensor) -> None:
-        """Write an admit batch's prefill cache into the engine's leaves.
-
-        Paged leaves go page by page through ``page_rows``. Rows whose page
-        is the sentinel land in the trash page when the pool has one and are
-        dropped otherwise (JAX's ``mode="drop"``): they are the padding rows
-        of the admit batch and bucket padding past a slot's pages, and never
-        reach a live page. State leaves, and every leaf of the contiguous
-        layout, take their first ``len(slot_t)`` rows by slot (a sequence
-        axis in its first ``bucket`` positions); the padding rows after them
-        are dropped.
-        """
+    def _prefill_body(self, prog: _PrefillProgram) -> None:
+        """One admit dispatch on the device, over the program's static
+        buffers, in place: the model's prefill, the first-token argmax
+        (into ``prog.firsts``), the scatter of the prompt cache into the
+        pools (paged leaves page row by page row) or the slots' rows
+        (state leaves and the contiguous layout), and the slots' ``tok``,
+        ``pos``, ``rem`` and ``plen``. Every write has a fixed shape: an
+        admit batch's padding rows, and page rows past a slot's pages,
+        repeat a live row's indices and values (``sel``, ``src``,
+        ``dst``), so they rewrite its bytes. The captured graph on the
+        card, run as it is on the CPU."""
+        batch = dict(tokens=prog.tokens, length=prog.lengths,
+                     **prog.stub)
+        logits, pcache = self.model.prefill(self.params, batch)
+        prog.firsts.copy_(torch.argmax(logits[:, -1], dim=-1))
+        sel, slots = prog.sel, prog.slots
         for name, leaf in self._cache.items():
             bax, sax = self._axes[name]
             if sax != -1 and self._paged:
-                KV.scatter_pages(leaf, pcache[name], page_rows, bax, sax)
+                KV.scatter_page_rows(leaf, pcache[name], prog.src, prog.dst,
+                                     bax, sax)
                 continue
-            rows = pcache[name].movedim(bax, 0)[:len(slot_t)]
+            rows = pcache[name].movedim(bax, 0).index_select(0, sel)
             dst = leaf.movedim(bax, 0)
             if sax != -1:
                 # the batch axis lies before the sequence axis, which the
                 # move leaves where it was
                 dst = dst.narrow(sax, 0, rows.shape[sax])
-            dst[slot_t] = rows.to(leaf.dtype)
+            dst[slots] = rows.to(leaf.dtype)
+        i32 = torch.int32
+        self._tok.index_copy_(0, slots,
+                              prog.firsts.index_select(0, sel)[:, None])
+        self._pos.index_copy_(0, slots,
+                              prog.lengths.index_select(0, sel).to(i32))
+        self._rem_dev.index_copy_(0, slots, prog.rem.to(i32))
+        self._plen_dev.index_fill_(0, slots, 0)
+
+    @contextmanager
+    def _prefill_quiesced(self, prog: _PrefillProgram) -> Iterator[None]:
+        """Inside the block the program's inputs send every write to slot
+        0 and every page row to the trash page (page 0 of a plain pool);
+        those targets (slot 0's rows of every unpaged leaf, that page of
+        every paged one, and ``tok``, ``pos``, ``rem`` and ``plen``) are
+        restored on exit. The warm-up runs of a capture run here, so they
+        leave every pool and the slot state as they were, even between the
+        steps of a live serve."""
+        page = self.n_pages if self._pool_pages > self.n_pages else 0
+        prog.load(np.zeros((prog.nb, prog.bucket), np.int64),
+                  np.ones((prog.nb,), np.int64), np.zeros((prog.nb,)),
+                  np.zeros((prog.nb,)), np.zeros((prog.nb,)),
+                  np.arange(prog.nb * prog.n_rows),
+                  np.full((prog.nb * prog.n_rows,), page))
+        saved = [(t, t.clone()) for t in (self._tok, self._pos,
+                                          self._rem_dev, self._plen_dev)]
+        for name, leaf in self._cache.items():
+            bax, sax = self._axes[name]
+            view = (leaf.select(sax - 1, page) if sax != -1 and self._paged
+                    else leaf.select(bax, 0))
+            saved.append((view, view.clone()))
+        try:
+            yield
+        finally:
+            for t, v in saved:
+                t.copy_(v)
+
+    def _capture_prefill(self, prog: _PrefillProgram) -> None:
+        """Capture the program's body as a CUDA graph, after one warm-up
+        run on quiesced targets (``_prefill_quiesced``) on a side stream,
+        in the engine's one prefill memory pool: dispatches run one after
+        another and their outputs land in static buffers, so the graphs
+        share it. Raises if the capture fails: no prefill runs op by op on
+        the card."""
+        dev = self.device
+        if self._prefill_pool is None:
+            self._prefill_pool = torch.cuda.graph_pool_handle()
+        side = side_stream(dev)
+        with self._prefill_quiesced(prog):
+            side.wait_stream(torch.cuda.current_stream(dev))
+            with torch.cuda.stream(side), torch.no_grad():
+                self._prefill_body(prog)
+            torch.cuda.current_stream(dev).wait_stream(side)
+        try:
+            prog.graph, prog.launches = capture_graph(
+                dev, lambda: self._prefill_body(prog), self._prefill_pool)
+        except Exception as e:
+            raise RuntimeError(
+                f"capturing the prefill of {self.model.cfg.name} at "
+                f"(nbatch, bucket) = ({prog.nb}, {prog.bucket}) failed: "
+                f"{e}") from e
+
+    def _run_prefill(self, prog: _PrefillProgram) -> None:
+        """One dispatch of the program: a replay of its graph on the card,
+        the body itself on the CPU."""
+        if self.device.type != "cuda":
+            with torch.no_grad():
+                self._prefill_body(prog)
+            return
+        prog.graph.replay()
+        build.credit(prog.launches, 1)
+        self.stats["prefill_replays"] += 1
 
     def _admit_group(self, bucket: int, rs: List[Request],
                      slots: List[int]) -> np.ndarray:
-        """One prefill dispatch admitting same-bucket requests into slots."""
+        """One prefill dispatch admitting same-bucket requests into slots.
+
+        Admit batches are bucketed to {1, max_batch}, so a prompt bucket
+        has at most two programs; padding rows (and page rows past a
+        slot's pages) repeat row 0's writes. The first tokens come back in
+        the dispatch's one host read."""
         m = len(rs)
         nb = 1 if m == 1 else self.max_batch
-        tokens = np.zeros((nb, bucket), np.int32)
-        lengths = np.ones((nb,), np.int32)
+        prog = self._get_prefill(bucket, nb)
+        tokens = np.zeros((nb, bucket), np.int64)
+        lengths = np.ones((nb,), np.int64)
         for j, r in enumerate(rs):
             tokens[j, :len(r.prompt)] = r.prompt        # right-pad
             lengths[j] = len(r.prompt)
-        page_rows = None
+        sel = np.zeros((nb,), np.int64)
+        sel[:m] = np.arange(m)
+        rem = np.asarray([max(r.max_new_tokens, 1) - 1 for r in rs],
+                         np.int64)
+        src = dst = np.zeros((0,), np.int64)
         if self._paged:
-            n_rows = self._page_rows_for(bucket)
-            page_rows = np.full((nb, n_rows), self.n_pages, np.int32)
+            page_rows = np.full((nb, prog.n_rows), self.n_pages, np.int64)
             for j, (r, s) in enumerate(zip(rs, slots)):
                 self._grow_slot(s, len(r.prompt))
-                page_rows[j] = self._bt[s, :n_rows]
-        rem = np.asarray([max(r.max_new_tokens, 1) - 1 for r in rs],
-                         np.int32)
+                page_rows[j] = self._bt[s, :prog.n_rows]
+            flat = page_rows.reshape(-1)
+            kept = flat < self.n_pages
+            # row 0's first page holds position 0 of a non-empty prompt
+            assert kept[0], page_rows
+            src = np.where(kept, np.arange(flat.size), 0)
+            dst = np.where(kept, flat, flat[0])
         t0 = time.perf_counter()
-        dev = self.device
-        batch = self._prefill_batch(tokens, lengths)
-        slot_t = torch.as_tensor(slots, dtype=torch.long, device=dev)
-        with torch.no_grad():
-            logits, pcache = self.model.prefill(self.params, batch)
-            firsts = torch.argmax(logits[:, -1], dim=-1).to(torch.int32)
-            self._insert_prefill(pcache, page_rows, slot_t)
-        self._tok[slot_t] = firsts[:m, None]
-        self._pos[slot_t] = batch["length"][:m]
-        self._rem_dev[slot_t] = torch.from_numpy(rem).to(dev)
-        self._plen_dev[slot_t] = 0
-        firsts_np = firsts[:m].cpu().numpy()            # the one host sync
+        prog.load(tokens, lengths, sel, np.asarray(slots)[sel], rem[sel],
+                  src, dst)
+        self._run_prefill(prog)
+        firsts_np = prog.firsts[:m].cpu().numpy()       # the one host sync
         self.timing["prefill_s"] += time.perf_counter() - t0
         self._rem[slots] = rem
         self._plen[slots] = 0

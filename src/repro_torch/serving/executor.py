@@ -36,8 +36,8 @@ architecture (``build_model(cfg.for_device(device), device)`` and
 and, via ``model_cache``, across the cluster's workers; each variant gets
 its own engine so slot state never crosses variants. Engines are warmed up
 at creation — on the card that builds the kernels with ``nvcc`` and
-captures the decode step's CUDA graph — keeping both out of the measured
-service times. With ``max_engines`` set,
+captures the decode step's CUDA graph and the prefill graphs of the
+service buckets — keeping both out of the measured service times. With ``max_engines`` set,
 the per-variant engine map is an LRU.
 
 ``page_size`` defaults to 16 here, the paged layout (``repro``'s default
@@ -54,10 +54,11 @@ slot-busy fraction, in-segment admissions per segment, preemptions,
 pressure stalls, prefix hits, reused pages, copies on write, evictions
 and swap counts; ``on_report`` says whether a query's work was preempted
 or cut short; with ``stream`` set, each step's partial outputs go to the
-queries' ``on_tokens`` sinks. The knobs this slice lacks — speculation,
-deadline enforcement (only the wall-clock runtime, not ported, calls
-``cancel_overdue``) and the threaded runtime's fault sites — raise
-``NotImplementedError`` by name when the executor is built.
+queries' ``on_tokens`` sinks. ``deadline_enforce`` and ``faults`` are read
+by the wall-clock runtime's stepper (``repro_torch.serving.runtime``),
+which cancels overdue slots between steps and consults the fault sites.
+Speculation, the one knob this port lacks, raises ``NotImplementedError``
+by name when the executor is built.
 """
 from __future__ import annotations
 
@@ -108,17 +109,13 @@ class EngineExecutorConfig:
     swap: Optional[str] = None        # "host": preempted KV pages to host
     swap_budget_bytes: Optional[int] = None  # cap on parked swap payloads
     deadline_enforce: bool = False    # cancel slots past their deadline
-    faults: Optional[Any] = None      # the threaded runtime's fault sites
+    #                                   (the threaded stepper, wall clock)
+    faults: Optional[Any] = None      # FaultInjector consulted by the
+    #                                   threaded stepper's sites
 
     def unported(self) -> List[str]:
-        """The knobs set away from their defaults that this slice lacks."""
-        knobs = {
-            "speculate": self.speculate is not None,
-            "deadline_enforce": bool(self.deadline_enforce),
-            "faults (the threaded runtime's fault sites)":
-                self.faults is not None,
-        }
-        return [k for k, on in knobs.items() if on]
+        """The knobs set away from their defaults that the port lacks."""
+        return ["speculate"] if self.speculate is not None else []
 
 
 class EngineExecutor:
@@ -283,6 +280,13 @@ class EngineExecutor:
         # decision-log entry: per-run occupancy of the decode segments and
         # what the packing cost in preempted work
         d = {k: eng.stats.get(k, 0) - occ0[k] for k in occ0}
+        self._record_occupancy_delta(variant, batch, dt, d)
+
+    def _record_occupancy_delta(self, variant: Variant, batch: int,
+                                dt: float, d: Dict[str, float]) -> None:
+        """Append one decision-log entry from a stats delta already taken
+        (the threaded runtime accumulates each job's fractional share of
+        co-batched segments instead of diffing raw counters)."""
         total = d["busy_slot_steps"] + d["bubble_slot_steps"]
         segs = d["decode_dispatches"]
         self.occupancy_log.append({

@@ -10,7 +10,7 @@ from repro_torch.core.api import INFaaS
 from repro_torch.core.master import Master, MasterConfig
 from repro_torch.core.metadata import MetadataStore
 from repro_torch.core.repository import ModelRepository
-from repro_torch.sim.clock import Clock, EventLoop
+from repro_torch.sim.clock import Clock, EventLoop, RealClock
 
 
 def serving_archs() -> List[ArchConfig]:
@@ -33,7 +33,8 @@ class Cluster:
     repo: ModelRepository
     master: Master
     api: INFaaS
-    # real-backend executors created so far (one per worker)
+    # real-backend executors created so far (one per worker): the wall-
+    # clock runtime walks these to stop stepper threads at shutdown
     executors: List = dataclasses.field(default_factory=list)
 
     def run_until(self, t: float) -> None:
@@ -63,8 +64,12 @@ def make_cluster(n_accel: int = 1, n_cpu: int = 0,
     small ``archs`` list (each arch builds real model params) and
     optionally an ``EngineExecutorConfig`` as ``engine_cfg``.
 
-    ``clock="wall"`` (the threaded wall-clock runtime) is not ported yet
-    and raises.
+    ``clock="wall"`` (requires ``backend="real"``): the control plane runs
+    against ``RealClock`` — callbacks fire on a scheduler thread as wall
+    time passes — and every worker gets a ``ThreadedEngineExecutor``
+    stepped by its own background thread, with token streaming enabled.
+    Wrap the result in ``repro_torch.serving.runtime.ServingRuntime`` for
+    thread-safe submission and drain-on-shutdown.
     """
     if backend not in ("sim", "real"):
         raise ValueError(f"unknown backend {backend!r} (sim|real)")
@@ -73,10 +78,6 @@ def make_cluster(n_accel: int = 1, n_cpu: int = 0,
     if clock == "wall" and backend != "real":
         raise ValueError("clock='wall' requires backend='real': the sim "
                          "executor has no work to do in real time")
-    if clock == "wall":
-        raise NotImplementedError(
-            "not ported yet: clock='wall' (the threaded wall-clock runtime)")
-    loop: Clock = EventLoop()
     store = MetadataStore()
     repo = ModelRepository()
     use_archs = list(archs if archs is not None else serving_archs())
@@ -92,11 +93,19 @@ def make_cluster(n_accel: int = 1, n_cpu: int = 0,
         ecfg = engine_cfg or EngineExecutorConfig()
         model_cache: dict = {}   # share built params across workers
 
+        cls = EngineExecutor
+        if clock == "wall":
+            from repro_torch.serving.runtime import ThreadedEngineExecutor
+            cls = ThreadedEngineExecutor
+            ecfg = dataclasses.replace(ecfg, stream=True)
+
         def executor_factory():
-            ex = EngineExecutor(arch_cfgs, ecfg, model_cache=model_cache,
-                                device=dev)
+            ex = cls(arch_cfgs, ecfg, model_cache=model_cache, device=dev)
             executors.append(ex)
             return ex
+    # the wall clock's scheduler thread starts only once the device is
+    # known to exist
+    loop: Clock = RealClock() if clock == "wall" else EventLoop()
     master = Master(store, repo, loop, cfg or MasterConfig(),
                     autoscale=autoscale, executor_factory=executor_factory)
     api = INFaaS(master)

@@ -1408,14 +1408,26 @@ def test_phi3_mini_cuda_build_raises_naming_head_dim_96():
 
 
 def test_wall_clock_cluster_is_not_ported():
-    with pytest.raises(NotImplementedError, match="clock='wall'"):
-        make_cluster(n_accel=0, archs=[LLAMA], backend="real",
+    """The wall clock is ported now (``tests/test_torch_runtime.py``): a
+    wall-clock real cluster runs on ``RealClock`` with threaded,
+    streaming executors, and the sim backend still refuses it."""
+    from repro_torch.serving.runtime import ThreadedEngineExecutor
+    c = make_cluster(n_accel=1, archs=[LLAMA], backend="real",
                      clock="wall", device="cpu", reduced=True)
+    try:
+        assert isinstance(c.loop, RealClock)
+        (ex,) = c.executors
+        assert isinstance(ex, ThreadedEngineExecutor) and ex.cfg.stream
+    finally:
+        c.loop.shutdown()
+    with pytest.raises(ValueError, match="backend='real'"):
+        make_cluster(n_accel=0, archs=[LLAMA], clock="wall")
 
 
 def test_port_imports_neither_jax_nor_repro():
     """Every module of the port and ``chip_smoke.py``, read with ``ast``:
-    no import of ``jax`` or of the reference package, at any depth."""
+    no import of ``jax``, of the reference package or of ``benchmarks``
+    (whose helpers import the reference), at any depth."""
     import ast
     from pathlib import Path
     root = Path(__file__).resolve().parents[1]
@@ -1432,5 +1444,6 @@ def test_port_imports_neither_jax_nor_repro():
             else:
                 continue
             bad += [f"{path.name}:{node.lineno} {m}" for m in mods
-                    if m.split(".")[0] in ("jax", "jaxlib", "repro")]
+                    if m.split(".")[0] in ("jax", "jaxlib", "repro",
+                                           "benchmarks")]
     assert not bad, bad

@@ -979,3 +979,183 @@ def test_cuda_prefix_swap_and_contiguous_graph_match_uncaptured(case):
         assert lg["fused_paged_decode_attention"] == 0
         assert lg["decode_attention"] == sg["decode_steps"] * n_layers
         assert sg["chunk_admits"] > 0
+
+
+# ----------------------------------------------------------------------
+# prefill as one captured graph per (nbatch, bucket) key
+
+
+class _EagerPrefill(ServingEngine):
+    """The engine with every prefill dispatch run as its body, op by op,
+    on the card: the oracle of the prefill graphs. Nothing of prefill is
+    captured (the decode step still is)."""
+
+    def _capture_prefill(self, prog):
+        pass
+
+    def _run_prefill(self, prog):
+        with torch.no_grad():
+            self._prefill_body(prog)
+
+
+def _family(dev, arch, quant="none"):
+    cfg = dataclasses.replace(ARCHS[arch].reduced(), quantize=quant)
+    m = build_model(cfg.for_device(dev), device=dev)
+    params = m.init(0)
+    return m, quantize_params_dense(params) if quant == "int8" else params
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch,quant", [
+    ("llama3.2-1b", "none"), ("llama3.2-1b", "int8"),
+    ("whisper-base", "none"), ("llama-3.2-vision-90b", "none")])
+def test_cuda_prefill_graphs_give_the_eager_body_bits(arch, quant):
+    """Per family, admission rounds of one- and many-row dispatches over
+    several buckets: after each round every leaf (trash page included),
+    ``tok``, ``pos``, ``rem`` and ``plen`` of the graphed engine equal the
+    eager-prefill engine's bit for bit, and so do the first tokens; the
+    serves then give the same tokens, one program (one graph) a key,
+    replayed once a dispatch, with the same credited launches."""
+    dev = _need_cuda()
+    m, params = _family(dev, arch, quant)
+    geo = dict(KW, n_pages=None)
+    lens = [(3, 5), (9, 4), (17, 6), (5, 3), (12, 7), (30, 2), (7, 8),
+            (2, 5), (20, 3)]
+    rng = np.random.default_rng(5)
+    prompts = [rng.integers(0, m.cfg.vocab, size=n).astype(np.int32)
+               for n, _ in lens]
+    engs = [cls(m, params, **geo) for cls in (ServingEngine, _EagerPrefill)]
+    for eng in engs:
+        eng.warmup(prompt_lens=[n for n, _ in lens])
+    assert len(engs[0]._prefill_fns) == engs[0].stats["prefill_traces"]
+    assert all(p.graph is not None for p in engs[0]._prefill_fns.values())
+    assert all(p.graph is None for p in engs[1]._prefill_fns.values())
+    reqs = [[Request(rid=i, prompt=p, max_new_tokens=k)
+             for i, (p, (_, k)) in enumerate(zip(prompts, lens))]
+            for _ in engs]
+    for eng, rs in zip(engs, reqs):
+        for r in rs:
+            eng.submit(r)
+    build.reset_launch_counts()
+    counts = []
+    while any(e.busy for e in engs):
+        for eng in engs:
+            eng._admit_pending()
+        torch.cuda.synchronize(dev)
+        a, b = engs
+        for name in a._cache:
+            assert torch.equal(a._cache[name], b._cache[name]), name
+        for t in ("_tok", "_pos", "_rem_dev", "_plen_dev"):
+            assert torch.equal(getattr(a, t), getattr(b, t)), t
+        assert a._gen == b._gen
+        for eng in engs:
+            before = dict(build.launch_counts)
+            eng.step()
+            counts.append({k: build.launch_counts[k] - before[k]
+                           for k in before})
+    for x, y in zip(*reqs):
+        np.testing.assert_array_equal(x.tokens, y.tokens)
+    sg, se = engs[0].stats, engs[1].stats
+    assert sg["prefill_replays"] == sg["prefill_dispatches"] > 1
+    assert se["prefill_replays"] == 0
+    assert sg["prefill_traces"] == se["prefill_traces"]
+    # the admissions above launched the same kernels on both engines
+    assert counts[0::2] == counts[1::2]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["llama3.2-1b", "whisper-base",
+                                  "llama-3.2-vision-90b"])
+def test_cuda_prefill_capture_mid_serve_leaves_pools_and_slots(arch):
+    """Mid-serve on the card, capturing a new prefill key (its warm-up
+    runs and the capture) changes no bit of any pool, the trash page
+    included, or of the slot state; the serve then completes."""
+    dev = _need_cuda()
+    m, params = _family(dev, arch)
+    eng = ServingEngine(m, params, **KW)
+    rng = np.random.default_rng(4)
+    for i, (n, k) in enumerate(((9, 12), (5, 10), (7, 11))):
+        eng.submit(Request(rid=i, prompt=rng.integers(
+            0, m.cfg.vocab, size=n).astype(np.int32), max_new_tokens=k))
+    eng.step()
+    assert all(r is not None for r in eng._slot_req)
+    traces = eng.stats["prefill_traces"]
+
+    def state():
+        return [t.clone() for t in (*eng._cache.values(), eng._tok,
+                                    eng._pos, eng._rem_dev, eng._plen_dev,
+                                    eng._pbuf, eng._bt_dev)]
+
+    before = state()
+    eng._get_prefill(32, KW["max_batch"])
+    torch.cuda.synchronize(dev)
+    for a, b in zip(before, state()):
+        assert torch.equal(a, b)
+    assert eng.stats["prefill_traces"] == traces + 1
+    while eng.busy:
+        eng.step()
+    assert eng._alloc.n_free == eng.n_pages
+
+
+def _wall_cuda_cluster(dev, n_accel):
+    from repro_torch.serving.executor import EngineExecutorConfig
+    from repro_torch.sim.cluster import make_cluster
+    return make_cluster(n_accel=n_accel, archs=[ARCHS["llama3.2-1b"]],
+                        autoscale=False, backend="real", clock="wall",
+                        device=dev, reduced=True,
+                        engine_cfg=EngineExecutorConfig(
+                            max_batch=4, max_len=48, decode_block=4))
+
+
+@pytest.mark.cuda
+def test_cuda_wall_serve_two_steppers_exact_and_no_capture_after_warmup():
+    """Two workers' stepper threads on one card under the wall clock, both
+    variants' engines warmed for the stream's buckets first: every query
+    returns a direct engine's tokens on the served variant's params, its
+    streamed concat equals its outputs, no graph is captured during the
+    serve, and shutdown drains with every stepper joined."""
+    from repro_torch.core.api import QueryPayload, QuerySpec
+    from repro_torch.serving.runtime import ServingRuntime
+    dev = _need_cuda()
+    c = _wall_cuda_cluster(dev, 2)
+    cfg = ARCHS["llama3.2-1b"]
+    rng = np.random.default_rng(9)
+    payloads = [[rng.integers(0, 256, size=int(n)).astype(np.int32)
+                 for n in rng.integers(3, 30, size=2)] for _ in range(8)]
+    names = [f"{cfg.name}/h100-1/{d}-b8" for d in ("bf16", "int8")]
+    lens = [len(p) for ps in payloads for p in ps]
+    for ex in c.executors:
+        for name in names:
+            ex._engine(c.store.registry.variants[name]).warmup(lens)
+    traces = {(id(ex), n): (e.stats["prefill_traces"],
+                            e.stats["decode_traces"])
+              for ex in c.executors for n, e in ex.engines.items()}
+    rt = ServingRuntime(c)
+    try:
+        hs = [rt.submit(QuerySpec.variant(
+            names[i % 2], latency_ms=600_000,
+            payload=QueryPayload.of(ps, max_new_tokens=10)))
+            for i, ps in enumerate(payloads)]
+        results = [h.result(timeout=600.0) for h in hs]
+    finally:
+        assert rt.shutdown(drain=True, timeout=120.0)
+    assert all(ex._thread is None or not ex._thread.is_alive()
+               for ex in c.executors)
+    assert {(id(ex), n): (e.stats["prefill_traces"],
+                          e.stats["decode_traces"])
+            for ex in c.executors for n, e in ex.engines.items()} == traces
+    ex0 = c.executors[0]
+    for ps, h, res in zip(payloads, hs, results):
+        assert res.ok, (res.failed, res.variant)
+        for idx, out in enumerate(res.outputs):
+            assert [t for ch in h.chunks if ch.input_idx == idx
+                    for t in ch.tokens] == [int(x) for x in out]
+        variant = c.store.registry.variants[res.variant]
+        model, params = ex0.served_model(variant)
+        eng = ServingEngine(model, params, max_batch=4, max_len=48,
+                            decode_block=4, min_bucket=4, page_size=16)
+        reqs = [Request(rid=i, prompt=p, max_new_tokens=10)
+                for i, p in enumerate(ps)]
+        eng.serve(reqs)
+        for r, out in zip(reqs, res.outputs):
+            np.testing.assert_array_equal(r.tokens, out)

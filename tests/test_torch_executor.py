@@ -13,9 +13,9 @@
   executor's own weights (fp and int8 trees, carried by
   ``convert.params_from_jax``); the tokens must be equal.
 * The admission, prefix-cache, swap and layout knobs and the query's SLO
-  reach the engines, streamed chunks reach the query; the executor knobs
-  this slice lacks raise by name, and a real cluster asks for CUDA unless
-  told otherwise.
+  reach the engines, streamed chunks reach the query; speculation, the
+  executor knob the port lacks, raises by name, and a real cluster asks
+  for CUDA unless told otherwise.
 """
 import dataclasses
 
@@ -322,9 +322,18 @@ def test_engine_executor_paged_knobs_reach_engines():
     ("speculate", "int8:2"), ("deadline_enforce", True),
     ("faults", object())])
 def test_unported_executor_knobs_raise_by_name(knob, value):
+    """Speculation, the one knob the port lacks, raises by name, directly
+    and through the cluster factory, before any query runs. The
+    wall-clock runtime's knobs (deadline enforcement, the fault sites)
+    are ported: the executor takes them."""
+    if knob != "speculate":
+        assert EngineExecutorConfig(**{knob: value}).unported() == []
+        assert _executor(**{knob: value}).cfg.unported() == []
+        _real(engine_cfg=EngineExecutorConfig(**{knob: value}))
+        return
+    assert EngineExecutorConfig(**{knob: value}).unported() == [knob]
     with pytest.raises(NotImplementedError, match=knob):
         _executor(**{knob: value})
-    # and through the cluster factory, before any query runs
     with pytest.raises(NotImplementedError, match=knob):
         _real(engine_cfg=EngineExecutorConfig(**{knob: value}))
 
