@@ -36,7 +36,10 @@ fails:
    whisper-base's G = 1 (0, 1, a 64-row tile edge, T, mixed, and
    whisper's prompt-bucket encoder lengths), which must also give the
    fused paged kernel's bits on the same rows; the int8 GEMM at M in {1,
-   8, 8 x bucket} and N not a multiple of the tile).
+   8, 8 x bucket} and N not a multiple of the tile). zamba2-1.2b's shared
+   block adds K = 32 KV heads at G = 1, D = 64 to flash (a grouped and a
+   ragged causal prefill, timed), the fused paged decode and the
+   contiguous kernel's per-slot form, with the same checks and timings.
    Each attention kernel is held twice: to the plain version on the bf16
    inputs, and, tightly, to the plain version on the same inputs widened
    to f32 (probabilities in f32, as the kernels and the Pallas bodies keep
@@ -53,10 +56,13 @@ fails:
    after), random weights from a seed, the same seeded 16-request stream:
    llama3.2-1b at full width as the bf16 and the int8 variant;
    whisper-base at its published size; llama-3.2-vision-90b at full width
-   with its depth cut from 100 to 20 layers (two groups of 9 self layers
-   and 1 cross layer). The engine feeds the audio and vlm families
-   all-zero stub encoder inputs, as the JAX engine does. Each path serves
-   the stream several times on one warm engine; tokens/s is the median,
+   with its depth cut from 100 to 10 layers (one group of 9 self layers
+   and 1 cross layer); zamba2-1.2b at its published size (38 Mamba2
+   layers and the shared block after every 6, nothing cut), whose
+   contiguous serve must give its paged tokens bit for bit. The engine
+   feeds the audio and vlm families all-zero stub encoder inputs, as the
+   JAX engine does. Each path serves the stream several times on one
+   warm engine; tokens/s is the median,
    with its quartiles as the spread. A profiled serve of each path fails
    unless flash prefill ran its tensor-core body, the int8 GEMM one kernel
    per launch, and bf16 decode the tensor-core decode body (fused, the
@@ -85,8 +91,8 @@ fails:
    chunked admit, the rest prefilled. Each path prints the host time of a
    replay per step beside the step's device time (replays held back to
    back on idle slots) and the uncaptured serve's tok/s and segment time.
-4. **Teacher-forced check**: llama3.2-1b, whisper-base and the vision
-   model at 10 layers (one group) in f32, one seeded token stream (and,
+4. **Teacher-forced check**: llama3.2-1b, whisper-base, the vision
+   model at 10 layers (one group) and zamba2-1.2b at full size in f32, one seeded token stream (and,
    for whisper and vision, seeded non-zero frames / image embeddings)
    forced through prefill and paged decode with the kernel impls and with
    the plain impls; the logits must agree at every prefill and decode
@@ -155,8 +161,10 @@ fails:
 8. **The wall clock**: a full-width llama3.2-1b
    ``make_cluster(backend="real", clock="wall")`` with two workers, so
    two stepper threads share the card, each holding both variants'
-   engines warmed for the stream's buckets, and both variants loaded on
-   both workers; a client thread submits 16 streamed payload queries
+   engines warmed for the stream's buckets, the bf16 variant loaded on
+   one worker and the int8 one on the other, the monitor's tick longer
+   than the serve (so no instance turns overloaded mid-serve and sends a
+   query to a model load); a client thread submits 16 streamed payload queries
    (one prompt of 16-300 tokens, 32 new tokens, alternating variants) as
    seeded Poisson arrivals through ``ServingRuntime``. Every result must
    be ok with no wait on a model load, its streamed concat equal to its
@@ -170,6 +178,30 @@ fails:
    a direct engine's tokens, one restart, the rebuilt engine captures
    anew and the dropped engine's device memory is released; and a 1 ms
    SLO under ``deadline_enforce`` comes back ``timed_out``.
+9. **Speculative decoding**, llama3.2-1b at full width on phase 3's
+   params and stream (``phase_spec``): five serves, each against a plain
+   graphed serve of the same target config, whose attention is plain
+   PyTorch (``for_device(dev, speculate=True)``; the draft runs every
+   kernel): (a) an int8 draft, k = 4, paged; (b) the same contiguous; (c)
+   an int8 target with its own int8 draft, k = 3; (d) an independent
+   draft (seed 99), k = 4: rollback every round; (e) (a) in f32. Checks:
+   the propose, verify and resync graphs equal their bodies bit for bit
+   on the same inputs; (a) equals an uncaptured engine's tokens, counts
+   and launches; every request emits its budget; paged serves drain the
+   pool; the draft's flash, contiguous decode and int8 launches ran.
+   Tokens: a request equals the plain serve's, or its first difference is
+   a near tie of the plain target (its margin there, teacher-forced at
+   the plain serve's prefill batch, at most twice the measured window and
+   prefill-shape gaps). Prints the equal counts, tok/s against the plain
+   serve and phase 3's kernel path, acceptance, rounds, resyncs and ms a
+   round.
+10. **The hybrid engine under pressure, and hybrid speculation**:
+   zamba2-1.2b at full width in phase 6's pressure configuration, its
+   tokens equal to a worst-case serve's bit for bit (the in-graph state
+   reset of ring refills and the reset of recovery seats) and its counts
+   the CPU rehearsal's; then a reduced zamba2 target (f32) with a reduced
+   dense draft, paged and contiguous, equal to the plain serve's tokens
+   (no dense config shares zamba2-1.2b's vocabulary at full width).
 
 The last lines are the card's ``name, power.limit``, one JSON line with
 every kernel's numbers, and the result line
@@ -200,17 +232,21 @@ SEED = 0
 # Timed serves of the stream per path. The serve is host-bound and the
 # host's cores are shared, so one serve's tok/s varies by tens of percent
 # while its device time does not; the median of many serves is reported.
-# The larger models serve fewer times to keep the run inside its limit.
-SERVE_REPEATS = {"llama3.2-1b": 15, "whisper-base": 9,
-                 "llama-3.2-vision-90b": 5}
+# The larger models serve fewer times to keep the run inside its limit;
+# with phases 9 and 10 added, every count below was cut (llama 15 -> 5,
+# whisper 9 -> 3, vision 5 -> 3, chunked 3 -> 2, phase 6 3 -> 2, phase
+# 7's prefix 3 -> 2, swap 3 -> 2, contiguous 5 -> 2), and the vision
+# path's depth 20 -> 10 layers.
+SERVE_REPEATS = {"llama3.2-1b": 5, "whisper-base": 3,
+                 "llama-3.2-vision-90b": 3, "zamba2-1.2b": 2}
 CHUNK_THRESHOLD = 64        # the chunked llama serve's threshold
-CHUNKED_REPEATS = 3
+CHUNKED_REPEATS = 2
 # phase 6: the pressure serve's pool (a quarter of the default 8 x 512 / 16
 # = 256 pages), staging ring and number of timed serves
 PRESSURE_PAGES = 64
 PRESSURE_STAGE = 4
-PRESSURE_REPEATS = 3
-VISION_LAYERS = 20          # serve depth of llama-3.2-vision-90b (of 100)
+PRESSURE_REPEATS = 2
+VISION_LAYERS = 10          # serve depth of llama-3.2-vision-90b (of 100)
 VISION_TF_LAYERS = 10       # its f32 teacher-forced depth: one group
 # (Kd, N) of llama3.2-1b's int8 projections: q and o, k and v, gate and up,
 # down
@@ -497,6 +533,12 @@ def phase_flash(torch, dev, gen):
          128, True, 0, 250),
         ("D=128 G=8 q_offset 448 > 0", 1, 64, 512, 8, 8, 128, True, 448,
          None),
+        # zamba2-1.2b's shared block: K = 32 KV heads, G = 1, D = 64,
+        # causal, at a grouped bucket and a ragged one
+        ("zamba2 K=32 G=1 bucket 256", 8, 256, 256, 32, 1, 64, True, 0,
+         None),
+        ("zamba2 K=32 G=1 ragged S=T=300", 1, 300, 300, 32, 1, 64, True, 0,
+         None),
     ]
     worst = 0.0
     for label, B, S, T, K, G, D, causal, q_off, vlen in cases:
@@ -518,7 +560,8 @@ def phase_flash(torch, dev, gen):
     # reported one), then the vision self and cross prefill
     main = time_flash(torch, gen, dev, 8, 256, 256, 8, 4, 64, True)
     extra = [time_flash(torch, gen, dev, 8, 256, 256, 8, 8, 128, True),
-             time_flash(torch, gen, dev, 8, 256, 1601, 8, 8, 128, False)]
+             time_flash(torch, gen, dev, 8, 256, 1601, 8, 8, 128, False),
+             time_flash(torch, gen, dev, 8, 256, 256, 32, 1, 64, True)]
     return dict(name="flash_attention", route="cuda",
                 source="src/repro_torch/csrc/flash_attention.cu",
                 replaces="src/repro/kernels/flash_attention.py:106",
@@ -813,7 +856,9 @@ def phase_decode(torch, dev, gen, B=8, K=8, G=8, D=128, T=1601):
     # whisper-base's contiguous self- and cross-attention (G = 1)
     per_slot = [phase_decode_per_slot(torch, dev, gen),
                 phase_decode_per_slot(torch, dev, gen, G=1,
-                                      lens_lists=PER_SLOT_LENS + [ENC_LENS])]
+                                      lens_lists=PER_SLOT_LENS + [ENC_LENS]),
+                # zamba2-1.2b's contiguous shared block: K = 32, G = 1
+                phase_decode_per_slot(torch, dev, gen, K=32, G=1)]
     worst = max([worst] + [p.pop("max_abs_err") for p in per_slot])
     return dict(name="decode_attention", route="cuda",
                 source="src/repro_torch/csrc/decode_attention.cu",
@@ -1052,7 +1097,8 @@ def make_stream(vocab: int, n: int = 16, seed: int = 1):
 
 def uncaptured_engine():
     """The engine class whose decode segments run the plain loop of its
-    step body and whose prefill dispatches run their body op by op on the
+    step body, whose prefill dispatches run their body op by op and whose
+    speculative programs (propose, verify, resync) run their bodies, on the
     card, captured nowhere: the oracle of the graph replays (not a knob of
     the engine; only these comparisons run the bodies uncaptured)."""
     import torch
@@ -1065,6 +1111,13 @@ def uncaptured_engine():
             with torch.no_grad():
                 for _ in range(n_steps):
                     self._step_body()
+
+        def _capture_spec(self, prog):
+            pass
+
+        def _run_spec(self, prog):
+            with torch.no_grad():
+                prog.body()
 
     return Uncaptured
 
@@ -1692,7 +1745,8 @@ def phase_teacher_forced(torch, dev):
     del params
     torch.cuda.empty_cache()
     for arch, n_layers in (("whisper-base", None),
-                           ("llama-3.2-vision-90b", VISION_TF_LAYERS)):
+                           ("llama-3.2-vision-90b", VISION_TF_LAYERS),
+                           (HYBRID_ARCH, None)):
         cfg = dataclasses.replace(ARCHS[arch], **f32)
         if n_layers is not None:
             cfg = dataclasses.replace(cfg, n_layers=n_layers)
@@ -1700,7 +1754,8 @@ def phase_teacher_forced(torch, dev):
         params = build_model(cfg, dev).init(SEED)
         diffs[label] = compare_forced(torch, dev, label, cfg, params,
                                       forced_inputs(torch, dev, cfg, rng),
-                                      tol, contiguous=arch == "whisper-base")
+                                      tol, contiguous=arch in (
+                                          "whisper-base", HYBRID_ARCH))
         del params
         torch.cuda.empty_cache()
     return diffs
@@ -2078,9 +2133,9 @@ PREFIX_TEMPLATES = 4        # seeded templates (system prompts' stand-ins)
 PREFIX_TEMPLATE_LEN = 256   # 16 pages of 16
 PREFIX_REQS = 32
 PREFIX_FULL_HIT = 12        # the request whose prompt is its template alone
-PREFIX_REPEATS = 3
-SWAP_REPEATS = 3
-CONTIGUOUS_REPEATS = 5
+PREFIX_REPEATS = 2
+SWAP_REPEATS = 2
+CONTIGUOUS_REPEATS = 2
 
 
 def make_prefix_stream(vocab: int, seed: int = 7):
@@ -2443,16 +2498,21 @@ WALL_FAULT_AT = 2          # the stepper consult that dies in the fault serve
 WALL_TIMEOUT = 300.0       # bound of every wait on a result
 
 
-def wall_cluster(dev, n_accel, **knobs):
+def wall_cluster(dev, n_accel, monitor_period=None, **knobs):
     """A full-width llama3.2-1b cluster on the wall clock (phase 5's engine
-    geometry), one threaded executor a worker."""
+    geometry), one threaded executor a worker; ``monitor_period`` sets the
+    workers' monitor tick (its default otherwise)."""
     from repro_torch.configs.registry import ARCHS
     from repro_torch.core.master import MasterConfig
+    from repro_torch.core.worker import WorkerConfig
     from repro_torch.serving.executor import EngineExecutorConfig
     from repro_torch.sim.cluster import make_cluster
+    worker = (WorkerConfig() if monitor_period is None
+              else WorkerConfig(monitor_period=monitor_period))
     return make_cluster(n_accel=n_accel, archs=[ARCHS[CP_ARCH]],
                         autoscale=False,
-                        cfg=MasterConfig(worker_autoscale=False),
+                        cfg=MasterConfig(worker_autoscale=False,
+                                         worker=worker),
                         backend="real", clock="wall", device=dev,
                         engine_cfg=EngineExecutorConfig(
                             max_batch=8, max_len=512, decode_block=16,
@@ -2492,8 +2552,9 @@ def oracle_tokens(torch, engines, variant, prompt, batch, max_new):
 def phase_wall(torch, dev, card):
     """Phase 8: a wall-clock llama3.2-1b cluster at full width with two
     workers, so two stepper threads share the card, each holding both
-    variants' engines, warmed for the stream's buckets, both variants
-    loaded on both workers before the serve. A client thread
+    variants' engines, warmed for the stream's buckets, the bf16 variant
+    loaded on one worker and the int8 one on the other before the serve
+    (no monitor tick inside the serve, so no instance turns overloaded). A client thread
     submits streamed payload queries of both variants as seeded Poisson
     arrivals through ``ServingRuntime``: each result must be ok, its
     streamed concat its outputs, its tokens a direct engine's on the
@@ -2517,7 +2578,16 @@ def phase_wall(torch, dev, card):
     stream = make_stream(cfg.vocab, n=WALL_QUERIES, seed=8)
     prompts = [p for p, _ in stream]
     t0 = time.perf_counter()
-    c = wall_cluster(dev, 2)
+    # the bf16 variant runs on one worker and the int8 one on the other, so
+    # both steppers serve. Selection takes the least loaded running
+    # instance and counts one as overloaded once a monitor tick has seen
+    # its served latency above 1.5x the analytic t(b_opt), which every
+    # payload query is (32 tokens against the profile's few); which
+    # worker a query lands on then hung on where the 2 s ticks fell in a
+    # 2 s serve (PR 21's runs split the steps 310/62; later runs, whose
+    # earlier phases took other times, 372/0). With no tick inside the
+    # serve no instance turns overloaded, so no query waits on a load.
+    c = wall_cluster(dev, 2, monitor_period=WALL_TIMEOUT)
     variants = c.store.registry.variants
     batch_of: dict = {}
     for ex in c.executors:
@@ -2526,10 +2596,10 @@ def phase_wall(torch, dev, card):
                 eng = ex._engine(variants[name])
                 eng.warmup(prompt_lens=[len(p) for p in prompts])
                 record_prefill_batches(eng, batch_of)
-    # both variants' instances running on both workers before the first
-    # query: selection spreads the queries over the two workers, and no
-    # query waits on a model load (the serve times serving alone)
-    loads = [(w, n) for w in sorted(c.master.workers) for n in names]
+    # each variant's instance running on its own worker before the first
+    # query, so no query waits on a model load (the serve times serving
+    # alone) and both steppers serve
+    loads = list(zip(sorted(c.master.workers), names))
     for w, name in loads:
         c.loop.schedule(0.0, (lambda w=w, name=name:
                               c.master.workers[w].load_variant(
@@ -2570,9 +2640,13 @@ def phase_wall(torch, dev, card):
     drained = rt.shutdown(drain=True, timeout=WALL_TIMEOUT)
     launches = dict(build.launch_counts)
     check(drained, "shutdown(drain=True) returned False")
-    check(all(ex._thread is not None and not ex._thread.is_alive()
-              for ex in c.executors),
-          "a stepper thread is still alive after shutdown")
+    threads = [None if ex._thread is None else ex._thread.is_alive()
+               for ex in c.executors]
+    served = [sum(e.stats["decode_steps"] for e in ex.engines.values())
+              for ex in c.executors]
+    check(all(t is False for t in threads),
+          f"stepper threads after shutdown (None: never started, True: "
+          f"still alive): {threads}; decode steps by stepper {served}")
     now = {(i, n): (e.stats["prefill_traces"], e.stats["decode_traces"])
            for i, ex in enumerate(c.executors)
            for n, e in ex.engines.items()}
@@ -2700,6 +2774,512 @@ def phase_wall(torch, dev, card):
 # ---------------------------------------------------------------------------
 
 
+# ---------------------------------------------------------------------------
+# phase 3: zamba2-1.2b, the hybrid family (Mamba2 SSD + one shared block)
+
+HYBRID_ARCH = "zamba2-1.2b"
+
+
+def phase_hybrid(torch, dev, card):
+    """zamba2-1.2b at its published size (38 layers, nothing cut) on phase
+    3's stream: graphed serves against the uncaptured oracle, graphed
+    prefill against its eager body (the ssm and conv state leaves
+    included), a profiled serve, and a contiguous serve whose tokens must
+    equal the paged serve's bit for bit (B5 per slot runs on B1's span
+    plan). Returns the path's result with its model, params and stream for
+    phase 10."""
+    from repro_torch.configs.registry import ARCHS
+    from repro_torch.kernels import build
+    from repro_torch.models import build_model
+    from repro_torch.serving.engine import Request, ServingEngine
+    base = ARCHS[HYBRID_ARCH]
+    cfg = base.for_device(dev)
+    check(cfg.attention_impl == "cuda", "config did not select the kernels")
+    model = build_model(cfg, dev)
+    t0 = time.perf_counter()
+    params = model.init(SEED)
+    torch.cuda.synchronize(dev)
+    print(f"  {HYBRID_ARCH}: {cfg.n_layers} layers, "
+          f"{base.param_count() / 1e9:.3f} B params, bf16, init "
+          f"{time.perf_counter() - t0:.1f} s")
+    stream = make_stream(cfg.vocab)
+    res = serve_variant(torch, dev, model, params, stream, HYBRID_ARCH,
+                        SERVE_REPEATS[HYBRID_ARCH])
+    res["prefill"] = check_prefill_graphs(torch, dev, model, params, stream,
+                                          HYBRID_ARCH, card)
+    res["profile"] = profile_variant(torch, dev, model, params, stream,
+                                     HYBRID_ARCH)
+    eng = ServingEngine(model, params, max_batch=8, max_len=512,
+                        decode_block=16, page_size=None)
+    eng.warmup(prompt_lens=[len(p) for p, _ in stream])
+    reqs = [Request(rid=i, prompt=p, max_new_tokens=m)
+            for i, (p, m) in enumerate(stream)]
+    build.reset_launch_counts()
+    eng.serve(reqs)
+    torch.cuda.synchronize(dev)
+    cont = dict(build.launch_counts)
+    st = eng.stats
+    check(st["decode_traces"] == 1
+          and st["graph_replays"] == st["decode_steps"] > 0,
+          f"{HYBRID_ARCH} contiguous: {st['graph_replays']} replays for "
+          f"{st['decode_steps']} steps")
+    check(all(np.array_equal(r.tokens, t)
+              for r, t in zip(reqs, res["served"])),
+          f"{HYBRID_ARCH}: contiguous tokens differ from the paged serve's")
+    check(cont["decode_attention"] > 0
+          and cont["fused_paged_decode_attention"] == 0,
+          f"{HYBRID_ARCH} contiguous: launches {cont}")
+    del eng
+    torch.cuda.empty_cache()
+    for k, n in cont.items():
+        res["launches"][k] = res["launches"].get(k, 0) + n
+    print(f"  {HYBRID_ARCH} contiguous (page_size None): tokens equal the "
+          f"paged serve's bit for bit; launches {cont}")
+    for name in ("flash_attention", "fused_paged_decode_attention",
+                 "decode_attention"):
+        check(res["launches"][name] > 0,
+              f"{name} was not launched on the {HYBRID_ARCH} path")
+    res["hybrid"] = (model, params, stream)
+    return res
+
+
+# ---------------------------------------------------------------------------
+# phase 9: speculative decoding, llama3.2-1b at full width
+
+SPEC_K = 4
+SPEC_REPEATS = 2
+
+
+def spec_delta(torch, dev, model, params, stream, k):
+    """The bound of the token audit, from two measured gaps of the plain
+    target's own logits, at this config on this card, over the stream's
+    first 8 prompts: ``window``, the verify window's logits against ``k +
+    1`` single-token decodes of the same rows from the same cache
+    (teacher-forced, seeded tokens); ``prefill``, the first logits of a
+    batch-1 prefill against those of a batch-8 one (a request's bf16
+    tokens depend on that shape). A first difference between a
+    speculating serve and the plain one must lie within twice their sum
+    of a tie: the plain target's margin between its top token and the
+    speculating serve's is at most that."""
+    B, L = 8, 512
+    rows = stream[:B]
+    lens = np.array([len(p) for p, _ in rows], np.int64)
+    S = int(lens.max())
+    toks = np.zeros((B, S), np.int64)
+    for b, (p, _m) in enumerate(rows):
+        toks[b, :len(p)] = p
+    to = lambda a: torch.from_numpy(np.asarray(a)).to(dev)   # noqa: E731
+    rng = np.random.default_rng(5)
+    feed = to(rng.integers(0, model.cfg.vocab, (B, k + 1)))
+    with torch.no_grad():
+        logits8, pc = model.prefill(params, {"tokens": to(toks),
+                                             "length": to(lens)})
+        first1 = torch.cat([model.prefill(params, {
+            "tokens": to(toks[b:b + 1]), "length": to(lens[b:b + 1])})[0]
+            for b in range(B)])
+        prefill = (first1 - logits8).abs().max().item()
+        cache = {}
+        for name, (dims, dtype) in model.cache_shapes(B, L).items():
+            leaf = torch.zeros(dims, dtype=dtype, device=dev)
+            leaf.narrow(2, 0, S).copy_(pc[name])
+            cache[name] = leaf
+        seq_cache = {n: t.clone() for n, t in cache.items()}
+        pos = to(lens.astype(np.int32))
+        win, _ = model.decode_window(params, cache, feed, pos)
+        seq = torch.stack([model.decode(params, seq_cache, feed[:, i:i + 1],
+                                        pos + i)[0][:, -1]
+                           for i in range(k + 1)], 1)
+        window = (win - seq).abs().max().item()
+        check(bool(torch.isfinite(win).all()), "spec delta: window logits")
+    return window, prefill
+
+
+def plain_margin(torch, dev, model, params, prompt, nb, tokens, j):
+    """The plain target's margin at generated position ``j`` of a request
+    it served as ``tokens``: its next-token logits after the prompt
+    (prefilled at batch ``nb``, its row repeated) and ``tokens[:j]`` fed
+    one step at a time at the engine's batch of 8 (every row alike, each
+    computed alone), over the contiguous layout (the paged one gathers
+    the same rows); the top logit minus the logit of the other token is
+    returned with the logits."""
+    from repro_torch.serving.engine import bucket_len
+    B, L = 8, 512
+    n = len(prompt)
+    bucket = bucket_len(n, 8, L)
+    toks = np.zeros((nb, bucket), np.int64)
+    toks[:, :n] = prompt
+    to = lambda a: torch.from_numpy(np.asarray(a)).to(dev)   # noqa: E731
+    with torch.no_grad():
+        logits, pc = model.prefill(params, {
+            "tokens": to(toks), "length": to(np.full((nb,), n, np.int64))})
+        cache = {}
+        for name, (dims, dtype) in model.cache_shapes(B, L).items():
+            leaf = torch.zeros(dims, dtype=dtype, device=dev)
+            leaf.narrow(2, 0, bucket).copy_(pc[name][:, :1].expand(
+                -1, B, -1, -1, -1))
+            cache[name] = leaf
+        last = logits[0, -1]
+        for i in range(j):
+            tok = to(np.full((B, 1), int(tokens[i]), np.int64))
+            pos = to(np.full((B,), n + i, np.int32))
+            last = model.decode(params, cache, tok, pos)[0][0, -1]
+    return last
+
+
+def check_spec_graphs(torch, dev, eng, label):
+    """The propose, verify and resync graphs against their bodies on the
+    same inputs, bit for bit: from one snapshot of every cache leaf (the
+    target's and the draft's) and the round buffers, a replay of the graph
+    and a run of the body must leave them the same bits."""
+    progs = [eng._spec.propose_program(), eng._get_verify()]
+    progs += [p for p, _inp in eng._spec._resync.values()][:2]
+    state = (list(eng._cache.values()) + list(eng._spec.cache.values())
+             + [eng._spec_out])
+    for prog in progs:
+        check(prog.graph is not None, f"{label}: {prog.name} not captured")
+        snap = [t.clone() for t in state]
+        prog.graph.replay()
+        torch.cuda.synchronize(dev)
+        graphed = [t.clone() for t in state]
+        for t, v in zip(state, snap):
+            t.copy_(v)
+        with torch.no_grad():
+            prog.body()
+        torch.cuda.synchronize(dev)
+        check(all(torch.equal(a, b) for a, b in zip(graphed, state)),
+              f"{label}: {prog.name}'s graph differs from its body")
+    print(f"  {label}: {', '.join(p.name for p in progs)}: each graph "
+          f"replay equals its body on the same inputs, bit for bit")
+
+
+def spec_serve(torch, dev, eng, stream, label, batch_of=None):
+    """One serve of the stream; checks every request's length and, paged,
+    the drained pool. Returns (requests, launches, wall s)."""
+    from repro_torch.kernels import build
+    from repro_torch.serving.engine import Request
+    reqs = [Request(rid=i, prompt=p, max_new_tokens=m)
+            for i, (p, m) in enumerate(stream)]
+    if batch_of is not None:
+        record_prefill_batches(eng, batch_of)
+    build.reset_launch_counts()
+    t0 = time.perf_counter()
+    eng.serve(reqs)
+    torch.cuda.synchronize(dev)
+    wall = time.perf_counter() - t0
+    got = dict(build.launch_counts)
+    for r, (_p, m) in zip(reqs, stream):
+        check(r.tokens is not None and len(r.tokens) == m,
+              f"{label}: request {r.rid} returned {r.tokens}")
+    if eng._paged:
+        check(eng._alloc.n_free == eng.n_pages
+              and eng._alloc.committed == 0,
+              f"{label}: {eng._alloc.n_free} of {eng.n_pages} pages free, "
+              f"{eng._alloc.committed} committed after the serve")
+    return reqs, got, wall
+
+
+def phase_spec(torch, dev, card, llama, cuda_tok_s):
+    """Phase 9 on phase 3's llama3.2-1b bf16 params and stream: serves (a)
+    an int8 draft, k = 4, paged (page 16); (b) the same, contiguous; (c)
+    an int8 target with its own int8 draft, k = 3; (d) an independently
+    initialised bf16 draft (seed 99), k = 4, paged: rollback every round;
+    (e) (a) in f32. The target attends in plain PyTorch
+    (``for_device(dev, speculate=True)``); the draft runs every kernel.
+    Each against a plain graphed serve of the same target config."""
+    from repro_torch.configs.registry import ARCHS
+    from repro_torch.models import build_model
+    from repro_torch.models.quantize import quantize_params_dense
+    from repro_torch.serving.engine import ServingEngine
+    _model, params, stream = llama
+    base = ARCHS["llama3.2-1b"]
+    f32 = dataclasses.replace(base, dtype="float32", param_dtype="float32")
+    int8 = dataclasses.replace(base, quantize="int8")
+    f32_int8 = dataclasses.replace(f32, quantize="int8")
+    tgt = {c.name + c.dtype + c.quantize: build_model(
+        c.for_device(dev, speculate=True), dev) for c in (base, int8, f32)}
+    check(all(m.cfg.attention_impl == "torch" for m in tgt.values()),
+          "speculating targets must attend in plain PyTorch")
+    qdraft = build_model(int8.for_device(dev), dev)
+    qparams = quantize_params_dense(params)
+    indep = build_model(base.for_device(dev), dev)
+    iparams = indep.init(99)
+    fparams = build_model(f32, dev).init(SEED)
+    fqdraft = build_model(f32_int8.for_device(dev), dev)
+    fqparams = quantize_params_dense(fparams)
+    bt, it, ft = (tgt[c.name + c.dtype + c.quantize] for c in (base, int8,
+                                                              f32))
+    serves = [  # label, target, params, draft, draft params, k, page size
+        ("(a) bf16, int8 draft, paged", bt, params, qdraft, qparams, 4, 16),
+        ("(b) bf16, int8 draft, contiguous", bt, params, qdraft, qparams, 4,
+         None),
+        ("(c) int8 target, its int8 draft", it, qparams, qdraft, qparams, 3,
+         16),
+        ("(d) bf16, independent draft (seed 99)", bt, params, indep, iparams,
+         4, 16),
+        ("(e) f32, int8 draft, paged", ft, fparams, fqdraft, fqparams, 4, 16),
+    ]
+    geometry = dict(max_batch=8, max_len=512, decode_block=16)
+    lens = [len(p) for p, _ in stream]
+    launches: dict = {}
+    plain: dict = {}
+    out = []
+    for label, target, tparams, dm, dp, k, ps in serves:
+        key = (id(target), ps)
+        if key not in plain:
+            eng = ServingEngine(target, tparams, page_size=ps, **geometry)
+            eng.warmup(prompt_lens=lens)
+            batch_of: dict = {}
+            rates = []
+            for rep in range(SPEC_REPEATS):
+                reqs, _got, wall = spec_serve(
+                    torch, dev, eng, stream, f"{label} plain",
+                    batch_of if rep == 0 else None)
+                rates.append(sum(len(r.tokens) for r in reqs) / wall)
+                if rep == 0:
+                    toks = [r.tokens for r in reqs]
+            plain[key] = dict(tokens=toks, tok_s=statistics.median(rates),
+                              batch_of=batch_of)
+            del eng
+        ref = plain[key]
+        kw = dict(geometry, page_size=ps, speculate=(dm, dp), spec_k=k)
+        eng = ServingEngine(target, tparams, **kw)
+        t0 = time.perf_counter()
+        eng.warmup(prompt_lens=lens)
+        torch.cuda.synchronize(dev)
+        warm_s = time.perf_counter() - t0
+        check(eng._spec._propose.graph is not None
+              and eng._verify.graph is not None
+              and all(p.graph is not None
+                      for p, _ in eng._spec._resync.values()),
+              f"{label}: warmup did not capture every speculative program")
+        batch_of = {}
+        rates, first = [], None
+        for rep in range(SPEC_REPEATS):
+            st0 = dict(eng.stats)
+            sp0 = dict(eng._spec.stats)
+            sp_s0 = eng.timing["spec_s"]
+            reqs, got, wall = spec_serve(torch, dev, eng, stream, label,
+                                         batch_of if rep == 0 else None)
+            rates.append(sum(len(r.tokens) for r in reqs) / wall)
+            if first is None:
+                d = {n: v - st0[n] for n, v in eng.stats.items()}
+                ds = {n: v - sp0[n] for n, v in eng._spec.stats.items()}
+                first = (reqs, got, d, ds, eng.timing["spec_s"] - sp_s0)
+        reqs, got, d, ds, spec_s = first
+        for n, v in got.items():
+            launches[n] = launches.get(n, 0) + v
+        check(d["spec_rounds"] > 0 and d["decode_traces"] == 0,
+              f"{label}: {d['spec_rounds']} rounds")
+        draft_kernels = ["flash_attention", "decode_attention"]
+        if dm.cfg.quantize == "int8_cuda":
+            draft_kernels.append("int8_matmul")
+        check(all(got.get(n, 0) > 0 for n in draft_kernels)
+              and got.get("fused_paged_decode_attention", 0) == 0,
+              f"{label}: launches {got}")
+        check_spec_graphs(torch, dev, eng, label)
+        del eng
+        torch.cuda.empty_cache()
+        if not out:
+            # the oracle of serve (a): every program's body, uncaptured,
+            # the same tokens, counts and launches (the graphs' launches
+            # credited per replay); the other serves hold their graphs to
+            # their bodies in ``check_spec_graphs`` alone
+            oracle = uncaptured_engine()(target, tparams, **kw)
+            oracle.warmup(prompt_lens=lens)
+            oreqs, ogot, _ = spec_serve(torch, dev, oracle, stream,
+                                        f"{label} uncaptured")
+            check(all(np.array_equal(a.tokens, b.tokens)
+                      for a, b in zip(reqs, oreqs)),
+                  f"{label}: graphed tokens differ from the uncaptured "
+                  f"bodies'")
+            check(ogot == got, f"{label}: credited launches {got} against "
+                  f"the uncaptured bodies' {ogot}")
+            check(all(oracle.stats[n] == d[n] for n in (
+                "spec_rounds", "spec_proposed", "spec_accepted",
+                "decode_steps")),
+                  f"{label}: uncaptured counts differ")
+            del oracle
+            print(f"  {label}: an uncaptured engine gives the same tokens, "
+                  f"spec counts and launches per wrapper")
+        # the token audit against the plain serve
+        window, prefill = spec_delta(torch, dev, target, tparams, stream, k)
+        bound_margin = 2 * (window + prefill)
+        equal, ties = 0, []
+        for r, want in zip(reqs, ref["tokens"]):
+            if np.array_equal(r.tokens, want):
+                equal += 1
+                continue
+            j = int(np.argmax(r.tokens != want))
+            nb = ref["batch_of"][tuple(int(t) for t in r.prompt)]
+            last = plain_margin(torch, dev, target, tparams, r.prompt, nb,
+                                want, j)
+            check(int(torch.argmax(last)) == int(want[j]),
+                  f"{label}: request {r.rid}: the teacher-forced plain "
+                  f"target does not reproduce its token at {j}")
+            margin = (last[int(want[j])] - last[int(r.tokens[j])]).item()
+            ties.append((r.rid, j, margin))
+            check(margin <= bound_margin,
+                  f"{label}: request {r.rid} first differs at {j} with a "
+                  f"margin {margin:.4g} > {bound_margin:.4g}")
+        rate = d["spec_accepted"] / d["spec_proposed"]
+        med = statistics.median(rates)
+        ms_round = spec_s / d["spec_rounds"] * 1e3
+        print(f"  {label}, k={k}: {equal} of {len(stream)} requests equal "
+              f"the plain serve bit for bit; first differences (rid, "
+              f"position, plain margin) {[(a, b, round(c, 5)) for a, b, c in ties]}"
+              f" within twice window {window:.3e} + prefill {prefill:.3e}")
+        print(f"  {label}, k={k}: {med:.1f} tok/s (each "
+              f"{', '.join(f'{x:.1f}' for x in rates)}) against the plain "
+              f"serve's {ref['tok_s']:.1f} and phase 3's cuda-impl llama "
+              f"{cuda_tok_s:.1f}; acceptance {rate:.3f}, {d['spec_rounds']} "
+              f"rounds, {d['decode_dispatches'] - d['spec_rounds']} "
+              f"segments, {ds['resyncs']} resyncs, {ms_round:.3f} ms a "
+              f"round (propose + verify + read), warmup {warm_s:.2f} s "
+              f"on {card}")
+        out.append(dict(label=label, k=k, equal=equal, ties=ties,
+                        tok_s=med, plain_tok_s=ref["tok_s"],
+                        accept=rate, rounds=d["spec_rounds"],
+                        resyncs=ds["resyncs"], ms_round=ms_round,
+                        window=window, prefill=prefill))
+    del qparams, iparams, fparams, fqparams
+    torch.cuda.empty_cache()
+    print(f"  phase launches {launches}")
+    return dict(launches=launches, serves=out)
+
+
+# ---------------------------------------------------------------------------
+# phase 10: the hybrid engine's state rows under pressure, and hybrid
+# speculation
+
+# the pressure serve's counts, predicted from lengths alone by a CPU run of
+# ``phase_hybrid_pressure`` at reduced width (the stream drawn at the full
+# vocabulary, its tokens taken mod the reduced one)
+HYBRID_PRESSURE_PREDICTED = {
+    "staged": 9, "inseg_admissions": 4, "preemptions": 4,
+    "preempt_readmits": 4, "pressure_stalls": 9, "prefill_dispatches": 0,
+    "chunk_admits": 12, "decode_dispatches": 43, "decode_steps": 673,
+    "busy_slot_steps": 3643, "peak_concurrency": 8}
+
+
+def phase_hybrid_pressure(torch, dev, model, params, stream, card):
+    """zamba2-1.2b at full width in phase 6's pressure configuration
+    (staging ring, optimistic admission, slack victims, a quarter of the
+    pool, ``chunk_threshold=0``, streaming) against a worst-case serve with
+    every prompt fed: the tokens must be equal bit for bit, which holds
+    only if the in-graph state reset of every ring refill and the reset of
+    every recovery seat are right. The counts must be the CPU rehearsal's
+    (``HYBRID_PRESSURE_PREDICTED``)."""
+    from repro_torch.kernels import build
+    from repro_torch.serving.engine import ServingEngine
+    geometry = dict(max_batch=8, max_len=512, decode_block=16, page_size=16,
+                    chunk_threshold=0)
+    knobs = dict(stage_slots=PRESSURE_STAGE, admission="optimistic",
+                 preempt_policy="slack", n_pages=PRESSURE_PAGES,
+                 stream=True)
+    lens = [len(p) for p, _ in stream]
+    launches: dict = {}
+
+    def serve(eng):
+        before = dict(eng.stats)
+        build.reset_launch_counts()
+        t0 = time.perf_counter()
+        reqs, chunks = stream_serve(eng, stream)
+        torch.cuda.synchronize(dev)
+        wall = time.perf_counter() - t0
+        for k, n in build.launch_counts.items():
+            launches[k] = launches.get(k, 0) + n
+        return reqs, chunks, {k: v - before[k]
+                              for k, v in eng.stats.items()}, wall
+
+    oracle = ServingEngine(model, params, **geometry)
+    oracle.warmup(prompt_lens=lens)
+    want_reqs, _, sa, wall_o = serve(oracle)
+    want = [r.tokens for r in want_reqs]
+    del oracle
+    eng = ServingEngine(model, params, **dict(geometry, **knobs))
+    eng.warmup(prompt_lens=lens)
+    reqs, chunks, d, wall = serve(eng)
+    check_pressure_serve(eng, f"{HYBRID_ARCH} pressure serve", reqs, chunks,
+                         d, want)
+    counts = {k: d[k] for k in PRESSURE_COUNTS}
+    check(d["inseg_admissions"] > 0 and d["preemptions"] > 0,
+          f"{HYBRID_ARCH} pressure serve: no pressure ran ({counts})")
+    check(counts == HYBRID_PRESSURE_PREDICTED,
+          f"{HYBRID_ARCH} pressure counts {counts} against the CPU "
+          f"rehearsal's {HYBRID_PRESSURE_PREDICTED}")
+    check(d["swap_out"] == 0 and eng._prefix is None,
+          f"{HYBRID_ARCH}: swap or prefix cache ran on per-slot state")
+    toks = sum(len(w) for w in want)
+    del eng
+    torch.cuda.empty_cache()
+    print(f"  {HYBRID_ARCH} pressure serve ({PRESSURE_STAGE} staging slots, "
+          f"optimistic, slack, {PRESSURE_PAGES} pages, chunk_threshold 0): "
+          f"tokens equal the worst-case serve's bit for bit, chunks "
+          f"concatenate to them; counts {counts} (predicted "
+          f"{HYBRID_PRESSURE_PREDICTED}); {toks / wall:.1f} tok/s against "
+          f"the worst-case serve's {toks / wall_o:.1f} "
+          f"({sa['decode_steps']} steps) on {card}")
+    return dict(launches=launches, counts=counts, tok_s=toks / wall,
+                oracle_tok_s=toks / wall_o)
+
+
+def phase_hybrid_spec(torch, dev, card):
+    """A hybrid target with a dense draft, reduced width, f32, paged and
+    contiguous: the tokens must equal the plain serve's. No dense config in
+    the registry shares zamba2-1.2b's 32,000-token vocabulary, so
+    full-width hybrid speculation has no draft; the reduced configs share
+    a vocabulary of 256. The hybrid target verifies in k + 1 single-token
+    decodes inside its one verify graph and re-seats a slot through the
+    teacher-forced replay on a mismatch."""
+    from repro_torch.configs.registry import ARCHS
+    from repro_torch.kernels import build
+    from repro_torch.models import build_model
+    from repro_torch.serving.engine import Request, ServingEngine
+    tcfg = ARCHS[HYBRID_ARCH].reduced().for_device(dev, speculate=True)
+    target = build_model(tcfg, dev)
+    tparams = target.init(SEED)
+    draft = build_model(ARCHS["llama3.2-1b"].reduced().for_device(dev), dev)
+    dparams = draft.init(1)
+    rng = np.random.default_rng(11)
+    stream = [(rng.integers(0, tcfg.vocab, size=int(rng.integers(3, 40))
+                            ).astype(np.int32), int(rng.integers(8, 24)))
+              for _ in range(12)]
+    lens = [len(p) for p, _ in stream]
+    geometry = dict(max_batch=4, max_len=64, decode_block=4, min_bucket=4)
+    launches: dict = {}
+    for ps in (8, None):
+        runs = []
+        for spec in (None, (draft, dparams)):
+            kw = dict(geometry, page_size=ps)
+            if spec is not None:
+                kw.update(speculate=spec, spec_k=SPEC_K)
+            eng = ServingEngine(target, tparams, **kw)
+            eng.warmup(prompt_lens=lens)
+            reqs = [Request(rid=i, prompt=p, max_new_tokens=m)
+                    for i, (p, m) in enumerate(stream)]
+            build.reset_launch_counts()
+            eng.serve(reqs)
+            torch.cuda.synchronize(dev)
+            for k, n in build.launch_counts.items():
+                launches[k] = launches.get(k, 0) + n
+            runs.append((reqs, dict(eng.stats)))
+            if eng._paged:
+                check(eng._alloc.n_free == eng.n_pages,
+                      f"hybrid spec page {ps}: pages left held")
+            del eng
+        (plain, _), (spec, st) = runs
+        check(all(np.array_equal(a.tokens, b.tokens)
+                  for a, b in zip(plain, spec)),
+              f"hybrid spec page {ps}: tokens differ from the plain serve's")
+        check(st["spec_rounds"] > 0, f"hybrid spec page {ps}: no round")
+        print(f"  {HYBRID_ARCH} reduced (f32, target attn=torch) with a "
+              f"reduced llama draft, page size {ps}: tokens equal the plain "
+              f"serve's; {st['spec_rounds']} rounds, "
+              f"{st['spec_accepted']}/{st['spec_proposed']} accepted, "
+              f"{st['decode_steps']} steps on {card}")
+    return dict(launches=launches)
+
+
 def main() -> int:
     if not (SRC / "repro_torch").is_dir():
         print(f"error: {SRC / 'repro_torch'} not found; run chip_smoke.py "
@@ -2745,7 +3325,9 @@ def main() -> int:
               phase_fused_decode(torch, dev, gen, G=1, D=64,
                                  pos_list=FUSED_SPAN_POS),
               phase_fused_decode(torch, dev, gen, P=256,
-                                 pos_list=FUSED_LONG_POS)]
+                                 pos_list=FUSED_LONG_POS),
+              # zamba2-1.2b's shared block: K = 32 KV heads, G = 1
+              phase_fused_decode(torch, dev, gen, K=32, G=1, D=64)]
     fused["other_shapes"] = [{k: o[k] for k in (
         "shape", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
         "host_us")} for o in others]
@@ -2763,15 +3345,16 @@ def main() -> int:
     whisper = phase_family(torch, dev, "whisper-base", card)
     vision = phase_family(torch, dev, "llama-3.2-vision-90b", card,
                           VISION_LAYERS)
-    paths = [bf16, bf16["chunked"], int8, whisper, vision]
+    hybrid = phase_hybrid(torch, dev, card)
+    paths = [bf16, bf16["chunked"], int8, whisper, vision, hybrid]
     for k in kernels:
-        k["launches"] = sum(r["launches"][k["name"]] for r in paths)
+        k["launches"] = sum(r["launches"].get(k["name"], 0) for r in paths)
     for label, r in (("llama3.2-1b bf16", bf16),
                      (f"llama3.2-1b bf16 chunked ({CHUNK_THRESHOLD})",
                       bf16["chunked"]),
                      ("llama3.2-1b int8", int8), ("whisper-base", whisper),
                      (f"llama-3.2-vision-90b ({VISION_LAYERS} layers)",
-                      vision)):
+                      vision), (HYBRID_ARCH, hybrid)):
         p = r.get("profile")
         busy = (f"device {p['device_ms']:.1f} / wall {p['wall_ms']:.1f} ms, "
                 f"busy share {p['busy_share']:.3f}" if p else "not profiled")
@@ -2819,7 +3402,6 @@ def main() -> int:
     phase7 = phase_prefix_swap_layout(torch, dev, *llama, card,
                                       bf16["served"], pressure,
                                       whisper["served"])
-    del llama
     torch.cuda.empty_cache()
     for k in kernels:
         k["launches"] += phase7["launches"].get(k["name"], 0)
@@ -2832,6 +3414,25 @@ def main() -> int:
     for k in kernels:
         k["launches"] += wall["launches"][k["name"]]
     print(f"  phase 8 took {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    print("phase 9: speculative decoding (llama3.2-1b full width, target "
+          "attends in plain PyTorch, draft on the kernels)")
+    spec = phase_spec(torch, dev, card, llama, bf16["tok_s"])
+    del llama
+    torch.cuda.empty_cache()
+    for k in kernels:
+        k["launches"] += spec["launches"].get(k["name"], 0)
+    print(f"  phase 9 took {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    print(f"phase 10: the hybrid engine's state rows under pressure "
+          f"({HYBRID_ARCH} full width) and hybrid speculation (reduced)")
+    hp = phase_hybrid_pressure(torch, dev, *hybrid.pop("hybrid"), card)
+    torch.cuda.empty_cache()
+    hs = phase_hybrid_spec(torch, dev, card)
+    for k in kernels:
+        k["launches"] += (hp["launches"].get(k["name"], 0)
+                          + hs["launches"].get(k["name"], 0))
+    print(f"  phase 10 took {time.perf_counter() - t0:.1f} s")
     print(f"all phases passed in {time.perf_counter() - t_start:.1f} s")
     for k in kernels:
         print(f"kernel {k['name']}: {k['launches']} main-path launches, "

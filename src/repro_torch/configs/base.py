@@ -1,8 +1,9 @@
 """Architecture configuration (the port's own copy of ``repro.configs.base``).
 
-The fields, defaults and ``reduced()`` of the dense, audio (enc-dec) and
-vlm (cross-attention) families come across; the MoE, SSM and hybrid fields
-join with their model code. The kernel-dispatch names are the port's:
+The fields, defaults and ``reduced()`` of the dense, hybrid (Mamba2 +
+shared attention), audio (enc-dec) and vlm (cross-attention) families come
+across; the MoE and xLSTM fields join with their model code. The
+kernel-dispatch names are the port's:
 
 * ``attention_impl``: ``"torch"`` (plain PyTorch) or ``"cuda"`` (the
   hand-written flash-prefill and decode-attention kernels);
@@ -36,6 +37,10 @@ class ArchConfig:
     vocab: int
     head_dim: Optional[int] = None   # default: d_model // n_heads
     rope_theta: float = 500_000.0
+    # --- SSM / hybrid ---
+    ssm_state: int = 0               # Mamba2 state size N
+    ssm_chunk: int = 256             # SSD chunk length
+    shared_attn_every: int = 6       # zamba2: shared attention block period
     # --- audio (enc-dec) ---
     n_encoder_layers: int = 0
     # --- vlm ---
@@ -69,17 +74,30 @@ class ArchConfig:
         head).
 
         ``repro``'s formula counts the audio decoder's cross blocks without
-        their MLPs and adds the vlm cross layers' attention once more; the
-        count here is that of the initialised tree, which the launcher
-        turns into weight bytes.
+        their MLPs and adds the vlm cross layers' attention once more; for
+        the hybrid family it sizes ``w_dt`` by the attention heads where
+        the layer has ``d_inner // head_dim_mamba`` Mamba heads and leaves
+        out the convolutions, ``A_log``, ``D`` and ``dt_bias``. The count
+        here is that of the initialised tree, which the launcher turns into
+        weight bytes.
         """
-        if self.family not in ("dense", "audio", "vlm"):
+        if self.family not in ("dense", "hybrid", "audio", "vlm"):
             raise NotImplementedError(
                 f"param_count for family {self.family!r} is not ported")
         d, hd = self.d_model, self.head_dim
         attn = (d * self.n_heads * hd + 2 * d * self.n_kv_heads * hd
                 + self.n_heads * hd * d)
         block = attn + 3 * d * self.d_ff
+        if self.family == "hybrid":
+            # Mamba2 layer (models.ssm.mamba_dims): w_z, w_x, w_bc, w_dt,
+            # out_proj, the two depthwise convs with their biases, A_log,
+            # D and dt_bias; one shared block, counted once
+            di = 2 * d
+            h = di // (64 if d >= 512 else 16)
+            n2 = 2 * self.ssm_state
+            mamba = (d * (2 * di + n2 + h) + di * d + 5 * (di + n2)
+                     + 3 * h)
+            return 2 * self.vocab * d + self.n_layers * mamba + block
         n_blocks = self.n_layers   # vlm: self and cross layers together
         if self.family == "audio":
             n_blocks = self.n_encoder_layers + 2 * self.n_layers
@@ -104,6 +122,8 @@ class ArchConfig:
             head_dim=16,
             d_ff=128,
             vocab=256,
+            ssm_state=min(self.ssm_state, 16) if self.ssm_state else 0,
+            ssm_chunk=32,
             n_encoder_layers=min(self.n_encoder_layers, 2),
             cross_attn_every=(min(self.cross_attn_every, 2)
                               if self.cross_attn_every else 0),
@@ -113,14 +133,20 @@ class ArchConfig:
             param_dtype="float32",
         )
 
-    def for_device(self, device) -> "ArchConfig":
+    def for_device(self, device, speculate: bool = False) -> "ArchConfig":
         """The config with the kernel impls selected on a CUDA device.
 
         On the CPU the config is returned unchanged: the kernels run only on
-        the card.
+        the card. ``speculate=True`` builds a speculating *target*: its
+        attention stays plain PyTorch, the counterpart of the reference's
+        XLA path, because the verify window runs outside the fused decode
+        kernel and plain decode must give the window's bits (the engine
+        refuses ``attention_impl="cuda"`` with a draft); its int8
+        projections still take the int8 GEMM. A draft is built without it.
         """
         if str(device).split(":")[0] != "cuda":
             return self
         quantize = "int8_cuda" if self.quantize == "int8" else self.quantize
-        return dataclasses.replace(self, attention_impl="cuda",
-                                   quantize=quantize)
+        return dataclasses.replace(
+            self, attention_impl="torch" if speculate else "cuda",
+            quantize=quantize)

@@ -43,10 +43,14 @@ tokens/s and dispatch counts:
         --admission optimistic --swap host --swap-budget-mb 64
     PYTHONPATH=src python -m repro_torch.launch.serve --real-engine \\
         --device cpu --reduced --page-size 0
+    PYTHONPATH=src python -m repro_torch.launch.serve --real-engine \\
+        --device cpu --reduced --speculate int8:3
+    PYTHONPATH=src python -m repro_torch.launch.serve --real-engine \\
+        --device cpu --reduced --arch zamba2-1.2b --speculate llama3.2-1b:4
 
-``--arch`` takes llama3.2-1b (dense), whisper-base (audio) and
-llama-3.2-vision-90b (vlm) for the real data plane. On CUDA the config
-selects the kernel impls (flash prefill, fused paged decode, the paged and
+``--arch`` takes llama3.2-1b (dense), zamba2-1.2b (hybrid), whisper-base
+(audio) and llama-3.2-vision-90b (vlm) for the real data plane. On CUDA
+the config selects the kernel impls (flash prefill, fused paged decode, the paged and
 contiguous decode kernels of the cross-attention and, with ``--quantize
 int8``, the int8 GEMM; int8 is dense-only, as in ``repro``). A config whose
 weights do not fit the card is refused before anything is allocated: the
@@ -55,7 +59,14 @@ random, made from a fixed seed on the device. The paged layout with pages
 of 16 is the default; ``--page-size 0`` serves the contiguous KV layout.
 With ``--prefix-cache`` half the requests of the engine demo open with one
 shared template (a system prompt's stand-in), as in ``repro``.
-``--speculate`` is not ported.
+
+``--speculate DRAFT[:K]`` (real data plane only) speculates with draft
+DRAFT, ``int8`` (the int8 variant of the served arch) or another arch id
+of the same vocabulary, K tokens a round (default 4). On CUDA the target
+is built with ``ArchConfig.for_device(dev, speculate=True)``: its
+attention runs in plain PyTorch (the verify window runs outside the fused
+decode kernel, as the reference's runs in XLA), which the ``attn=`` of
+the demo's line shows; the draft takes every kernel.
 """
 from __future__ import annotations
 
@@ -98,28 +109,45 @@ def _real_engine_demo(arch: str, n_reqs: int, slots: int,
                       preempt_policy: str = "slack",
                       prefix_cache: bool = False, prefix_evict: str = "lru",
                       swap: Optional[str] = None,
-                      swap_budget_bytes: Optional[int] = None) -> dict:
+                      swap_budget_bytes: Optional[int] = None,
+                      speculate: Optional[str] = None) -> dict:
     dev = resolve_device(device)
     base = ARCHS[arch].reduced() if reduced else ARCHS[arch]
     if quantize != "none" and base.family != "dense":
         raise ValueError(f"--quantize {quantize}: the int8 variants are "
                          f"dense-only; {arch} is {base.family}")
-    cfg = dataclasses.replace(base, quantize=quantize).for_device(dev)
+    cfg = dataclasses.replace(base, quantize=quantize).for_device(
+        dev, speculate=speculate is not None)
     if dev.type == "cuda":
         check_weights_fit(cfg, torch.cuda.get_device_properties(
             dev).total_memory, torch.cuda.get_device_name(dev))
     model = build_model(cfg, dev)
-    params = model.init(seed)
+    fp_params = params = model.init(seed)
     if quantize == "int8":
         # weight-only int8 variant: projections quantized from the fp init
         params = quantize_params_dense(params)
+    spec_kwargs = {}
+    if speculate is not None:
+        dname, _, ks = speculate.partition(":")
+        if dname == "int8":
+            # the int8 variant of the same arch: the same weights but for
+            # rounding, so its argmaxes track the target closely
+            dm = build_model(dataclasses.replace(
+                base, quantize="int8").for_device(dev), dev)
+            dp = quantize_params_dense(fp_params)
+        else:
+            dbase = ARCHS[dname].reduced() if reduced else ARCHS[dname]
+            dm = build_model(dbase.for_device(dev), dev)
+            dp = dm.init(seed + 1)
+        spec_kwargs = dict(speculate=(dm, dp), spec_k=int(ks) if ks else 4)
     eng = ServingEngine(model, params, max_batch=slots, max_len=max_len,
                         decode_block=16, page_size=page_size,
                         n_pages=n_pages, chunk_threshold=chunk_threshold,
                         stage_slots=stage_slots, admission=admission,
                         preempt_policy=preempt_policy,
                         prefix_cache=prefix_cache, prefix_evict=prefix_evict,
-                        swap=swap, swap_budget_bytes=swap_budget_bytes)
+                        swap=swap, swap_budget_bytes=swap_budget_bytes,
+                        **spec_kwargs)
     rng = np.random.default_rng(seed)
     # with the prefix cache on, half the requests open with one template
     tpl = (rng.integers(0, cfg.vocab, size=24).astype(np.int32)
@@ -173,6 +201,14 @@ def _real_engine_demo(arch: str, n_reqs: int, slots: int,
         print(f"  host swap: {s['swap_out']} out, {s['swap_in']} in, "
               f"{s['swap_fallbacks']} fallbacks to recompute, "
               f"{s['swap_bytes']} bytes")
+    if eng._spec is not None:
+        print(f"  speculative decode (k={eng.spec_k}, draft "
+              f"{eng._spec.model.cfg.name} attn="
+              f"{eng._spec.model.cfg.attention_impl}): "
+              f"{s['spec_rounds']} rounds, {s['spec_accepted']}/"
+              f"{s['spec_proposed']} draft tokens accepted (rate "
+              f"{eng.occupancy['spec_accept_rate']:.2f}), "
+              f"{eng._spec.stats['resyncs']} draft resyncs")
     return {"tokens": toks, "wall_s": wall, "stats": dict(s)}
 
 
@@ -278,12 +314,18 @@ def _validate(args) -> None:
     layout is the port's default: ``--page-size 0`` takes the contiguous
     one, where the reference leaves ``--page-size`` out)."""
     contiguous = args.page_size == 0
+    if args.speculate is not None:
+        dname, _, ks = args.speculate.partition(":")
+        if not dname or (ks and not ks.isdigit()):
+            raise SystemExit("--speculate takes DRAFT[:K], e.g. 'int8:4' "
+                             "or 'llama3.2-1b:7'")
     if args.backend != "real" and not args.real_engine and \
-            args.quantize != "none":
+            (args.speculate is not None or args.quantize != "none"):
         raise SystemExit(
-            "--quantize reshapes the real decode loop; combine it with "
-            "--backend real or --real-engine (the sim backend has no "
-            "weights to quantize)")
+            "--speculate/--quantize reshape the real decode loop; combine "
+            "them with --backend real or --real-engine (the sim backend "
+            "has no decode loop to speculate in and no weights to "
+            "quantize)")
     if args.swap_budget_mb is not None and args.swap is None:
         raise SystemExit("--swap-budget-mb bounds the host swap buffer; "
                          "it needs --swap host")
@@ -412,6 +454,11 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
                     help="cap on parked host-swapped KV bytes; past it a "
                          "victim recomputes (needs --swap host)")
     ap.add_argument("--quantize", choices=["none", "int8"], default="none")
+    ap.add_argument("--speculate", default=None, metavar="DRAFT[:K]",
+                    help="speculative decoding: draft DRAFT ('int8' = the "
+                         "int8 variant of the served arch, or another arch "
+                         "id) proposes K tokens a round (default 4); real "
+                         "data plane only")
     ap.add_argument("--chunk-threshold", type=int, default=None,
                     help="chunk prompts longer than this through the "
                          "decode segments (dense family; clamped off for "
@@ -438,7 +485,8 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
                           preempt_policy=args.preempt_policy,
                           prefix_cache=args.prefix_cache,
                           prefix_evict=args.prefix_evict, swap=args.swap,
-                          swap_budget_bytes=swap_budget)
+                          swap_budget_bytes=swap_budget,
+                          speculate=args.speculate)
         return
 
     from repro_torch.core.master import MasterConfig
@@ -459,7 +507,8 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
             prefix_cache=args.prefix_cache, prefix_evict=args.prefix_evict,
             quantize=args.quantize, swap=args.swap,
             swap_budget_bytes=swap_budget,
-            deadline_enforce=args.deadline_enforce)
+            deadline_enforce=args.deadline_enforce,
+            speculate=args.speculate)
     c = make_cluster(n_accel=args.workers, n_cpu=args.cpu_workers,
                      archs=archs, autoscale=not args.no_autoscale, cfg=cfg,
                      backend=args.backend, engine_cfg=engine_cfg,

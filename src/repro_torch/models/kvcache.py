@@ -1,7 +1,7 @@
 """KV cache primitives (``repro.models.kvcache``): the contiguous per-slot
-write, the paged write and views, the page copies of copy-on-write and
-host swap, and the leaf layout helpers the serving engine pages any
-family's cache with.
+write, the paged one-token and window writes and views, the page copies of
+copy-on-write and host swap, the per-slot state resets and copies, and the
+leaf layout helpers the serving engine pages any family's cache with.
 
 A shared page pool ``(n_pages, page_size, K, D)`` per layer plus a per-slot
 block table ``(B, P)`` of page indices: logical position ``p`` of slot ``b``
@@ -59,37 +59,104 @@ def page_coords(block_table: torch.Tensor, pos: Any,
     return page, pos % page_size
 
 
+def _write_rows_drop(k_pool: torch.Tensor, v_pool: torch.Tensor,
+                     page: torch.Tensor, off: torch.Tensor,
+                     k_rows: torch.Tensor, v_rows: torch.Tensor) -> None:
+    """Write ``N`` rows (N, K, D) at (page, off) (N,) of the pools, in
+    place, dropping those whose page lies outside the pool.
+
+    The drop reads nothing back to the host, so a CUDA graph can capture
+    it: a dropped row rewrites, with its own bytes, a pool row that no kept
+    row of this call writes (the first of rows 0..N not taken), where a
+    mask would select rows whose number only the device knows. A pool of
+    at most N rows may have no such row and takes the mask."""
+    n_phys, ps = k_pool.shape[:2]
+    keep = (page >= 0) & (page < n_phys)
+    N = page.shape[0]
+    if n_phys * ps <= N:
+        k_pool[page[keep], off[keep]] = k_rows[keep].to(k_pool.dtype)
+        v_pool[page[keep], off[keep]] = v_rows[keep].to(v_pool.dtype)
+        return
+    row = torch.clamp(page, 0, n_phys - 1) * ps + off
+    taken = torch.zeros(N + 2, dtype=torch.int32, device=row.device)
+    taken.index_fill_(0, row.masked_fill(~(keep & (row <= N)), N + 1), 1)
+    spare = torch.argmin(taken[:N + 1]).view(1)     # the first row not taken
+    dst = torch.where(keep, row, spare)
+    for pool, new in ((k_pool, k_rows), (v_pool, v_rows)):
+        flat = pool.view((-1,) + tuple(pool.shape[2:]))
+        mask = keep.view((N,) + (1,) * (new.ndim - 1))
+        flat[dst] = torch.where(mask, new.to(pool.dtype), flat[spare])
+
+
 def paged_update_layer_cache(k_pool: torch.Tensor, v_pool: torch.Tensor,
                              k_new: torch.Tensor, v_new: torch.Tensor,
                              block_table: torch.Tensor,
                              pos: Any) -> Tuple[torch.Tensor, torch.Tensor]:
     """Write one token's (B, 1, K, D) k/v at logical ``pos`` of each slot,
-    in place. Writes routed outside the pool are dropped.
-
-    The drop reads nothing back to the host, so a CUDA graph can capture
-    it: a dropped row rewrites, with its own bytes, a pool row that no kept
-    row of this call writes (the first of rows 0..B not taken), where a
-    mask would select rows whose number only the device knows. A pool of
-    at most B rows may have no such row and takes the mask.
+    in place. Writes routed outside the pool are dropped, with no mask
+    and no read back (``_write_rows_drop``), so a CUDA graph captures it.
     """
-    n_phys, ps = k_pool.shape[:2]
-    page, off = page_coords(block_table, pos, ps)
-    keep = (page >= 0) & (page < n_phys)
-    B = page.shape[0]
-    if n_phys * ps <= B:
-        k_pool[page[keep], off[keep]] = k_new[:, 0][keep].to(k_pool.dtype)
-        v_pool[page[keep], off[keep]] = v_new[:, 0][keep].to(v_pool.dtype)
-        return k_pool, v_pool
-    row = torch.clamp(page, 0, n_phys - 1) * ps + off
-    taken = torch.zeros(B + 2, dtype=torch.int32, device=row.device)
-    taken.index_fill_(0, row.masked_fill(~(keep & (row <= B)), B + 1), 1)
-    spare = torch.argmin(taken[:B + 1]).view(1)     # the first row not taken
-    dst = torch.where(keep, row, spare)
-    for pool, new in ((k_pool, k_new), (v_pool, v_new)):
-        flat = pool.view((-1,) + tuple(pool.shape[2:]))
-        mask = keep.view((B,) + (1,) * (new.ndim - 2))
-        flat[dst] = torch.where(mask, new[:, 0].to(pool.dtype), flat[spare])
+    page, off = page_coords(block_table, pos, k_pool.shape[1])
+    _write_rows_drop(k_pool, v_pool, page, off, k_new[:, 0], v_new[:, 0])
     return k_pool, v_pool
+
+
+def paged_update_window(k_pool: torch.Tensor, v_pool: torch.Tensor,
+                        k_new: torch.Tensor, v_new: torch.Tensor,
+                        block_table: torch.Tensor,
+                        pos: torch.Tensor) -> Tuple[torch.Tensor,
+                                                    torch.Tensor]:
+    """Write an S-token window's (B, S, K, D) k/v, token ``s`` of slot
+    ``b`` at logical ``pos[b] + s``, through the block table into the
+    shared pools, in place: the speculative verify's form of
+    ``paged_update_layer_cache``. The engine attaches the window's pages
+    before a round; entries at the sentinel (a free slot's) are dropped,
+    as JAX's ``mode="drop"`` drops them. The B x S rows take the one-token
+    write's drop: a dropped row rewrites, with its own bytes, a row that
+    no kept row writes, so the write has a fixed shape and a CUDA graph
+    captures it."""
+    ps = k_pool.shape[1]
+    B, S = k_new.shape[:2]
+    pos_bs = pos.reshape(-1, 1).long() + torch.arange(
+        S, device=k_new.device)
+    blk = torch.clamp(pos_bs // ps, 0, block_table.shape[1] - 1)
+    page = torch.gather(block_table.long(), 1, blk)            # (B, S)
+    off = pos_bs % ps
+    tail = tuple(k_new.shape[2:])
+    _write_rows_drop(k_pool, v_pool, page.reshape(-1), off.reshape(-1),
+                     k_new.reshape((B * S,) + tail),
+                     v_new.reshape((B * S,) + tail))
+    return k_pool, v_pool
+
+
+def reset_slot_rows(leaf: torch.Tensor, batch_axis: int, take: torch.Tensor,
+                    empty_row: torch.Tensor) -> torch.Tensor:
+    """Replace, in place, the batch rows of a per-slot state leaf selected
+    by ``take`` (B,) bool with ``empty_row`` (the leaf's one-row empty
+    state, batch axis leading): the slot reset of in-segment refill and of
+    a seat. A masked write of fixed shape (no boolean indexing, no read
+    back), so a CUDA graph captures it."""
+    view = leaf.movedim(batch_axis, 0)
+    mask = take.view((-1,) + (1,) * (view.ndim - 1))
+    view.copy_(torch.where(mask, empty_row.to(view.dtype), view))
+    return leaf
+
+
+def gather_state_rows(leaf: torch.Tensor, batch_axis: int,
+                      slot: int) -> torch.Tensor:
+    """Copy one slot's row of a per-slot state leaf (SSM and conv states:
+    no sequence axis) to host memory: the swap payload of recurrent
+    state, a plain CPU tensor."""
+    return leaf.movedim(batch_axis, 0)[slot].cpu()
+
+
+def scatter_state_rows(leaf: torch.Tensor, batch_axis: int, slot: int,
+                       host_row: torch.Tensor) -> torch.Tensor:
+    """Write a host state row (from ``gather_state_rows``) back into
+    ``slot`` of a per-slot state leaf, in place."""
+    leaf.movedim(batch_axis, 0)[slot] = host_row.to(device=leaf.device,
+                                                    dtype=leaf.dtype)
+    return leaf
 
 
 def sentinel_block_table(n_rows: int, pages_per_slot: int,

@@ -122,6 +122,32 @@ def attention_core(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     return torch.einsum("bkgst,btkd->bskgd", probs, v.to(q.dtype))
 
 
+def window_attention_core(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                          pos: torch.Tensor) -> torch.Tensor:
+    """Attention of a teacher-forced decode window (the speculative
+    verify). q (B, S, K, G, D); k/v (B, T, K, D), the window's rows
+    already written; pos (B,) the position of each slot's first window
+    token.
+
+    Window token ``s`` of slot ``b`` sits at ``pos[b] + s`` and attends to
+    positions ``<= pos[b] + s``, itself included: the decode step's
+    ``kv_valid_len = pos + 1`` masked attend, batched over the window. At
+    ``S == 1`` the mask is exactly the decode step's, and so are the
+    operations, so a one-token window gives the decode step's bits. Plain
+    PyTorch only: no kernel takes a per-row causal offset.
+    """
+    B, S, K, G, D = q.shape
+    T = k.shape[1]
+    scores = torch.einsum("bskgd,btkd->bkgst", q.float(), k.float()) \
+        * (D ** -0.5)
+    t_idx = torch.arange(T, device=q.device)
+    s_pos = pos.reshape(-1, 1, 1) + torch.arange(S, device=q.device)[:, None]
+    mask = (t_idx <= s_pos)[:, None, None]            # (B, 1, 1, S, T)
+    scores = torch.where(mask, scores, torch.full_like(scores, NEG_INF))
+    probs = torch.softmax(scores, dim=-1).to(q.dtype)
+    return torch.einsum("bkgst,btkd->bskgd", probs, v.to(q.dtype))
+
+
 def paged_attention_core(q, k_pool, v_pool, block_table, *, kv_valid_len,
                          impl: str = "torch") -> torch.Tensor:
     """One-token decode attention over a paged KV cache, attend only.

@@ -14,9 +14,17 @@
 * ``cache_shapes(batch, max_len, enc_len=None)``: name -> (shape, dtype)
   of every cache leaf in its contiguous layout, as ``repro``'s
   ``cache_shapes`` gives them. The serving engine finds each leaf's batch
-  and sequence axes from it and pages the leaves that have a sequence axis.
+  and sequence axes from it and pages the leaves that have a sequence axis;
+* ``empty_state(batch, max_len, enc_len=None)``: the cache of a sequence
+  that has seen no tokens, the slot reset of chunked prefill, in-segment
+  admission and recovery: zeros for every ported family (the hybrid
+  family's SSM and conv states start at 0);
+* ``decode_window(params, cache, tokens (B, S), pos (B,))``: the
+  teacher-forced S-token window of the speculative verifier, set for the
+  dense family only (its KV write and attend have an exact batched form);
+  the other families verify one token at a time through ``decode``.
 
-The dense, audio and vlm families are ported; the others raise
+The dense, hybrid, audio and vlm families are ported; the others raise
 ``NotImplementedError``.
 """
 from __future__ import annotations
@@ -30,6 +38,7 @@ from repro_torch import resolve_device
 from repro_torch.configs.base import ArchConfig
 from repro_torch.kernels.decode_attention import decode_body
 from repro_torch.kernels.flash_attention import flash_body
+from repro_torch.models import ssm as SSM
 from repro_torch.models import transformer as T
 
 Batch = Dict[str, torch.Tensor]
@@ -44,6 +53,8 @@ class Model:
     decode: Callable[..., Any]
     cache_shapes: Callable[..., Dict[str, Tuple[Tuple[int, ...],
                                                 torch.dtype]]]
+    empty_state: Optional[Callable[..., Dict[str, torch.Tensor]]] = None
+    decode_window: Optional[Callable[..., Any]] = None
 
 
 def _cache_shapes(cfg: ArchConfig, batch: int, max_len: int,
@@ -53,6 +64,8 @@ def _cache_shapes(cfg: ArchConfig, batch: int, max_len: int,
     if cfg.family == "dense":
         sh = (cfg.n_layers, batch, max_len) + kv
         return {"k": (sh, dtype), "v": (sh, dtype)}
+    if cfg.family == "hybrid":
+        return SSM.zamba_cache_shapes(cfg, batch, max_len)
     if cfg.family == "audio":
         sh = (cfg.n_layers, batch, max_len) + kv
         xsh = (cfg.n_layers, batch, enc_len or max_len) + kv
@@ -71,6 +84,10 @@ _FAMILIES = {
               lambda cfg, p, b: T.prefill_dense(cfg, p, b["tokens"],
                                                 length=b.get("length")),
               T.decode_dense),
+    "hybrid": (SSM.init_zamba,
+               lambda cfg, p, b: SSM.prefill_zamba(cfg, p, b["tokens"],
+                                                   length=b.get("length")),
+               SSM.decode_zamba),
     "audio": (T.init_audio,
               lambda cfg, p, b: T.prefill_audio(cfg, p, b["tokens"],
                                                 b["frames"],
@@ -115,12 +132,26 @@ def build_model(cfg: ArchConfig, device="cuda") -> Model:
         gen.manual_seed(seed)
         return init_fn(cfg, gen, dev)
 
+    def cache_shapes(batch, max_len, enc_len=None):
+        return _cache_shapes(cfg, batch, max_len, enc_len)
+
+    def empty_state(batch, max_len, enc_len=None):
+        return {n: torch.zeros(sh, dtype=dt, device=dev)
+                for n, (sh, dt) in cache_shapes(batch, max_len,
+                                                enc_len).items()}
+
+    window = None
+    if cfg.family == "dense":
+        def window(p, c, t, pos):
+            return T.decode_window_dense(cfg, p, c, t, pos)
+
     return Model(
         cfg=cfg,
         device=dev,
         init=init,
         prefill=lambda p, b: prefill_fn(cfg, p, b),
         decode=lambda p, c, t, pos: decode_fn(cfg, p, c, t, pos),
-        cache_shapes=lambda batch, max_len, enc_len=None: _cache_shapes(
-            cfg, batch, max_len, enc_len),
+        cache_shapes=cache_shapes,
+        empty_state=empty_state,
+        decode_window=window,
     )

@@ -192,6 +192,47 @@ def decode_dense(cfg: ArchConfig, params: Params, cache, token: torch.Tensor,
     return _head(cfg, params, x), cache
 
 
+def decode_window_dense(cfg: ArchConfig, params: Params, cache,
+                        tokens: torch.Tensor,
+                        pos: torch.Tensor) -> Tuple[torch.Tensor, Any]:
+    """Teacher-forced decode window, the speculative verifier: S tokens a
+    slot in one forward. tokens (B, S), pos (B,) int32; window token ``s``
+    of slot ``b`` sits at ``pos[b] + s``.
+
+    Each layer writes the whole window's k/v first (the paged window write
+    through ``"bt"``, or the contiguous per-slot rows), then attends each
+    window token to positions ``<= pos[b] + s`` (``window_attention_core``,
+    plain PyTorch). Row ``s`` of the logits is what ``decode_dense`` gives
+    after feeding tokens ``0..s`` one at a time, up to the rounding of
+    other GEMM shapes; at S == 1 it is the same bits. The caller keeps
+    ``pos[b] + S <= S_max`` for live slots (the contiguous write clamps)
+    and attaches the window's pages first. Returns (logits (B, S, V) f32,
+    cache), the cache updated in place.
+    """
+    bt = cache.get("bt")
+    B, S = tokens.shape
+    qi = qimpl_for(cfg.quantize)
+    positions = pos.reshape(B, 1) + torch.arange(S, device=tokens.device)
+    x = L.embed_tokens(tokens, params["embed"], DTYPES[cfg.dtype])
+    for i in range(cfg.n_layers):
+        blk = layer_params(params["layers"], i)
+        kc, vc = cache["k"][i], cache["v"][i]
+        h = L.rmsnorm(x, blk["ln1"])
+        q, k, v = L.attn_qkv(h, blk["attn"], qimpl=qi)
+        q = L.apply_rope(q, positions, cfg.rope_theta)
+        k = L.apply_rope(k, positions, cfg.rope_theta)
+        if bt is None:
+            KV.update_layer_cache(kc, vc, k, v, pos)
+            o = L.window_attention_core(q, kc, vc, pos)
+        else:
+            KV.paged_update_window(kc, vc, k, v, bt, pos)
+            o = L.window_attention_core(q, KV.gather_block_kv(kc, bt),
+                                        KV.gather_block_kv(vc, bt), pos)
+        x = _ffn_residual(x, o, blk, qi)
+    x = L.rmsnorm(x, params["ln_f"])
+    return L.lm_logits(x, params["head"]), cache
+
+
 # ---------------------------------------------------------------------------
 # VLM: groups of (cross_attn_every - 1) self layers, then one cross layer
 

@@ -113,7 +113,7 @@ Chunked, staged and optimistic admission restart a slot from an empty
 decode state. The audio and vlm families need encoder KV from prefill and
 per-slot state rows, so, as in the JAX engine, they clamp
 ``chunk_threshold`` to None, ``stage_slots`` to 0 and ``admission`` to
-worst-case, and cannot be preempted.
+worst-case, and cannot be preempted or speculate.
 
 **Kernel pool layout.** With ``attention_impl="cuda"`` every pool carries
 one extra *trash* page at index ``n_pages``, the block table's sentinel: the
@@ -160,12 +160,44 @@ so their writes are dropped (in the contiguous layout they land on rows
 no slot has read yet, ``_quiesced``), and the loop state is restored
 afterwards.
 
-``speculate``, the one knob of the JAX engine this slice lacks, raises
-``NotImplementedError`` rather than being ignored.
+**Hybrid family** (zamba2). The shared block's k/v are paged like any
+attention leaf; the Mamba layers' ``ssm`` and ``conv`` states have no
+sequence axis and stay per slot. Every seat of a prefix (chunked
+admission, a staged seat at a boundary, preemption recovery, a
+speculative re-seat) resets the slot's state rows to the family's empty
+state (``Model.empty_state``), and the step body resets, inside the
+captured graph, the rows of every slot the ring refills
+(``kvcache.reset_slot_rows``, a masked write of fixed shape). Prefill
+writes the slot's state rows. Not every leaf is in the pool, so the prefix
+cache clamps off and host swap falls back to recompute, as in the JAX
+engine.
+
+**Speculative decoding** (``speculate=(draft_model, draft_params)``,
+``spec_k``). A round replaces a decode segment when every live slot is
+past its seated prefix and ``spec_k`` positions short of its span: the
+dense draft (``_DraftRunner``, its own contiguous cache) proposes
+``spec_k`` greedy tokens a slot, the target verifies the window
+``[tok, d_0 .. d_{k-1}]`` at ``pos .. pos + k`` and takes its own argmax
+at each position, and the host accepts the longest matching prefix plus
+the target's next token, so the stream is plain greedy decode's. The
+dense target verifies in one ``decode_window`` forward; the hybrid target
+in ``spec_k + 1`` single-token decodes, and a slot whose window was not
+all accepted is re-seated through the teacher-forced replay (its state
+advanced through rejected feeds). On the card the propose, the verify and
+each draft resync bucket are captured CUDA graphs (``warmup()``), over
+static buffers: the host writes the round's ``tok``/``pos`` in one copy,
+reads the drafts and the target's argmaxes in one read, runs the accept
+loop and writes ``tok``, ``pos`` and ``rem`` back in one copy. A
+speculating target attends in plain PyTorch: the verify window runs
+outside the fused decode kernel, so ``attention_impl="cuda"`` raises
+(``ArchConfig.for_device(dev, speculate=True)`` builds the target; its
+int8 projections keep the int8 kernel), as the JAX engine refuses Pallas
+attention. Staging is off while speculating, as in the JAX engine.
 """
 from __future__ import annotations
 
 import dataclasses
+import gc
 import hashlib
 import threading
 import time
@@ -580,23 +612,34 @@ def capture_graph(device: torch.device, body, pool=None):
     caller has run the body on this engine's buffers first (the warm-up a
     capture needs).
 
-    The allocator's cached blocks are released first, as
-    ``torch.cuda.graph`` does: a capture allocates from its pool alone and
-    cannot free cached memory mid-capture, so memory cached outside the
-    pool (a model's init temporaries, the warm-up's activations) would
-    otherwise leave it none."""
+    Garbage is collected and the allocator's cached blocks released first,
+    as ``torch.cuda.graph`` does, and the cyclic collector is off while the
+    capture records: a graph or engine freed by a collection mid-capture
+    (an engine that holds speculative programs is a reference cycle)
+    destroys its graph, which invalidates the capture under way; and a
+    capture allocates from its pool alone and cannot free cached memory,
+    so memory cached outside the pool (a model's init temporaries, the
+    warm-up's activations) would otherwise leave it none."""
     with _CAPTURE_LOCK:
+        gc.collect()
         torch.cuda.empty_cache()
         graph = torch.cuda.CUDAGraph()
         side = side_stream(device)
         side.wait_stream(torch.cuda.current_stream(device))
-        with build.capturing() as launches, torch.no_grad(), \
-                torch.cuda.stream(side):
-            graph.capture_begin(pool=pool, capture_error_mode="thread_local")
-            try:
-                body()
-            finally:
-                graph.capture_end()
+        was_enabled = gc.isenabled()
+        gc.disable()
+        try:
+            with build.capturing() as launches, torch.no_grad(), \
+                    torch.cuda.stream(side):
+                graph.capture_begin(pool=pool,
+                                    capture_error_mode="thread_local")
+                try:
+                    body()
+                finally:
+                    graph.capture_end()
+        finally:
+            if was_enabled:
+                gc.enable()
         torch.cuda.current_stream(device).wait_stream(side)
     return graph, launches
 
@@ -646,6 +689,156 @@ class _PrefillProgram:
         self.inp.copy_(torch.from_numpy(self.host))
 
 
+class _SpecProgram:
+    """One captured body of a speculating engine (the draft's propose, a
+    draft resync bucket, the target's verify): the body, a context that
+    quiesces its warm-up run (restoring what it writes) and, on the card,
+    its graph and the launches the capture recorded (credited per
+    replay). The engine captures and runs it (``_capture_spec``,
+    ``_run_spec``)."""
+
+    def __init__(self, name: str, body, quiesce):
+        self.name, self.body, self.quiesce = name, body, quiesce
+        self.graph: Optional[Any] = None
+        self.launches: Dict[str, int] = {}
+
+
+@contextmanager
+def _restoring(tensors: Sequence[torch.Tensor]) -> Iterator[None]:
+    """Inside the block the tensors may be written; they are restored on
+    exit (the warm-up run of a capture on a live engine)."""
+    saved = [(t, t.clone()) for t in tensors]
+    try:
+        yield
+    finally:
+        for t, v in saved:
+            t.copy_(v)
+
+
+class _DraftRunner:
+    """The draft model of a speculating engine (``repro``'s
+    ``_DraftRunner``).
+
+    The draft is dense and runs greedy decode over its own contiguous
+    ``(L, max_batch, max_len, K, D)`` cache, slot for slot with the
+    target. ``state[s]`` is ``(occupant, pos)``: the request whose fed
+    tokens the draft rows ``[0, pos)`` of slot ``s`` hold. After a round
+    the draft is in sync by construction (its accepted rows hold the
+    accepted tokens; rows past the rewind point are rewritten before they
+    are read), so the marker moves on the host alone; a slot whose target
+    advanced without the draft (a decode segment, a seat, a replay) misses
+    the marker and is resynced by one bucketed prefill of its fed prefix,
+    written into the slot's rows.
+
+    Programs: ``propose`` (one per engine) and one ``resync`` per prompt
+    bucket at batch 1, each captured as a CUDA graph on the card over
+    static buffers (the engine's round inputs, ``drafts``, the resync
+    inputs). Free slots propose from token 0 at position 0 into their own
+    rows, which is harmless: every row is rewritten before a masked read
+    can include it."""
+
+    def __init__(self, eng: "ServingEngine", model: Model, params: Any,
+                 k: int):
+        if model.cfg.family != "dense":
+            raise ValueError(f"draft model must be dense family, got "
+                             f"{model.cfg.family!r}")
+        if model.device != eng.device:
+            raise ValueError(f"draft on {model.device}, target on "
+                             f"{eng.device}")
+        self.eng, self.model, self.params, self.k = eng, model, params, k
+        B, L = eng.max_batch, eng.max_len
+        self.cache = {n: torch.zeros(sh, dtype=dt, device=eng.device)
+                      for n, (sh, dt) in model.cache_shapes(B, L).items()}
+        self.state: List[Optional[Tuple[Any, int]]] = [None] * B
+        self.stats: Dict[str, int] = {"resyncs": 0, "propose_traces": 0,
+                                      "resync_traces": 0}
+        self._propose: Optional[_SpecProgram] = None
+        # resync programs by bucket: the body and its static inputs
+        # (tokens (1, bucket), length (1,), slot (1,)) in one buffer
+        self._resync: Dict[int, Tuple[_SpecProgram, torch.Tensor]] = {}
+
+    def in_sync(self, slot: int, occupant: Any, pos: int) -> bool:
+        st = self.state[slot]
+        return st is not None and st[0] is occupant and st[1] == pos
+
+    def _propose_body(self) -> None:
+        """``k + 1`` greedy draft steps of every slot from the round's
+        ``tok`` at ``pos``; the first ``k`` argmaxes go to ``drafts``.
+
+        The last step emits nothing but writes the KV row of the last
+        proposal. Without it a fully accepted window leaves the draft
+        cache one row short of the marker the engine sets (the verify fed
+        the last proposal into the *target* cache, so the stream moves
+        past it), and the stale row quietly lowers every later round's
+        acceptance, most where the slot's previous occupant left real KV
+        there."""
+        eng = self.eng
+        tok, pos = eng._spec_tok, eng._spec_pos
+        for i in range(self.k + 1):
+            logits, _ = self.model.decode(self.params, self.cache, tok, pos)
+            if i < self.k:
+                nxt = torch.argmax(logits[:, -1], dim=-1).to(torch.int32)
+                eng._drafts[:, i].copy_(nxt)
+                tok = nxt[:, None]
+            pos = pos + 1
+
+    def propose_program(self) -> _SpecProgram:
+        if self._propose is None:
+            self._propose = _SpecProgram(
+                "the draft's propose", self._propose_body,
+                lambda: _restoring(list(self.cache.values())))
+            self.stats["propose_traces"] += 1
+            self.eng._capture_spec(self._propose)
+        return self._propose
+
+    def resync_program(self, bucket: int):
+        """The resync program of ``bucket``, built (and on the card
+        captured) once: the draft's prefill of one right-padded prefix,
+        its rows [0, bucket) written into the slot's rows of every leaf
+        (``index_copy_`` on the batch axis at a device slot index: no
+        host sync)."""
+        entry = self._resync.get(bucket)
+        if entry is None:
+            inp = torch.zeros((bucket + 2,), dtype=torch.long,
+                              device=self.eng.device)
+            tokens, length, slot = (inp[:bucket].view(1, bucket),
+                                    inp[bucket:bucket + 1], inp[bucket + 1:])
+
+            def body():
+                _, pc = self.model.prefill(
+                    self.params, {"tokens": tokens, "length": length})
+                for name, leaf in self.cache.items():
+                    leaf.narrow(2, 0, bucket).index_copy_(
+                        1, slot, pc[name].to(leaf.dtype))
+
+            def quiesce():
+                # the warm-up writes slot 0's rows: restore them
+                return _restoring([leaf.select(1, 0)
+                                   for leaf in self.cache.values()])
+
+            prog = _SpecProgram(f"the draft's resync at bucket {bucket}",
+                                body, quiesce)
+            self.stats["resync_traces"] += 1
+            self.eng._capture_spec(prog)
+            entry = self._resync[bucket] = (prog, inp)
+        return entry
+
+    def resync(self, slot: int, full: np.ndarray, pos: int) -> None:
+        """Rebuild the draft rows ``[0, pos)`` of ``slot`` from the
+        occupant's fed prefix ``full`` (rows past ``pos`` take the
+        padding's KV, which is rewritten before it is read)."""
+        if pos <= 0:
+            return
+        bucket = bucket_len(pos, self.eng.min_bucket, self.eng.max_len)
+        prog, inp = self.resync_program(bucket)
+        host = np.zeros((bucket + 2,), np.int64)
+        host[:pos] = full[:pos]
+        host[bucket], host[bucket + 1] = pos, slot
+        inp.copy_(torch.from_numpy(host))
+        self.eng._run_spec(prog)
+        self.stats["resyncs"] += 1
+
+
 class ServingEngine:
     """Continuous-batching engine over one model + params (greedy decode)."""
 
@@ -659,9 +852,8 @@ class ServingEngine:
                  prefix_cache: bool = False, prefix_evict: str = "lru",
                  swap: Optional[str] = None,
                  swap_budget_bytes: Optional[int] = None,
-                 speculate: Optional[Any] = None, stream: bool = False):
-        if speculate is not None:
-            raise NotImplementedError("not ported yet: speculate")
+                 speculate: Optional[Tuple[Model, Any]] = None,
+                 spec_k: int = 4, stream: bool = False):
         if admission not in ("worstcase", "optimistic"):
             raise ValueError(f"unknown admission mode {admission!r}")
         if preempt_policy not in ("slack", "lru"):
@@ -681,12 +873,39 @@ class ServingEngine:
         self.min_bucket = min_bucket
         self.stream = bool(stream)
         # chunked prefill, the staging ring and preemption recovery restart
-        # a slot from an empty decode state; the audio and vlm families
-        # need encoder KV from prefill and admit whole prompts, as in the
-        # JAX engine (whose moe family, not ported, is clamped too)
-        self._chunk_ok = cfg.family == "dense"
+        # a slot from an empty decode state (the hybrid family's state rows
+        # reset to it); the audio and vlm families need encoder KV from
+        # prefill and admit whole prompts, as in the JAX engine (whose moe
+        # family, not ported, is clamped too)
+        self._chunk_ok = cfg.family in ("dense", "hybrid")
         self.chunk_threshold = chunk_threshold if self._chunk_ok else None
         self.stage_slots = int(stage_slots) if self._chunk_ok else 0
+        # speculative decoding: the checks of the JAX engine, in its order
+        self.spec_k = int(spec_k)
+        self._spec: Optional[_DraftRunner] = None
+        self._verify: Optional[_SpecProgram] = None
+        if speculate is not None:
+            draft_model, draft_params = speculate
+            if not self._chunk_ok:
+                raise ValueError(
+                    f"family {cfg.family!r} cannot speculate: mismatch "
+                    "rollback needs the teacher-forced replay path (dense "
+                    "and hybrid)")
+            if cfg.attention_impl == "cuda":
+                raise ValueError(
+                    "speculative decoding needs attention_impl='torch': the "
+                    "verify window runs outside the fused CUDA decode "
+                    "kernel, so bit-identity with plain decode would not "
+                    "hold (build the target with ArchConfig.for_device(dev,"
+                    " speculate=True))")
+            if draft_model.cfg.vocab != cfg.vocab:
+                raise ValueError(f"draft vocab {draft_model.cfg.vocab} != "
+                                 f"target vocab {cfg.vocab}")
+            if self.spec_k < 1:
+                raise ValueError(f"spec_k must be >= 1, got {spec_k}")
+            # a round has no segment to refill a slot in: admission stays
+            # at step boundaries while speculating
+            self.stage_slots = 0
         self.preempt_policy = preempt_policy
         self.page_size = page_size
         # every ported family has leaves with a sequence axis, so a page
@@ -698,6 +917,16 @@ class ServingEngine:
         # the prefix cache and of host swap, which rebuild a slot from pool
         # pages alone
         self._all_paged = all(sax != -1 for _, sax in self._axes.values())
+        # per-slot state leaves that a seat or a refill resets to the
+        # family's empty state (the hybrid family's ssm and conv rows), and
+        # each one's empty row, batch axis leading; the audio and vlm state
+        # leaves are written by prefill alone
+        self._reset_rows: Dict[str, torch.Tensor] = {}
+        if self._chunk_ok:
+            empty = model.empty_state(1, max_len, enc_len=max_len)
+            self._reset_rows = {
+                n: empty[n].movedim(bax, 0).contiguous()
+                for n, (bax, sax) in self._axes.items() if sax == -1}
         self._cache = {}
         if self._paged:
             self.pages_per_slot = max_len // page_size
@@ -761,9 +990,12 @@ class ServingEngine:
         # the decode loop state (the reference's carry), static buffers
         # that a captured step reads and writes at fixed addresses
         i32 = dict(dtype=torch.int32, device=self.device)
-        self._tok = torch.zeros((max_batch, 1), **i32)
-        self._pos = torch.zeros((max_batch,), **i32)
-        self._rem_dev = torch.zeros((max_batch,), **i32)
+        # tok, pos and rem: views of one buffer, which a speculative round
+        # writes back in one copy
+        self._tpr = torch.zeros((3 * max_batch,), **i32)
+        self._tok = self._tpr[:max_batch].view(max_batch, 1)
+        self._pos = self._tpr[max_batch:2 * max_batch]
+        self._rem_dev = self._tpr[2 * max_batch:]
         self._plen_dev = torch.zeros((max_batch,), **i32)
         self._pbuf = torch.zeros((max_batch, max_len), **i32)
         self._step_i = torch.zeros((1,), dtype=torch.long,
@@ -821,12 +1053,15 @@ class ServingEngine:
             "evictions": 0, "prefix_tokens_skipped": 0,
             "swap_out": 0, "swap_in": 0, "swap_fallbacks": 0,
             "swap_bytes": 0, "graph_replays": 0,
+            "spec_rounds": 0, "spec_proposed": 0, "spec_accepted": 0,
+            "verify_traces": 0,
         }
-        # host wall seconds spent in prefill dispatches and decode
-        # segments, each ending in its host sync, and in the graph
-        # replay calls of the segments (their enqueue alone)
+        # host wall seconds spent in prefill dispatches, decode segments
+        # and speculative rounds (propose and verify), each ending in its
+        # host sync, and in the graph replay calls of the segments (their
+        # enqueue alone)
         self.timing: Dict[str, float] = {"prefill_s": 0.0, "decode_s": 0.0,
-                                         "replay_s": 0.0}
+                                         "replay_s": 0.0, "spec_s": 0.0}
         self._pending: deque = deque()
         self._slot_req: List[Optional[Request]] = [None] * max_batch
         self._gen: Dict[int, List[int]] = {}
@@ -846,6 +1081,19 @@ class ServingEngine:
         # of a request's remaining service time
         self._step_est = 0.0
         self._partial: List[Tuple[Request, List[int], float]] = []
+        if speculate is not None:
+            # a round's inputs (tok (B, 1), pos (B,)) in one buffer written
+            # by one host copy, and its outputs (the drafts (B, k), the
+            # target's argmaxes (B, k + 1)) in one buffer read by one copy
+            B, k = max_batch, self.spec_k
+            self._spec_in = torch.zeros((2 * B,), **i32)
+            self._spec_tok = self._spec_in[:B].view(B, 1)
+            self._spec_pos = self._spec_in[B:]
+            self._spec_out = torch.zeros((B * (2 * k + 1),), **i32)
+            self._drafts = self._spec_out[:B * k].view(B, k)
+            self._preds = self._spec_out[B * k:].view(B, k + 1)
+            self._spec_pool: Optional[Any] = None
+            self._spec = _DraftRunner(self, draft_model, draft_params, k)
 
     def _ring_views(self, ring):
         """(ring_tok, ring_plen, ring_new, ring_bt, n_stage) views of a
@@ -939,6 +1187,10 @@ class ServingEngine:
             self._bt_dev.copy_(torch.where(
                 adm[:, None], self._ring_bt.index_select(0, src),
                 self._bt_dev))
+        # a refilled slot restarts from the family's empty state
+        for name, row in self._reset_rows.items():
+            KV.reset_slot_rows(self._cache[name], self._axes[name][0], adm,
+                               row)
         self._head.add_(torch.minimum(nfin, avail.clamp(min=0)))
         self._n_comp.add_(nfin)
         self._busy.add_(torch.sum(active.to(torch.int32), dtype=torch.int32))
@@ -958,20 +1210,20 @@ class ServingEngine:
         a step there writes each slot's row at its ``pos``, which no slot
         has read yet (a live slot's rows [0, pos) hold its KV, and the row
         at ``pos`` is the next it writes), so the next write of the
-        slot's occupant at that row comes before any read of it."""
-        saved = [(t, t.clone()) for t in (
-            self._tok, self._pos, self._rem_dev, self._plen_dev,
-            self._pbuf, self._ring, self._rb, self._step_i)]
+        slot's occupant at that row comes before any read of it. Per-slot
+        state rows (the hybrid family's), which every step advances, are
+        restored too."""
+        saved = [self._tok, self._pos, self._rem_dev, self._plen_dev,
+                 self._pbuf, self._ring, self._rb, self._step_i]
+        saved += [self._cache[n] for n in self._reset_rows]
         if self._paged:
-            saved.append((self._bt_dev, self._bt_dev.clone()))
-            self._bt_dev.fill_(self.n_pages)
-        self._rem_dev.zero_()
-        self._n_stage.zero_()
-        try:
+            saved.append(self._bt_dev)
+        with _restoring(saved):
+            if self._paged:
+                self._bt_dev.fill_(self.n_pages)
+            self._rem_dev.zero_()
+            self._n_stage.zero_()
             yield
-        finally:
-            for t, v in saved:
-                t.copy_(v)
 
     def _warm_steps(self, n: int = WARM_STEPS) -> None:
         """Run the step body ``n`` times on quiesced state: the warm-up
@@ -1026,7 +1278,9 @@ class ServingEngine:
 
         As in the JAX engine, a key already built is skipped, so a call on
         covered lengths costs nothing, and prompts that chunked admission
-        takes never prefill and are left out. On the card each new program
+        takes never prefill and are left out. A speculating engine builds
+        its verify, propose and resync programs too (``_warm_spec``). On
+        the card each new program
         is captured as a graph (``_capture_prefill``), whose warm-up runs
         leave the pools and slot state as they were, so a live engine may
         be warmed between steps."""
@@ -1040,9 +1294,11 @@ class ServingEngine:
         for b in sorted(buckets):
             for nb in sorted({1, self.max_batch}):
                 self._get_prefill(b, nb)
+        if self.device.type == "cuda" and self._graph is None:
+            self._capture()
+        if self._spec is not None:
+            self._warm_spec()
         if self.device.type == "cuda":
-            if self._graph is None:
-                self._capture()
             torch.cuda.synchronize(self.device)
 
     def _page_rows_for(self, bucket: int) -> int:
@@ -1143,18 +1399,14 @@ class ServingEngine:
                   np.zeros((prog.nb,)), np.zeros((prog.nb,)),
                   np.arange(prog.nb * prog.n_rows),
                   np.full((prog.nb * prog.n_rows,), page))
-        saved = [(t, t.clone()) for t in (self._tok, self._pos,
-                                          self._rem_dev, self._plen_dev)]
+        saved = [self._tok, self._pos, self._rem_dev, self._plen_dev]
         for name, leaf in self._cache.items():
             bax, sax = self._axes[name]
-            view = (leaf.select(sax - 1, page) if sax != -1 and self._paged
-                    else leaf.select(bax, 0))
-            saved.append((view, view.clone()))
-        try:
+            saved.append(leaf.select(sax - 1, page)
+                         if sax != -1 and self._paged
+                         else leaf.select(bax, 0))
+        with _restoring(saved):
             yield
-        finally:
-            for t, v in saved:
-                t.copy_(v)
 
     def _capture_prefill(self, prog: _PrefillProgram) -> None:
         """Capture the program's body as a CUDA graph, after one warm-up
@@ -1191,6 +1443,84 @@ class ServingEngine:
         prog.graph.replay()
         build.credit(prog.launches, 1)
         self.stats["prefill_replays"] += 1
+
+    # ------------------------------------------------------------------
+    # speculative decoding: the propose, verify and resync programs
+    def _capture_spec(self, prog: _SpecProgram) -> None:
+        """Capture a speculative program as a CUDA graph on the card, after
+        one warm-up run inside its quiesce context (which restores what
+        the run wrote) on a side stream, in the engine's one speculative
+        memory pool: the programs run one after another and their outputs
+        land in static buffers. Nothing is captured on the CPU. Raises if
+        the capture fails: no round runs op by op on the card."""
+        if self.device.type != "cuda":
+            return
+        dev = self.device
+        if self._spec_pool is None:
+            self._spec_pool = torch.cuda.graph_pool_handle()
+        side = side_stream(dev)
+        with prog.quiesce():
+            side.wait_stream(torch.cuda.current_stream(dev))
+            with torch.cuda.stream(side), torch.no_grad():
+                prog.body()
+            torch.cuda.current_stream(dev).wait_stream(side)
+        try:
+            prog.graph, prog.launches = capture_graph(dev, prog.body,
+                                                      self._spec_pool)
+        except Exception as e:
+            raise RuntimeError(f"capturing {prog.name} of "
+                               f"{self.model.cfg.name} failed: {e}") from e
+
+    def _run_spec(self, prog: _SpecProgram) -> None:
+        """One run of a speculative program: a replay of its graph on the
+        card (its launches credited), the body itself on the CPU."""
+        if self.device.type != "cuda":
+            with torch.no_grad():
+                prog.body()
+            return
+        prog.graph.replay()
+        build.credit(prog.launches, 1)
+
+    def _verify_body(self) -> None:
+        """The target's verify of one round over static buffers: the
+        window ``[tok, drafts]`` teacher-forced at ``pos .. pos + k`` into
+        the target cache, in place, and the target's argmax at every
+        window position into ``preds``. The dense family verifies in one
+        ``decode_window`` forward; the others in ``k + 1`` single-token
+        decodes, one after another inside the one program."""
+        toks = torch.cat([self._spec_tok, self._drafts], dim=1)
+        pos = self._spec_pos
+        if self.model.decode_window is not None:
+            logits, _ = self.model.decode_window(self.params, self._dcache,
+                                                 toks, pos)
+            self._preds.copy_(torch.argmax(logits, dim=-1))
+            return
+        for i in range(self.spec_k + 1):
+            logits, _ = self.model.decode(self.params, self._dcache,
+                                          toks[:, i:i + 1], pos + i)
+            self._preds[:, i].copy_(torch.argmax(logits[:, -1], dim=-1))
+
+    def _get_verify(self) -> _SpecProgram:
+        """The verify program, built (and on the card captured) once per
+        engine and counted in ``verify_traces``; its warm-up run restores
+        every cache leaf."""
+        if self._verify is None:
+            self._verify = _SpecProgram(
+                "the speculative verify", self._verify_body,
+                lambda: _restoring(list(self._cache.values())))
+            self.stats["verify_traces"] += 1
+            self._capture_spec(self._verify)
+        return self._verify
+
+    def _warm_spec(self) -> None:
+        """Build (on the card, capture) every speculative program: the
+        verify, the propose and a resync for every prompt bucket, so no
+        capture happens mid-serve."""
+        self._get_verify()
+        self._spec.propose_program()
+        for b in sorted({bucket_len(n, self.min_bucket, self.max_len)
+                         for n in range(1, self.max_len)}):
+            self._spec.resync_program(b)
 
     def _admit_group(self, bucket: int, rs: List[Request],
                      slots: List[int]) -> np.ndarray:
@@ -1308,12 +1638,16 @@ class ServingEngine:
         (prefix == prompt + the tokens already generated). A prefix-cache
         hit passes ``start`` > 0: positions [0, start) are resident in the
         slot's attached pages, so the feed starts at ``row[start]``. The
-        dense family has no O(1) state to reset."""
+        slot's per-slot state rows (the hybrid family's) restart from the
+        empty state; the dense family has none."""
         n = len(prefix)
         row = np.zeros((self.max_len,), np.int32)
         row[:n] = prefix
         max_new = max(max_new, 1)
         self._pbuf[slot] = torch.from_numpy(row).to(self.device)
+        for name, empty in self._reset_rows.items():
+            self._cache[name].select(self._axes[name][0], slot).copy_(
+                empty[0])
         self._plen_dev[slot] = n
         self._pos[slot] = start
         self._tok[slot, 0] = int(prefix[start])
@@ -1634,6 +1968,8 @@ class ServingEngine:
         # the restored pages are private copies of unknown digests: no
         # prefix registration for this occupancy
         self._set_digests(slot, None)
+        if self._spec is not None:
+            self._spec.state[slot] = None
         self._swap_live_bytes -= p.swap_bytes
         self.stats["swap_in"] += 1
         self.stats["preempt_readmits"] += 1
@@ -1704,6 +2040,8 @@ class ServingEngine:
         self._retire_slot(slot, r, time.perf_counter())
         self._free.append(slot)
         self._rem_dev[slot] = 0
+        if self._spec is not None:
+            self._spec.state[slot] = None
 
     def cancel_overdue(self, now: Optional[float] = None) -> int:
         """Cancel every request whose SLO deadline has passed: live slots
@@ -1803,12 +2141,138 @@ class ServingEngine:
                 f"ring head {head}")
         return out, log
 
+    def _try_spec_step(self) -> Optional[int]:
+        """One draft-then-verify round over the live slots; returns the
+        window width ``spec_k + 1`` (counted as that many decode steps),
+        or None when the step must run a decode segment instead.
+
+        For a slot at ``(tok, pos)`` the draft proposes ``d_0 .. d_{k-1}``
+        greedily from ``tok``; the target feeds ``[tok, d_0 .. d_{k-1}]``
+        at ``pos .. pos + k`` and takes its argmax ``preds`` at each
+        position. With ``m`` the first index where ``d_m != preds_m``
+        (``k`` when all match), ``preds[0 .. m]`` are the tokens plain
+        greedy decode emits, so the round emits ``m + 1`` and rewinds to
+        ``(preds[m], pos + m + 1)``. KV rows past the rewind point are
+        rewritten before a masked read can include them; the hybrid
+        family re-seats the accepted prefix instead, since its state
+        advanced through the rejected feeds.
+
+        All or nothing: a live slot still feeding its seated prefix,
+        within ``spec_k`` positions of its span's end (a clamped window
+        write would overwrite valid KV), or whose pages cannot cover the
+        window sends the step to a segment, so requests finish their last
+        tokens through segments."""
+        k = self.spec_k
+        plan: List[Tuple[int, Request, int]] = []
+        for s, r in enumerate(self._slot_req):
+            if r is None:
+                continue
+            pos = int(self._slot_pos[s])
+            if pos + 1 < len(self._slot_prefix[s]):
+                return None         # still feeding its seated prefix
+            if pos + k > self._n_positions(r) - 1:
+                return None         # the window would write past its span
+            plan.append((s, r, pos))
+        if not plan:
+            return None
+        if self._alloc is not None:
+            for s, _r, pos in plan:
+                if not self._alloc.can_cover(s, pos + k + 1):
+                    return None     # a segment handles the pressure
+            for s, _r, pos in plan:
+                self._grow_slot(s, pos + k + 1)
+        runner = self._spec
+        B = self.max_batch
+        propose, verify = runner.propose_program(), self._get_verify()
+        inp = np.zeros((2 * B,), np.int32)
+        for s, r, pos in plan:
+            full = self._fed_tokens(s)
+            assert len(full) == pos + 1, (s, len(full), pos)
+            if not runner.in_sync(s, r, pos):
+                runner.resync(s, full, pos)
+            inp[s], inp[B + s] = full[-1], pos
+        self._sync_bt()
+        t_seg = time.perf_counter()
+        self._spec_in.copy_(torch.from_numpy(inp))
+        self._run_spec(propose)
+        self._run_spec(verify)
+        out = self._spec_out.cpu().numpy()      # the one blocking sync
+        dt = time.perf_counter() - t_seg
+        self.timing["spec_s"] += dt
+        drafts = out[:B * k].reshape(B, k)
+        preds = out[B * k:].reshape(B, k + 1)
+        # the host accept loop
+        now = time.perf_counter()
+        tpr = np.zeros((3, B), np.int32)        # tok, pos, rem written back
+        tpr[1], tpr[2] = self._slot_pos, self._rem
+        self.stats["decode_dispatches"] += 1
+        self.stats["decode_steps"] += k + 1
+        self.stats["spec_rounds"] += 1
+        emitted = 0
+        replay: List[int] = []
+        seq_verify = self.model.decode_window is None
+        for s, r, pos in plan:
+            d, pr = drafts[s], preds[s]
+            m = 0
+            while m < k and d[m] == pr[m]:
+                m += 1
+            self.stats["spec_proposed"] += k
+            self.stats["spec_accepted"] += m
+            rem_s = int(self._rem[s])
+            e = min(m + 1, rem_s)
+            self._gen[s].extend(int(x) for x in pr[:e])
+            emitted += e
+            if e >= rem_s:
+                tpr[2, s] = 0
+                runner.state[s] = None
+                self._retire_slot(s, r, now)
+                self._free.append(s)
+                continue
+            tpr[:, s] = pr[m], pos + m + 1, rem_s - e
+            self._rem[s], self._slot_pos[s] = rem_s - e, pos + m + 1
+            # the draft's accepted rows hold the accepted tokens and its
+            # stale tail is rewritten before use: the marker moves alone
+            runner.state[s] = (r, pos + m + 1)
+            if seq_verify and m < k:
+                replay.append(s)
+            self._flush_stream(s, r, now)
+        self._tpr.copy_(torch.from_numpy(tpr.reshape(-1)))
+        # the round did k + 1 positions of target work a slot; what
+        # survived verification is progress, the rest counts as bubble
+        self.stats["busy_slot_steps"] += emitted
+        self.stats["bubble_slot_steps"] += (k + 1) * B - emitted
+        per = dt / max(1.0, emitted / len(plan))
+        self._step_est = per if self._step_est == 0.0 \
+            else 0.8 * self._step_est + 0.2 * per
+        # recurrent rollback: the sequential verify advanced the state
+        # through the rejected feeds, so the accepted prefix is re-seated
+        # through the teacher-forced replay (exact, as preemption
+        # recovery is)
+        for s in replay:
+            r = self._slot_req[s]
+            self._seat_prefix(s, self._fed_tokens(s),
+                              max(r.max_new_tokens - len(self._gen[s]), 1))
+            self._seat_credit[s] = len(self._gen[s])
+            runner.state[s] = None
+        self._register_prefix_pages()
+        return k + 1
+
+    def _fed_tokens(self, s: int) -> np.ndarray:
+        """Slot ``s``'s token stream so far: its seated row and the tokens
+        generated past it."""
+        credit = int(self._seat_credit[s])
+        return np.concatenate([self._slot_prefix[s],
+                               np.asarray(self._gen[s][credit:], np.int32)])
+
     def step(self) -> int:
         """One engine step: admit pending requests into free slots (staging
         the overflow into the ring), grow every live slot's pages for the
         segment (relieving pressure under optimistic admission), run one
         decode segment and harvest it by its completion log. Returns the
-        number of decode steps executed (0 when idle)."""
+        number of decode steps executed (0 when idle). A speculating
+        engine first tries a draft-then-verify round
+        (``_try_spec_step``); segments remain the path for prefix feeds,
+        the last tokens of a request and page pressure."""
         if self.device.type == "cuda" and self._graph is None:
             self._capture()
         self._admit_pending()
@@ -1817,6 +2281,10 @@ class ServingEngine:
             return 0
         self.stats["peak_concurrency"] = max(
             self.stats["peak_concurrency"], live)
+        if self._spec is not None:
+            n = self._try_spec_step()
+            if n is not None:
+                return n
         # append pages ahead of the segment: a slot's pos advances by at
         # most decode_block before the next host boundary. Worst-case
         # reservations pre-fund every cover; under optimistic admission a
@@ -1930,8 +2398,9 @@ class ServingEngine:
     @property
     def occupancy(self) -> Dict[str, float]:
         """Slot-busy fraction over all decode segments so far, in-segment
-        admissions per segment, the idle slot-steps and the prefix cache's
-        counts (zeros with it off)."""
+        admissions per segment, the idle slot-steps, the prefix cache's
+        counts (zeros with it off) and the share of draft tokens accepted
+        (0 without speculation)."""
         busy = self.stats["busy_slot_steps"]
         bubble = self.stats["bubble_slot_steps"]
         segs = self.stats["decode_dispatches"]
@@ -1946,6 +2415,9 @@ class ServingEngine:
         for key in ("prefix_hits", "prefix_pages_reused",
                     "prefix_tokens_skipped", "cow_copies", "evictions"):
             occ[key] = float(self.stats[key])
+        prop = self.stats["spec_proposed"]
+        occ["spec_accept_rate"] = (self.stats["spec_accepted"] / prop
+                                   if prop else 0.0)
         return occ
 
     def serve(self, reqs: Sequence[Request]) -> List[Request]:

@@ -57,8 +57,17 @@ or cut short; with ``stream`` set, each step's partial outputs go to the
 queries' ``on_tokens`` sinks. ``deadline_enforce`` and ``faults`` are read
 by the wall-clock runtime's stepper (``repro_torch.serving.runtime``),
 which cancels overdue slots between steps and consults the fault sites.
-Speculation, the one knob this port lacks, raises ``NotImplementedError``
-by name when the executor is built.
+
+``speculate="DRAFT:K"`` gives every engine whose family can speculate a
+draft (``_spec_kwargs``): ``int8`` (the int8 variant of the same arch,
+dense archs only) or another dense arch of the same vocabulary from
+``arch_cfgs``; other families, and an int8 draft of a non-dense arch, skip
+speculation without a word, as in ``repro``. On the card a speculating
+target is built with ``ArchConfig.for_device(device, speculate=True)``:
+plain PyTorch attention (the verify window runs outside the fused decode
+kernel), the int8 GEMM for its int8 projections; its draft takes every
+kernel impl. The acceptance rate rides in each run's ``occupancy_log``
+record.
 """
 from __future__ import annotations
 
@@ -114,8 +123,9 @@ class EngineExecutorConfig:
     #                                   threaded stepper's sites
 
     def unported(self) -> List[str]:
-        """The knobs set away from their defaults that the port lacks."""
-        return ["speculate"] if self.speculate is not None else []
+        """The knobs set away from their defaults that the port lacks:
+        none since speculation was ported."""
+        return []
 
 
 class EngineExecutor:
@@ -132,10 +142,6 @@ class EngineExecutor:
                  cfg: EngineExecutorConfig = EngineExecutorConfig(),
                  model_cache: Optional[Dict[str, Tuple[Any, Any]]] = None,
                  device="cuda"):
-        missing = cfg.unported()
-        if missing:
-            raise NotImplementedError(
-                "not ported yet: " + ", ".join(missing))
         if cfg.quantize not in ("none", "int8"):
             raise ValueError(f"unknown quantize mode {cfg.quantize!r}")
         self.device = resolve_device(device)
@@ -160,13 +166,25 @@ class EngineExecutor:
         self._lock = threading.RLock()
 
     # ------------------------------------------------------------------
-    def _model(self, arch: str, quantize: str = "none"):
+    def _model(self, arch: str, quantize: str = "none",
+               speculate: bool = False):
+        """(model, params) of ``arch``, built once: the fp tree, or its int8
+        quantization; ``speculate`` builds the model of a speculating
+        target (``ArchConfig.for_device(dev, speculate=True)``) over the
+        same params."""
         key = arch if quantize == "none" else f"{arch}::{quantize}"
+        if speculate:
+            key += "::target"
         entry = self._models.get(key)
         if entry is None:
             from repro_torch.models.model import build_model
             cfg = self.arch_cfgs[arch]
-            if quantize == "none":
+            if speculate:
+                _, params = self._model(arch, quantize)
+                model = build_model(
+                    dataclasses.replace(cfg, quantize=quantize).for_device(
+                        self.device, speculate=True), self.device)
+            elif quantize == "none":
                 model = build_model(cfg.for_device(self.device), self.device)
                 params = model.init(self.cfg.seed)
             else:
@@ -187,12 +205,39 @@ class EngineExecutor:
     def served_model(self, variant: Variant):
         """(model, params) the variant's engine serves: the int8 tree for a
         dense ``torch-int8`` variant (or a blanket ``quantize="int8"``),
-        the fp tree otherwise."""
+        the fp tree otherwise; built as a speculating target when the
+        variant speculates."""
         arch_cfg = self.arch_cfgs[variant.arch]
         use_int8 = (arch_cfg.family == "dense"
                     and (variant.framework == "torch-int8"
                          or self.cfg.quantize == "int8"))
-        return self._model(variant.arch, "int8" if use_int8 else "none")
+        return self._model(variant.arch, "int8" if use_int8 else "none",
+                           speculate=bool(self._spec_kwargs(variant)))
+
+    def _spec_kwargs(self, variant: Variant) -> Dict[str, Any]:
+        """The engine's speculation kwargs for ``cfg.speculate``
+        ("DRAFT:K", K 4 by default). DRAFT is ``int8`` (the int8 variant
+        of the same arch, whose argmaxes track the fp target closely) or
+        another arch of ``arch_cfgs``. A family the engine cannot
+        speculate on, an int8 draft of a non-dense arch and a draft of
+        another family or vocabulary skip speculation silently, as in
+        ``repro``."""
+        if not self.cfg.speculate:
+            return {}
+        arch_cfg = self.arch_cfgs[variant.arch]
+        if arch_cfg.family not in ("dense", "hybrid"):
+            return {}
+        name, _, ks = self.cfg.speculate.partition(":")
+        spec_k = int(ks) if ks else 4
+        if name == "int8":
+            if arch_cfg.family != "dense":
+                return {}
+            dm, dp = self._model(variant.arch, "int8")
+        else:
+            dm, dp = self._model(name)
+            if dm.cfg.family != "dense" or dm.cfg.vocab != arch_cfg.vocab:
+                return {}
+        return {"speculate": (dm, dp), "spec_k": spec_k}
 
     def _engine(self, variant: Variant) -> ServingEngine:
         eng = self.engines.pop(variant.name, None)
@@ -224,7 +269,7 @@ class EngineExecutor:
                 prefix_evict=self.cfg.prefix_evict,
                 swap=self.cfg.swap,
                 swap_budget_bytes=self.cfg.swap_budget_bytes,
-                stream=self.cfg.stream)
+                stream=self.cfg.stream, **self._spec_kwargs(variant))
             eng.warmup(prompt_lens=[self.cfg.prompt_len])
         # dict order doubles as the LRU list: reinsert on every access
         self.engines[variant.name] = eng
@@ -239,7 +284,8 @@ class EngineExecutor:
                  "inseg_admissions", "decode_dispatches", "preemptions",
                  "pressure_stalls", "prefix_hits", "prefix_pages_reused",
                  "cow_copies", "evictions", "swap_out", "swap_in",
-                 "swap_fallbacks")
+                 "swap_fallbacks", "spec_rounds", "spec_proposed",
+                 "spec_accepted")
 
     def _make_requests(self, er: ExecRequest, vocab: int,
                        t0: float) -> List[Request]:
@@ -311,6 +357,12 @@ class EngineExecutor:
             "swap_out": d["swap_out"],
             "swap_in": d["swap_in"],
             "swap_fallbacks": d["swap_fallbacks"],
+            # speculation (zeros with it off): whether the draft earns its
+            # dispatches
+            "spec_rounds": d["spec_rounds"],
+            "spec_accept_rate":
+                d["spec_accepted"] / d["spec_proposed"]
+                if d["spec_proposed"] else 0.0,
         })
         self.pressure_events_total += \
             d["preemptions"] + d["pressure_stalls"]

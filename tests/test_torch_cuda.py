@@ -1159,3 +1159,220 @@ def test_cuda_wall_serve_two_steppers_exact_and_no_capture_after_warmup():
         eng.serve(reqs)
         for r, out in zip(reqs, res.outputs):
             np.testing.assert_array_equal(r.tokens, out)
+
+
+# ----------------------------------------------------------------------
+# speculative decoding and the hybrid family on the card
+
+
+class _UncapturedSpec(_Uncaptured):
+    """The uncaptured oracle of a speculating engine: its propose, verify
+    and resync programs run their bodies too."""
+
+    def _capture_prefill(self, prog):
+        pass
+
+    def _run_prefill(self, prog):
+        with torch.no_grad():
+            self._prefill_body(prog)
+
+    def _capture_spec(self, prog):
+        pass
+
+    def _run_spec(self, prog):
+        with torch.no_grad():
+            prog.body()
+
+
+@pytest.mark.cuda
+def test_cuda_paged_update_window_captured_in_a_graph():
+    """The window write (B x S rows through the block table, sentinel rows
+    dropped by the spare-row rewrite) captured in a CUDA graph: a replay
+    writes the eager call's bits, and the dropped rows touch nothing."""
+    from repro_torch.models import kvcache as KV
+    from repro_torch.serving.engine import capture_graph
+    dev = _need_cuda()
+    gen = torch.Generator(device=dev).manual_seed(3)
+    B, S, ps, K, D, P, n_pages = 3, 5, 8, 4, 16, 4, 12
+    pool = torch.randn((n_pages, ps, K, D), generator=gen, device=dev)
+    k_new = torch.randn((B, S, K, D), generator=gen, device=dev)
+    v_new = torch.randn((B, S, K, D), generator=gen, device=dev)
+    bt = torch.full((B, P), n_pages, dtype=torch.int32, device=dev)
+    bt[0, :2] = torch.tensor([5, 2], device=dev)
+    bt[1, :1] = torch.tensor([9], device=dev)        # slot 2: all sentinel
+    pos = torch.tensor([6, 2, 0], dtype=torch.int32, device=dev)
+    want_k, want_v = pool.clone(), pool.clone()
+    KV.paged_update_window(want_k, want_v, k_new, v_new, bt, pos)
+    gk, gv = pool.clone(), pool.clone()
+    KV.paged_update_window(gk.clone(), gv.clone(), k_new, v_new, bt, pos)
+    graph, _ = capture_graph(dev, lambda: KV.paged_update_window(
+        gk, gv, k_new, v_new, bt, pos))
+    graph.replay()
+    torch.cuda.synchronize(dev)
+    assert torch.equal(gk, want_k) and torch.equal(gv, want_v)
+    touched = torch.zeros((n_pages, ps), dtype=torch.bool, device=dev)
+    touched[5, 6:], touched[2, :3], touched[9, 2:7] = True, True, True
+    assert torch.equal(gk[~touched], pool[~touched])
+
+
+def _spec_models(dev, quant="none"):
+    base = dataclasses.replace(ARCHS["llama3.2-1b"].reduced(),
+                               quantize=quant)
+    target = build_model(base.for_device(dev, speculate=True), device=dev)
+    assert target.cfg.attention_impl == "torch"
+    params = target.init(0)
+    if quant == "int8":
+        params = quantize_params_dense(params)
+    draft = build_model(dataclasses.replace(
+        ARCHS["llama3.2-1b"].reduced(), quantize="int8").for_device(dev),
+        device=dev)
+    dparams = quantize_params_dense(target.init(0)) if quant == "none" \
+        else params
+    return target, params, draft, dparams
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("page_size", [8, None])
+def test_cuda_spec_graphs_match_their_bodies(page_size):
+    """A speculating engine's propose, verify and resync graphs (captured
+    at warmup) against their bodies on the same inputs, bit for bit, and
+    its serve against an uncaptured oracle's: the same tokens, spec
+    counts and credited launches. The target attends in plain PyTorch,
+    so its tokens are also a plain graphed engine's."""
+    dev = _need_cuda()
+    target, params, draft, dparams = _spec_models(dev)
+    rng = np.random.default_rng(5)
+    stream = [(rng.integers(0, 256, size=int(n)).astype(np.int32), int(m))
+              for n, m in zip(rng.integers(3, 20, 8), rng.integers(6, 14, 8))]
+    kw = dict(max_batch=3, max_len=48, decode_block=4, min_bucket=4,
+              page_size=page_size)
+    runs = []
+    for cls, spec in ((ServingEngine, True), (_UncapturedSpec, True),
+                      (ServingEngine, False)):
+        eng = cls(target, params, **kw, **(dict(
+            speculate=(draft, dparams), spec_k=3) if spec else {}))
+        eng.warmup(prompt_lens=[len(p) for p, _ in stream])
+        reqs = [Request(rid=i, prompt=p, max_new_tokens=m)
+                for i, (p, m) in enumerate(stream)]
+        build.reset_launch_counts()
+        eng.serve(reqs)
+        torch.cuda.synchronize(dev)
+        runs.append(([r.tokens for r in reqs], dict(eng.stats),
+                     dict(build.launch_counts), eng))
+    (tg, sg, lg, eng), (tu, su, lu, _), (tp, _, _, _) = runs
+    for a, b, c in zip(tg, tu, tp):
+        np.testing.assert_array_equal(a, b)
+        np.testing.assert_array_equal(a, c)
+    assert sg["spec_rounds"] > 0
+    for key in ("spec_rounds", "spec_proposed", "spec_accepted",
+                "decode_steps"):
+        assert sg[key] == su[key], key
+    assert lg == lu
+    assert lg["flash_attention"] > 0 and lg["decode_attention"] > 0
+    assert lg["int8_matmul"] > 0 and lg["fused_paged_decode_attention"] == 0
+    progs = [eng._spec.propose_program(), eng._get_verify()] + [
+        p for p, _ in eng._spec._resync.values()][:2]
+    state = (list(eng._cache.values()) + list(eng._spec.cache.values())
+             + [eng._spec_out])
+    for prog in progs:
+        assert prog.graph is not None, prog.name
+        snap = [t.clone() for t in state]
+        prog.graph.replay()
+        torch.cuda.synchronize(dev)
+        graphed = [t.clone() for t in state]
+        for t, v in zip(state, snap):
+            t.copy_(v)
+        with torch.no_grad():
+            prog.body()
+        torch.cuda.synchronize(dev)
+        assert all(torch.equal(a, b) for a, b in zip(graphed, state)), \
+            prog.name
+
+
+@pytest.mark.cuda
+def test_cuda_speculation_refuses_the_kernel_attention():
+    dev = _need_cuda()
+    cfg = ARCHS["llama3.2-1b"].reduced().for_device(dev)
+    m = build_model(cfg, device=dev)
+    with pytest.raises(ValueError, match="attention_impl='torch'"):
+        ServingEngine(m, m.init(0), max_batch=2, speculate=(m, None))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("page_size", [8, None])
+def test_cuda_zamba_ring_refill_resets_state_rows_in_the_graph(page_size):
+    """zamba2 (reduced) on the kernel impls, every prompt fed
+    (``chunk_threshold=0``): with the staging ring the captured step
+    refills freed slots, resetting their ssm and conv rows in the graph;
+    the tokens equal boundary-only admission's and an uncaptured engine's
+    with the ring, and the shared block ran the fused paged or the
+    contiguous decode kernel."""
+    dev = _need_cuda()
+    cfg = ARCHS["zamba2-1.2b"].reduced().for_device(dev)
+    m = build_model(cfg, device=dev)
+    params = m.init(0)
+    rng = np.random.default_rng(8)
+    stream = [(rng.integers(0, 256, size=int(n)).astype(np.int32), int(k))
+              for n, k in zip(rng.integers(3, 12, 8), rng.integers(1, 6, 8))]
+    kw = dict(max_batch=2, max_len=64, decode_block=8, min_bucket=4,
+              page_size=page_size, chunk_threshold=0)
+    runs = []
+    for cls, stage in ((ServingEngine, 0), (ServingEngine, 4),
+                       (_Uncaptured, 4)):
+        eng = cls(m, params, stage_slots=stage, **kw)
+        eng.warmup()
+        reqs = [Request(rid=i, prompt=p, max_new_tokens=k)
+                for i, (p, k) in enumerate(stream)]
+        build.reset_launch_counts()
+        eng.serve(reqs)
+        torch.cuda.synchronize(dev)
+        runs.append(([r.tokens for r in reqs], dict(eng.stats),
+                     dict(build.launch_counts)))
+    (t0, s0, _), (tr, sr, lr), (tu, su, lu) = runs
+    for a, b, c in zip(t0, tr, tu):
+        np.testing.assert_array_equal(a, b)
+        np.testing.assert_array_equal(a, c)
+    assert sr["inseg_admissions"] > 0 and s0["inseg_admissions"] == 0
+    assert sr["graph_replays"] == sr["decode_steps"] and lr == lu
+    kernel = ("fused_paged_decode_attention" if page_size
+              else "decode_attention")
+    assert lr[kernel] > 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+def test_cuda_decode_kernels_at_zamba_k32(dtype):
+    """zamba2's shared block: K = 32 KV heads, G = 1, D = 64. The fused
+    paged kernel (B1) and the contiguous kernel's per-slot form (B5)
+    against their plain versions (bf16: the f32 ulp rule; f32: 1e-4), and
+    B5 giving B1's bits on the same rows."""
+    dev = _need_cuda()
+    dt = getattr(torch, dtype)
+    B, K, G, D, ps, P = 8, 32, 1, 64, 16, 32
+    T = P * ps
+    gen = torch.Generator(device=dev).manual_seed(32)
+    q = torch.randn((B, K, G, D), generator=gen, device=dev).to(dt)
+    k = torch.randn((B, T, K, D), generator=gen, device=dev).to(dt)
+    v = torch.randn((B, T, K, D), generator=gen, device=dev).to(dt)
+    pos = torch.tensor([0, 1, 63, 64, 127, 128, 300, T - 1],
+                       dtype=torch.int32, device=dev)
+    kp = torch.zeros((B * P + 1, ps, K, D), dtype=dt, device=dev)
+    vp = torch.zeros_like(kp)
+    kp[:B * P] = k.reshape(B * P, ps, K, D)
+    vp[:B * P] = v.reshape(B * P, ps, K, D)
+    bt = torch.arange(B * P, dtype=torch.int32, device=dev).reshape(B, P)
+    rows = torch.arange(B, device=dev)
+    kn = k[rows, pos.long()].contiguous()
+    vn = v[rows, pos.long()].contiguous()
+    paged, _, _ = fused_paged_decode_attention(q, kn, vn, kp.clone(),
+                                               vp.clone(), bt, pos)
+    contiguous = decode_attention(q, k, v, pos + 1)
+    want32 = decode_attention_plain(q.float(), k.float(), v.float(), pos + 1)
+    torch.cuda.synchronize()
+    assert torch.equal(paged, contiguous)
+    if dt == torch.bfloat16:
+        assert ref.bf16_ulp_ratio(contiguous, want32) <= 1.0
+    else:
+        np.testing.assert_allclose(contiguous.cpu().numpy(),
+                                   want32.cpu().numpy(), rtol=1e-4,
+                                   atol=1e-4)

@@ -106,11 +106,14 @@ def test_open_loop_submit_step_drain():
     assert 0.0 < teng.occupancy["slot_busy_frac"] <= 1.0
 
 
-@pytest.mark.parametrize("knob", [dict(speculate=("draft", None))])
+@pytest.mark.parametrize("knob", [dict(spec_k=0)])
 def test_unported_knobs_raise(knob):
+    """Every knob of the JAX engine is ported (speculation last); a
+    setting the engine cannot serve raises by name, as the JAX engine's
+    does, rather than being ignored."""
     tm = t_build(T_ARCHS["llama3.2-1b"].reduced(), device="cpu")
-    with pytest.raises(NotImplementedError, match="not ported"):
-        ServingEngine(tm, None, **dict(KW, **knob))
+    with pytest.raises(ValueError, match="spec_k"):
+        ServingEngine(tm, None, speculate=(tm, None), **dict(KW, **knob))
 
 
 def test_engine_validates_requests_and_allocator_hygiene():

@@ -322,20 +322,12 @@ def test_engine_executor_paged_knobs_reach_engines():
     ("speculate", "int8:2"), ("deadline_enforce", True),
     ("faults", object())])
 def test_unported_executor_knobs_raise_by_name(knob, value):
-    """Speculation, the one knob the port lacks, raises by name, directly
-    and through the cluster factory, before any query runs. The
-    wall-clock runtime's knobs (deadline enforcement, the fault sites)
-    are ported: the executor takes them."""
-    if knob != "speculate":
-        assert EngineExecutorConfig(**{knob: value}).unported() == []
-        assert _executor(**{knob: value}).cfg.unported() == []
-        _real(engine_cfg=EngineExecutorConfig(**{knob: value}))
-        return
-    assert EngineExecutorConfig(**{knob: value}).unported() == [knob]
-    with pytest.raises(NotImplementedError, match=knob):
-        _executor(**{knob: value})
-    with pytest.raises(NotImplementedError, match=knob):
-        _real(engine_cfg=EngineExecutorConfig(**{knob: value}))
+    """No knob of the reference's executor is left unported: speculation,
+    deadline enforcement and the fault sites are taken, directly and
+    through the cluster factory, and ``unported()`` lists nothing."""
+    assert EngineExecutorConfig(**{knob: value}).unported() == []
+    assert _executor(**{knob: value}).cfg.unported() == []
+    _real(engine_cfg=EngineExecutorConfig(**{knob: value}))
 
 
 def test_executor_passes_chunk_threshold_to_its_engines():
@@ -357,6 +349,44 @@ def test_executor_passes_chunk_threshold_to_its_engines():
     assert len(outs) == 1 and len(outs[0]) == len(prompts)
     for a, b in zip(outs[0], want):
         np.testing.assert_array_equal(a, b)
+
+
+def test_executor_speculates_to_a_direct_engines_tokens():
+    """``speculate="int8:4"`` gives every dense engine the arch's int8
+    variant as its draft (k = 4), as the reference's ``_spec_kwargs``
+    does: the payload tokens are a direct plain engine's on the served
+    params, and the run's decision-log record carries its rounds and
+    acceptance rate. A speculating target keeps plain attention on the
+    card (``for_device(dev, speculate=True)``); here both are plain."""
+    prompts = PROMPTS
+    ex = _executor(max_batch=3, max_len=32, decode_block=2,
+                   speculate="int8:4")
+    v = next(v for v in prof.generate_variants(LLAMA)
+             if v.framework == "torch-bf16")
+    outs = []
+    ex.run(v, len(prompts), [ExecRequest(
+        n_inputs=len(prompts), prompts=prompts, max_new_tokens=8,
+        on_outputs=outs.append)])
+    eng = ex.engines[v.name]
+    assert eng._spec is not None and eng.spec_k == 4
+    assert eng._spec.model.cfg.quantize == "int8"
+    assert eng.stats["spec_rounds"] > 0
+    want = _oracle(ex, v, prompts, 8)
+    assert len(outs) == 1 and len(outs[0]) == len(prompts)
+    for a, b in zip(outs[0], want):
+        np.testing.assert_array_equal(a, b)
+    rec = ex.occupancy_log[-1]
+    assert rec["spec_rounds"] == eng.stats["spec_rounds"]
+    assert rec["spec_accept_rate"] == pytest.approx(
+        eng.occupancy["spec_accept_rate"])
+    assert 0.0 < rec["spec_accept_rate"] <= 1.0
+    # a draft of another family is skipped without a word, as in the
+    # reference
+    other = EngineExecutor({LLAMA.name: LLAMA.reduced(),
+                            "whisper-base": ARCHS["whisper-base"].reduced()},
+                           EngineExecutorConfig(speculate="whisper-base:2"),
+                           device="cpu")
+    assert other._spec_kwargs(v) == {}
 
 
 def test_executor_passes_admission_knobs_and_slo_to_its_engines():

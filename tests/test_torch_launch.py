@@ -6,8 +6,10 @@ the standalone engine demo and the wall-clock streaming server run end to
 end at tiny sizes, and the flag checks refuse what the reference refuses,
 with its messages. The paged layout is the port's default, so where the
 reference leaves ``--page-size`` out to ask for the contiguous layout,
-these pass ``--page-size 0``. The reference's two speculation tests wait
-for speculative decoding (``--speculate`` is not a flag of the port).
+these pass ``--page-size 0``. ``--speculate DRAFT[:K]`` reaches the
+engine demo (an int8 draft for the dense target, a dense draft for the
+hybrid zamba2-1.2b) and is refused, as in the reference, when malformed
+or on the sim backend.
 """
 import os
 import queue
@@ -162,12 +164,35 @@ def test_launch_real_engine_demo_optimistic_smoke(capsys):
 
 
 def test_launch_sim_backend_rejects_spec_and_quantize():
-    """--quantize reshapes the real decode loop; the sim backend refuses
-    it rather than ignore it. --speculate is not a flag of the port."""
+    """--speculate/--quantize reshape the real decode loop; the sim backend
+    refuses them rather than ignore them, with the reference's message."""
+    with pytest.raises(SystemExit, match="real"):
+        serve.main(["--arch", "llama3.2-1b", "--speculate", "int8:4"])
     with pytest.raises(SystemExit, match="real"):
         serve.main(["--arch", "llama3.2-1b", "--quantize", "int8"])
-    with pytest.raises(SystemExit):
-        serve.main(["--arch", "llama3.2-1b", "--speculate", "int8:4"])
+
+
+def test_launch_speculate_rejects_malformed_spec():
+    with pytest.raises(SystemExit, match="DRAFT"):
+        serve.main(["--arch", "llama3.2-1b", "--real-engine",
+                    "--speculate", "int8:notanint", *CPU])
+    with pytest.raises(SystemExit, match="DRAFT"):
+        serve.main(["--arch", "llama3.2-1b", "--real-engine",
+                    "--speculate", ":4", *CPU])
+
+
+@pytest.mark.parametrize("arch,spec", [("llama3.2-1b", "int8:3"),
+                                       ("zamba2-1.2b", "llama3.2-1b:4")])
+def test_launch_real_engine_demo_speculative_smoke(capsys, arch, spec):
+    """--speculate reaches the standalone engine demo: an int8 draft for
+    the dense target, a dense draft for the hybrid one; the rounds and the
+    acceptance rate are printed, and the target's attention impl."""
+    serve.main(["--real-engine", "--arch", arch, "--real-reqs", "6",
+                "--real-slots", "4", "--speculate", spec, *CPU])
+    out = capsys.readouterr().out
+    k = spec.split(":")[1]
+    assert f"speculative decode (k={k}" in out and "rounds" in out
+    assert "attn=torch" in out
 
 
 def test_launch_sim_backend_rejects_fault_tolerance_flags():
