@@ -39,7 +39,11 @@ fails:
    8, 8 x bucket} and N not a multiple of the tile). zamba2-1.2b's shared
    block adds K = 32 KV heads at G = 1, D = 64 to flash (a grouped and a
    ragged causal prefill, timed), the fused paged decode and the
-   contiguous kernel's per-slot form, with the same checks and timings.
+   contiguous kernel's per-slot form, with the same checks and timings;
+   moonshot-v1-16b-a3b adds K = 16, G = 1, D = 128 to the same three (a
+   grouped and a ragged causal flash prefill, flash timed at its one
+   prompt a dispatch of bucket 512; the fused decode with the write row
+   on span edges; the per-slot form, which must give B1's bits).
    Each attention kernel is held twice: to the plain version on the bf16
    inputs, and, tightly, to the plain version on the same inputs widened
    to f32 (probabilities in f32, as the kernels and the Pallas bodies keep
@@ -61,7 +65,18 @@ fails:
    layers and the shared block after every 6, nothing cut), whose
    contiguous serve must give its paged tokens bit for bit. The engine
    feeds the audio and vlm families all-zero stub encoder inputs, as the
-   JAX engine does. Each path serves the stream several times on one
+   JAX engine does; xlstm-1.3b at its published size (48 layers: 36
+   mLSTM and 12 sLSTM, nothing cut; no attention, so no kernel runs, its
+   page size must be inert and its profile shows no wrapper launch); and,
+   first, with nothing else on the card, moonshot-v1-16b-a3b at its
+   published size (``phase_moe``: 48 layers, 64 routed experts top-6 and
+   2 shared, 57.8 GB of bf16 weights) with 4 slots (``MOE_GEOMETRY``: at
+   4 rows no decode token is dropped, so idle rows cannot change live
+   ones), one prefill dispatch of ``nbatch`` 1 a request, the shares of
+   attention, GEMM and routing kernels in its profile, its contiguous
+   serve equal to its paged one bit for bit, its peak memory, and, not
+   gated, the two layouts at 8 slots. Each
+   path serves the stream several times on one
    warm engine; tokens/s is the median,
    with its quartiles as the spread. A profiled serve of each path fails
    unless flash prefill ran its tensor-core body, the int8 GEMM one kernel
@@ -92,7 +107,9 @@ fails:
    replay per step beside the step's device time (replays held back to
    back on idle slots) and the uncaptured serve's tok/s and segment time.
 4. **Teacher-forced check**: llama3.2-1b, whisper-base, the vision
-   model at 10 layers (one group) and zamba2-1.2b at full size in f32, one seeded token stream (and,
+   model at 10 layers (one group), zamba2-1.2b at full size and
+   moonshot-v1-16b-a3b at full width cut to 4 of 48 layers (its 48 layers
+   take 115 GB in f32) in f32, one seeded token stream (and,
    for whisper and vision, seeded non-zero frames / image embeddings)
    forced through prefill and paged decode with the kernel impls and with
    the plain impls; the logits must agree at every prefill and decode
@@ -202,6 +219,18 @@ fails:
    the CPU rehearsal's; then a reduced zamba2 target (f32) with a reduced
    dense draft, paged and contiguous, equal to the plain serve's tokens
    (no dense config shares zamba2-1.2b's vocabulary at full width).
+11. **The ssm engine's state rows** (``phase_ssm_rows``): xlstm-1.3b at
+   full width on a 12-request stream (``rows_stream``: prompts of 16-160
+   tokens straddling a threshold of 64), 4 staging slots: the graphed serve equal to the uncaptured body's bit
+   for bit; with every prompt fed (``chunk_threshold=0``), a forced
+   ``preempt()`` recovering to the uninterrupted serve's tokens; every
+   serve's counts the CPU rehearsal's (``SSM_ROWS_PREDICTED``); the
+   engine's reset rows equal to the cells' zero-token states (-1e30
+   stabilizers, the 1e-6 normalizer) exactly; a request the graph
+   refilled into a used slot, and the preempted one, equal to each served
+   alone from a fresh empty state bit for bit; and in f32 at 4 layers,
+   the prompt fed from the empty state against the recurrent prefill,
+   logits and every state leaf within 1e-3 of the leaf's scale.
 
 The last lines are the card's ``name, power.limit``, one JSON line with
 every kernel's numbers, and the result line
@@ -229,6 +258,8 @@ HBM_BYTES_PER_S = 3.35e12
 BF16_FLOPS = 989e12
 
 SEED = 0
+# phase 3's engine geometry
+GEOMETRY = dict(max_batch=8, max_len=512, decode_block=16, page_size=16)
 # Timed serves of the stream per path. The serve is host-bound and the
 # host's cores are shared, so one serve's tok/s varies by tens of percent
 # while its device time does not; the median of many serves is reported.
@@ -236,9 +267,11 @@ SEED = 0
 # with phases 9 and 10 added, every count below was cut (llama 15 -> 5,
 # whisper 9 -> 3, vision 5 -> 3, chunked 3 -> 2, phase 6 3 -> 2, phase
 # 7's prefix 3 -> 2, swap 3 -> 2, contiguous 5 -> 2), and the vision
-# path's depth 20 -> 10 layers.
-SERVE_REPEATS = {"llama3.2-1b": 5, "whisper-base": 3,
-                 "llama-3.2-vision-90b": 3, "zamba2-1.2b": 2}
+# path's depth 20 -> 10 layers; with phase 11 and the moe and ssm paths
+# added, llama 5 -> 3, whisper 3 -> 2 and vision 3 -> 2.
+SERVE_REPEATS = {"llama3.2-1b": 3, "whisper-base": 2,
+                 "llama-3.2-vision-90b": 2, "zamba2-1.2b": 2,
+                 "xlstm-1.3b": 2, "moonshot-v1-16b-a3b": 2}
 CHUNK_THRESHOLD = 64        # the chunked llama serve's threshold
 CHUNKED_REPEATS = 2
 # phase 6: the pressure serve's pool (a quarter of the default 8 x 512 / 16
@@ -539,6 +572,11 @@ def phase_flash(torch, dev, gen):
          None),
         ("zamba2 K=32 G=1 ragged S=T=300", 1, 300, 300, 32, 1, 64, True, 0,
          None),
+        # moonshot-v1-16b-a3b: K = 16 KV heads, G = 1, D = 128, causal
+        ("moonshot K=16 G=1 D=128 bucket 256", 2, 256, 256, 16, 1, 128,
+         True, 0, None),
+        ("moonshot K=16 G=1 D=128 ragged S=T=300", 1, 300, 300, 16, 1, 128,
+         True, 0, None),
     ]
     worst = 0.0
     for label, B, S, T, K, G, D, causal, q_off, vlen in cases:
@@ -561,7 +599,9 @@ def phase_flash(torch, dev, gen):
     main = time_flash(torch, gen, dev, 8, 256, 256, 8, 4, 64, True)
     extra = [time_flash(torch, gen, dev, 8, 256, 256, 8, 8, 128, True),
              time_flash(torch, gen, dev, 8, 256, 1601, 8, 8, 128, False),
-             time_flash(torch, gen, dev, 8, 256, 256, 32, 1, 64, True)]
+             time_flash(torch, gen, dev, 8, 256, 256, 32, 1, 64, True),
+             # moonshot's prefill: one prompt a dispatch, bucket 512
+             time_flash(torch, gen, dev, 1, 512, 512, 16, 1, 128, True)]
     return dict(name="flash_attention", route="cuda",
                 source="src/repro_torch/csrc/flash_attention.cu",
                 replaces="src/repro/kernels/flash_attention.py:106",
@@ -858,7 +898,10 @@ def phase_decode(torch, dev, gen, B=8, K=8, G=8, D=128, T=1601):
                 phase_decode_per_slot(torch, dev, gen, G=1,
                                       lens_lists=PER_SLOT_LENS + [ENC_LENS]),
                 # zamba2-1.2b's contiguous shared block: K = 32, G = 1
-                phase_decode_per_slot(torch, dev, gen, K=32, G=1)]
+                phase_decode_per_slot(torch, dev, gen, K=32, G=1),
+                # moonshot-v1-16b-a3b's contiguous layout: K = 16, G = 1,
+                # D = 128
+                phase_decode_per_slot(torch, dev, gen, K=16, G=1, D=128)]
     worst = max([worst] + [p.pop("max_abs_err") for p in per_slot])
     return dict(name="decode_attention", route="cuda",
                 source="src/repro_torch/csrc/decode_attention.cu",
@@ -1139,7 +1182,8 @@ def eager_prefill_engine():
     return EagerPrefill
 
 
-def check_prefill_graphs(torch, dev, model, params, stream, label, card):
+def check_prefill_graphs(torch, dev, model, params, stream, label, card,
+                         geometry=None):
     """Graphed prefill against its eager body on the card: a graphed engine
     and an eager-prefill one (phase 3's geometry) admit the stream in the
     same rounds; after each round every leaf (trash page included),
@@ -1147,9 +1191,11 @@ def check_prefill_graphs(torch, dev, model, params, stream, label, card):
     so must the first tokens. Every key the stream's dispatches use is
     checked this way. Prints the prefill ms a dispatch, eager against
     graphed, the number of prefill graphs and what their capture added to
-    device memory."""
+    device memory. ``geometry`` overrides phase 3's engine geometry.
+    The graphed engine comes back under ``"engine"``, warm, for the path's
+    timed and profiled serves (one capture of each program a path)."""
     from repro_torch.serving.engine import Request, ServingEngine
-    geometry = dict(max_batch=8, max_len=512, decode_block=16, page_size=16)
+    geometry = dict(GEOMETRY, **(geometry or {}))
     lens = [len(p) for p, _ in stream]
     torch.cuda.synchronize(dev)
     torch.cuda.reset_peak_memory_stats(dev)
@@ -1224,9 +1270,11 @@ def check_prefill_graphs(torch, dev, model, params, stream, label, card):
           f"after each round; prefill {ms_g:.3f} ms a dispatch graphed "
           f"against {ms_e:.3f} eager (host time, ending in the firsts' "
           f"read) on {card}")
-    del graphed, eager
+    graphed._run_prefill = run
+    del eager
     torch.cuda.empty_cache()
-    return dict(graphs=n_graphs, keys=sorted(used), ms=ms_g, eager_ms=ms_e,
+    return dict(engine=graphed, graphs=n_graphs, keys=sorted(used), ms=ms_g,
+                eager_ms=ms_e,
                 peak_gb=peak / 1e9, reserved_gb=reserved / 1e9)
 
 
@@ -1247,20 +1295,24 @@ def graph_step_ms(eng) -> float:
 
 
 def serve_variant(torch, dev, model, params, stream, label, repeats,
-                  chunk_threshold=None):
+                  chunk_threshold=None, geometry=None, eng=None):
     """Serve the stream ``repeats`` times on one warm engine, whose decode
     segments are replays of its one captured step graph, then once on an
     uncaptured engine that loops the same step body: the tokens and every
     wrapper's launches of that serve must equal the first graphed
-    serve's."""
+    serve's. ``geometry`` overrides phase 3's engine geometry; ``eng`` is
+    a warm graphed engine of that geometry to serve on (``check_prefill_
+    graphs``'), else one is built."""
     from repro_torch.kernels import build
     from repro_torch.serving.engine import Request, ServingEngine
-    geometry = dict(max_batch=8, max_len=512, decode_block=16, page_size=16,
-                    chunk_threshold=chunk_threshold)
-    eng = ServingEngine(model, params, **geometry)
+    geometry = dict(GEOMETRY, chunk_threshold=chunk_threshold,
+                    **(geometry or {}))
+    if eng is None:
+        eng = ServingEngine(model, params, **geometry)
     eng.warmup(prompt_lens=[len(p) for p, _ in stream])
     check(eng.stats["decode_traces"] == 1,
           f"{label}: warmup captured {eng.stats['decode_traces']} graphs")
+    stats0, timing0 = dict(eng.stats), dict(eng.timing)
     torch.cuda.reset_peak_memory_stats(dev)
     vocab = model.cfg.vocab
     rates, first = [], None
@@ -1280,7 +1332,8 @@ def serve_variant(torch, dev, model, params, stream, label, repeats,
         toks = sum(len(r.tokens) for r in reqs)
         rates.append(toks / wall)
         if first is None:
-            first = (dict(eng.stats), dict(eng.timing),
+            first = ({k: v - stats0[k] for k, v in eng.stats.items()},
+                     {k: v - timing0[k] for k, v in eng.timing.items()},
                      [r.tokens for r in reqs], dict(build.launch_counts))
     launches = dict(build.launch_counts)
     s, timing, first_tokens, first_launches = first
@@ -1395,8 +1448,13 @@ def profile_serve(torch, dev, eng, stream, label):
     every attempt summed."""
     from torch.profiler import ProfilerActivity, profile
     from repro_torch.kernels import build
-    from repro_torch.serving.engine import Request
+    from repro_torch.serving.engine import Request, capture_graph
     total = {}
+    # a one-kernel graph, replayed inside each profiled window before the
+    # serve (see below)
+    warm = torch.ones(1, device=dev)
+    warm.add_(1)
+    warm_graph, _ = capture_graph(dev, lambda: warm.add_(1))
     for attempt in range(1, PROFILE_ATTEMPTS + 1):
         steps0 = eng.stats["decode_steps"]
         reqs = [Request(rid=i, prompt=p, max_new_tokens=m)
@@ -1408,9 +1466,16 @@ def profile_serve(torch, dev, eng, stream, label):
             # kernels of a prefill dispatch, all launched early in the
             # serve, and failed the int8 launch-count check. The counts
             # are set to 0 here, inside the profiled window, so that they
-            # and the profile cover the same launches.
-            torch.ones(1, device=dev).add_(1)
+            # and the profile cover the same launches. Graph replays come
+            # first too: moonshot's profiled serve (its prefill and decode
+            # all graph replays) missed one flash record of 384 in each of
+            # five profiles after one kernel alone (NVIDIA H100 80GB HBM3,
+            # 700 W), early in the serve as far as can be seen.
+            for _ in range(4):
+                warm_graph.replay()
+                warm.add_(1)
             torch.cuda.synchronize(dev)
+            time.sleep(0.05)
             build.reset_launch_counts()
             t0 = time.perf_counter()
             eng.serve(reqs)
@@ -1455,7 +1520,8 @@ def profile_serve(torch, dev, eng, stream, label):
 
 
 def profile_variant(torch, dev, model, params, stream, label,
-                    contiguous_decode=False, paged_decode=False):
+                    contiguous_decode=False, paged_decode=False,
+                    kernels=True, geometry=None, eng=None, n_reqs=8):
     """Where the time goes: ``torch.profiler`` over a short serve of the
     stream's first 8 requests (``profile_serve``). Prints the device's
     busy share (summed device kernel time over host wall time, profiler
@@ -1463,18 +1529,23 @@ def profile_variant(torch, dev, model, params, stream, label,
     the kernels ran: the decode lines must show the fused kernel's
     tensor-core body (and, with ``contiguous_decode``, the contiguous
     kernel's; with ``paged_decode``, the attend-only paged kernel's) and
-    no old bf16 decode body."""
+    no old bf16 decode body. With ``kernels`` false (a path that runs no
+    kernel: xlstm) only the busy share and the top kernels are printed.
+    Returns the device and wall times and the profile's device time by
+    kernel name. ``eng`` is a warm graphed engine to profile on, else one
+    is built; the serve is of the stream's first ``n_reqs`` requests."""
     from repro_torch.serving.engine import ServingEngine
-    eng = ServingEngine(model, params, max_batch=8, max_len=512,
-                        decode_block=16, page_size=16)
-    eng.warmup(prompt_lens=[len(p) for p, _ in stream[:8]])
+    if eng is None:
+        eng = ServingEngine(model, params,
+                            **dict(GEOMETRY, **(geometry or {})))
+    eng.warmup(prompt_lens=[len(p) for p, _ in stream[:n_reqs]])
     check(eng.stats["decode_traces"] == 1,
           f"{label}: warmup captured {eng.stats['decode_traces']} graphs")
-    prof = profile_serve(torch, dev, eng, stream[:8], label)
+    prof = profile_serve(torch, dev, eng, stream[:n_reqs], label)
     by_name, launched = prof["by_name"], prof["launches"]
     steps, wall_us = prof["steps"], prof["wall_us"]
     busy_us = sum(t for t, _ in by_name.values())
-    print(f"  {label} profile (8 reqs, {steps} decode "
+    print(f"  {label} profile ({n_reqs} reqs, {steps} decode "
           f"steps, all graph replays): wall {wall_us / 1e3:.1f} ms, device "
           f"kernel time "
           f"{busy_us / 1e3:.1f} ms, device busy share "
@@ -1482,6 +1553,13 @@ def profile_variant(torch, dev, model, params, stream, label,
     top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:8]
     for name, (us, n) in top:
         print(f"    {us / 1e3:9.2f} ms {n:6d} calls  {name[:90]}")
+    out = dict(device_ms=busy_us / 1e3, wall_ms=wall_us / 1e3,
+               busy_share=busy_us / wall_us, by_name=by_name, steps=steps,
+               launches=launched)
+    if not kernels:
+        check(not any(n for n in launched.values()),
+              f"{label}: kernel launches {launched} on a path with none")
+        return out
     # the served paths send bf16 to flash prefill: its tensor-core body
     # must run, and never the f32 SIMT body
     flash = {name: v for name, v in by_name.items() if "flash_fwd" in name}
@@ -1513,9 +1591,7 @@ def profile_variant(torch, dev, model, params, stream, label,
           and (not paged_decode
                or any("paged_decode_mma_kernel" in name for name in dec)),
           f"{label}: decode bodies in the profile: {sorted(dec)}")
-    return dict(device_ms=busy_us / 1e3, wall_ms=wall_us / 1e3,
-                busy_share=busy_us / wall_us,
-                int8_ms=sum(us for us, _ in int8.values()) / 1e3,
+    return dict(out, int8_ms=sum(us for us, _ in int8.values()) / 1e3,
                 decode_ms=sum(us for us, _ in dec.values()) / 1e3)
 
 
@@ -1534,12 +1610,15 @@ def phase_main_path(torch, dev, card):
           f"params, bf16, init {time.perf_counter() - t0:.1f} s")
     stream = make_stream(cfg.vocab)
     reps = SERVE_REPEATS["llama3.2-1b"]
+    pf = check_prefill_graphs(torch, dev, model, params, stream,
+                              "bf16 variant", card)
+    eng = pf.pop("engine")
     bf16 = serve_variant(torch, dev, model, params, stream, "bf16 variant",
-                         reps)
-    bf16["prefill"] = check_prefill_graphs(torch, dev, model, params, stream,
-                                           "bf16 variant", card)
+                         reps, eng=eng)
+    bf16["prefill"] = pf
     bf16["profile"] = profile_variant(torch, dev, model, params, stream,
-                                      "bf16 variant")
+                                      "bf16 variant", eng=eng)
+    del eng
     # chunked prefill: prompts past the threshold are fed through the
     # graphed segments with no prefill dispatch
     n_over = sum(len(p) > CHUNK_THRESHOLD for p, _ in stream)
@@ -1562,12 +1641,15 @@ def phase_main_path(torch, dev, card):
     # after them
     bf16["llama"] = (model, params, stream)
     qmodel = build_model(qcfg, dev)
+    pf = check_prefill_graphs(torch, dev, qmodel, qparams, stream,
+                              "int8 variant", card)
+    eng = pf.pop("engine")
     int8 = serve_variant(torch, dev, qmodel, qparams, stream, "int8 variant",
-                         reps)
-    int8["prefill"] = check_prefill_graphs(torch, dev, qmodel, qparams,
-                                           stream, "int8 variant", card)
+                         reps, eng=eng)
+    int8["prefill"] = pf
     int8["profile"] = profile_variant(torch, dev, qmodel, qparams, stream,
-                                      "int8 variant")
+                                      "int8 variant", eng=eng)
+    del eng
     del qparams
     torch.cuda.empty_cache()
     for name in ("flash_attention", "fused_paged_decode_attention"):
@@ -1598,15 +1680,16 @@ def phase_family(torch, dev, arch, card, n_layers=None):
     print(f"  {arch}: {cfg.n_layers} layers, {base.param_count() / 1e9:.3f} "
           f"B params, bf16, init {time.perf_counter() - t0:.1f} s")
     stream = make_stream(cfg.vocab)
+    pf = check_prefill_graphs(torch, dev, model, params, stream, arch, card)
+    eng = pf.pop("engine")
     res = serve_variant(torch, dev, model, params, stream, arch,
-                        SERVE_REPEATS[arch])
-    res["prefill"] = check_prefill_graphs(torch, dev, model, params, stream,
-                                          arch, card)
+                        SERVE_REPEATS[arch], eng=eng)
+    res["prefill"] = pf
     res["profile"] = profile_variant(
         torch, dev, model, params, stream, arch,
         contiguous_decode=cfg.family == "vlm",
-        paged_decode=cfg.family == "audio")
-    del params
+        paged_decode=cfg.family == "audio", eng=eng)
+    del params, eng
     torch.cuda.empty_cache()
     cross = {"audio": "paged_decode_attention",
              "vlm": "decode_attention"}[cfg.family]
@@ -1746,7 +1829,8 @@ def phase_teacher_forced(torch, dev):
     torch.cuda.empty_cache()
     for arch, n_layers in (("whisper-base", None),
                            ("llama-3.2-vision-90b", VISION_TF_LAYERS),
-                           (HYBRID_ARCH, None)):
+                           (HYBRID_ARCH, None),
+                           (MOE_ARCH, MOE_TF_LAYERS)):
         cfg = dataclasses.replace(ARCHS[arch], **f32)
         if n_layers is not None:
             cfg = dataclasses.replace(cfg, n_layers=n_layers)
@@ -1755,7 +1839,8 @@ def phase_teacher_forced(torch, dev):
         diffs[label] = compare_forced(torch, dev, label, cfg, params,
                                       forced_inputs(torch, dev, cfg, rng),
                                       tol, contiguous=arch in (
-                                          "whisper-base", HYBRID_ARCH))
+                                          "whisper-base", HYBRID_ARCH,
+                                          MOE_ARCH))
         del params
         torch.cuda.empty_cache()
     return diffs
@@ -2803,12 +2888,14 @@ def phase_hybrid(torch, dev, card):
           f"{base.param_count() / 1e9:.3f} B params, bf16, init "
           f"{time.perf_counter() - t0:.1f} s")
     stream = make_stream(cfg.vocab)
+    pf = check_prefill_graphs(torch, dev, model, params, stream,
+                              HYBRID_ARCH, card)
+    eng = pf.pop("engine")
     res = serve_variant(torch, dev, model, params, stream, HYBRID_ARCH,
-                        SERVE_REPEATS[HYBRID_ARCH])
-    res["prefill"] = check_prefill_graphs(torch, dev, model, params, stream,
-                                          HYBRID_ARCH, card)
+                        SERVE_REPEATS[HYBRID_ARCH], eng=eng)
+    res["prefill"] = pf
     res["profile"] = profile_variant(torch, dev, model, params, stream,
-                                     HYBRID_ARCH)
+                                     HYBRID_ARCH, eng=eng)
     eng = ServingEngine(model, params, max_batch=8, max_len=512,
                         decode_block=16, page_size=None)
     eng.warmup(prompt_lens=[len(p) for p, _ in stream])
@@ -3280,6 +3367,468 @@ def phase_hybrid_spec(torch, dev, card):
     return dict(launches=launches)
 
 
+# ---------------------------------------------------------------------------
+# phase 3's ssm path (xlstm-1.3b) and moe path (moonshot-v1-16b-a3b), both
+# at their published sizes
+
+SSM_ARCH = "xlstm-1.3b"
+MOE_ARCH = "moonshot-v1-16b-a3b"
+# moonshot serves with 4 slots. Its decode expert capacity is max(4,
+# ceil(B * 6 * 1.25 / 64)) = 4 rows an expert at B <= 8, so with B = 4
+# rows no decode token is ever dropped and an idle slot's row (routed too,
+# as the reference routes it) cannot change a live row's output. At 8
+# slots it can, and an idle row attends to the trash page in the paged
+# layout but to its slot's stale rows in the contiguous one, so the two
+# layouts need not agree there.
+MOE_GEOMETRY = dict(max_batch=4)
+MOE_TF_LAYERS = 4           # phase 4's f32 depth of moonshot (of 48)
+
+
+def phase_ssm(torch, dev, card):
+    """xlstm-1.3b at its published size (48 layers: 36 mLSTM, 12 sLSTM;
+    nothing cut) on phase 3's stream and geometry. Its page size must be
+    inert (no leaf has a sequence axis: the engine serves contiguously
+    with no allocator). Graphed serves against the uncaptured oracle,
+    graphed prefill against its eager body (all seven f32 state leaves),
+    and a profiled serve, which must show no wrapper launch: no kernel
+    runs on this path. Returns the path's result with its model, params
+    and stream for phase 11."""
+    from repro_torch.configs.registry import ARCHS
+    from repro_torch.models import build_model
+    from repro_torch.serving.engine import ServingEngine
+    base = ARCHS[SSM_ARCH]
+    model = build_model(base.for_device(dev), dev)
+    t0 = time.perf_counter()
+    params = model.init(SEED)
+    torch.cuda.synchronize(dev)
+    state_mb = sum(np.prod(sh) * 4 for sh, _ in
+                   model.cache_shapes(1, 1).values()) / 1e6
+    print(f"  {SSM_ARCH}: {base.n_layers} layers, "
+          f"{base.param_count() / 1e9:.3f} B params, bf16, init "
+          f"{time.perf_counter() - t0:.1f} s; f32 state {state_mb:.1f} MB "
+          f"a slot")
+    stream = make_stream(base.vocab)
+    probe = ServingEngine(model, params, **GEOMETRY)
+    check(not probe._paged and probe._alloc is None
+          and probe.pages_per_slot == 0,
+          f"{SSM_ARCH}: page size {GEOMETRY['page_size']} was not inert")
+    del probe
+    pf = check_prefill_graphs(torch, dev, model, params, stream, SSM_ARCH,
+                              card)
+    eng = pf.pop("engine")
+    res = serve_variant(torch, dev, model, params, stream, SSM_ARCH,
+                        SERVE_REPEATS[SSM_ARCH], eng=eng)
+    res["prefill"] = pf
+    res["profile"] = profile_variant(torch, dev, model, params, stream,
+                                     SSM_ARCH, kernels=False, eng=eng,
+                                     n_reqs=4)
+    del eng
+    check(not any(res["launches"].values()),
+          f"{SSM_ARCH}: kernel launches {res['launches']}")
+    res["ssm"] = (model, params, stream)
+    return res
+
+
+# device-time classes of a moonshot profile, by kernel name: the attention
+# kernels (by wrapper), the GEMMs (cuBLAS's ``nvjet`` kernels on the H100:
+# the routed experts' bmm, 3 a layer, read 53 GB of the 58 GB a step
+# streams; the shared experts', the attention projections' and the
+# head's), the routing and dispatch (the router's softmax, the stable
+# sort, the running counts, the indexed write and gathers), and the rest
+# (norms, RoPE, elementwise)
+GEMM_KERNEL = re.compile(r"nvjet|gemm|cutlass|xmma|sm90_", re.I)
+ROUTE_KERNEL = re.compile(r"softmax|sort|radix|scan|cumsum|one_hot|index|"
+                          r"gather|scatter", re.I)
+
+
+def moe_shares(by_name):
+    """Shares of a profile's device time: attention, GEMM, routing, other."""
+    tot = {"attention": 0.0, "gemm": 0.0, "routing": 0.0, "other": 0.0}
+    for name, (us, _n) in by_name.items():
+        if wrapper_of(name) is not None:
+            tot["attention"] += us
+        elif GEMM_KERNEL.search(name):
+            tot["gemm"] += us
+        elif ROUTE_KERNEL.search(name):
+            tot["routing"] += us
+        else:
+            tot["other"] += us
+    busy = sum(tot.values())
+    return {k: v / max(busy, 1e-9) for k, v in tot.items()}, busy
+
+
+def phase_moe(torch, dev, card):
+    """moonshot-v1-16b-a3b at its published size (48 layers, 64 routed
+    experts top-6 + 2 shared, d 2048, 16/16 heads of 128; 57.8 GB of bf16
+    weights), run first in phase 3, with nothing else on the card. On
+    phase 3's stream with 4 slots (``MOE_GEOMETRY``), paged and
+    contiguous: graphed serves against the uncaptured oracle, graphed
+    prefill against its eager body, one prefill dispatch (of ``nbatch``
+    1) per request, a profiled serve (flash's tensor-core body and the
+    fused decode's, with the shares of device time of attention, GEMMs and
+    routing), and a contiguous serve whose tokens must equal the paged
+    serve's bit for bit. The expert FFN is the reference's single-device
+    lowering: every expert runs over its capacity buffer, so a step reads
+    every expert's weights."""
+    from repro_torch.configs.registry import ARCHS
+    from repro_torch.kernels import build
+    from repro_torch.launch.serve import check_weights_fit
+    from repro_torch.models import build_model
+    from repro_torch.serving.engine import Request, ServingEngine
+    base = ARCHS[MOE_ARCH]
+    cfg = base.for_device(dev)
+    check(cfg.attention_impl == "cuda", "config did not select the kernels")
+    check_weights_fit(cfg, torch.cuda.get_device_properties(dev).total_memory,
+                      torch.cuda.get_device_name(dev))
+    model = build_model(cfg, dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    params = model.init(SEED)
+    torch.cuda.synchronize(dev)
+    weights_gb = torch.cuda.memory_allocated(dev) / 1e9
+    print(f"  {MOE_ARCH}: {base.n_layers} layers, "
+          f"{base.param_count() / 1e9:.3f} B params "
+          f"({base.active_param_count() / 1e9:.3f} B active a token), bf16: "
+          f"{weights_gb:.2f} GB allocated, init {time.perf_counter() - t0:.1f}"
+          f" s, init peak {torch.cuda.max_memory_allocated(dev) / 1e9:.2f} GB"
+          f" on {card}")
+    stream = make_stream(cfg.vocab)
+    pf = check_prefill_graphs(torch, dev, model, params, stream, MOE_ARCH,
+                              card, geometry=MOE_GEOMETRY)
+    eng = pf.pop("engine")
+    check({nb for nb, _ in pf["keys"]} == {1}
+          and {nb for nb, _ in eng._prefill_fns} == {1},
+          f"{MOE_ARCH}: prefill keys {sorted(eng._prefill_fns)}")
+    res = serve_variant(torch, dev, model, params, stream, MOE_ARCH,
+                        SERVE_REPEATS[MOE_ARCH], geometry=MOE_GEOMETRY,
+                        eng=eng)
+    res["prefill"] = pf
+    s = res["stats"]
+    check(s["prefill_dispatches"] == s["admitted"] == len(stream),
+          f"{MOE_ARCH}: {s['prefill_dispatches']} prefill dispatches for "
+          f"{s['admitted']} admitted of {len(stream)}")
+    # 4 requests: a profile of 8 held 711 k device events, and one flash
+    # record of 384 was missing from each of 5 profiles
+    prof = profile_variant(torch, dev, model, params, stream, MOE_ARCH,
+                           geometry=MOE_GEOMETRY, eng=eng, n_reqs=4)
+    del eng
+    shares, busy = moe_shares(prof["by_name"])
+    prof["shares"] = shares
+    res["profile"] = prof
+    print(f"  {MOE_ARCH} profile: {busy / 1e3:.1f} ms of device time over "
+          f"{prof['steps']} decode steps and 4 prefill dispatches: "
+          + ", ".join(f"{k} {v:.3f}" for k, v in shares.items())
+          + f"; launches {prof['launches']} on {card}")
+    geometry = dict(GEOMETRY, **MOE_GEOMETRY)
+    lens = [len(p) for p, _ in stream]
+    eng = ServingEngine(model, params, **dict(geometry, page_size=None))
+    eng.warmup(prompt_lens=lens)
+    reqs = [Request(rid=i, prompt=p, max_new_tokens=m)
+            for i, (p, m) in enumerate(stream)]
+    build.reset_launch_counts()
+    eng.serve(reqs)
+    torch.cuda.synchronize(dev)
+    cont = dict(build.launch_counts)
+    st = eng.stats
+    check(st["decode_traces"] == 1
+          and st["graph_replays"] == st["decode_steps"] > 0,
+          f"{MOE_ARCH} contiguous: {st['graph_replays']} replays for "
+          f"{st['decode_steps']} steps")
+    check(all(np.array_equal(r.tokens, t)
+              for r, t in zip(reqs, res["served"])),
+          f"{MOE_ARCH}: contiguous tokens differ from the paged serve's")
+    check(cont["decode_attention"] > 0
+          and cont["fused_paged_decode_attention"] == 0
+          and cont["flash_attention"] > 0,
+          f"{MOE_ARCH} contiguous: launches {cont}")
+    del eng
+    torch.cuda.empty_cache()
+    for k, n in cont.items():
+        res["launches"][k] = res["launches"].get(k, 0) + n
+    print(f"  {MOE_ARCH} contiguous (page_size None): tokens equal the "
+          f"paged serve's bit for bit; launches {cont}")
+    for name in ("flash_attention", "fused_paged_decode_attention",
+                 "decode_attention"):
+        check(res["launches"][name] > 0,
+              f"{name} was not launched on the {MOE_ARCH} path")
+    res["peak_gb"] = torch.cuda.max_memory_allocated(dev) / 1e9
+    print(f"  {MOE_ARCH}: torch.cuda.max_memory_allocated "
+          f"{res['peak_gb']:.2f} GB over the path on {card}")
+    del params
+    torch.cuda.empty_cache()
+    return res
+
+
+# ---------------------------------------------------------------------------
+# phase 11: the ssm engine's state rows (xlstm-1.3b at full width)
+
+SSM_THRESHOLD = 64          # phase 11's chunked-prefill threshold
+
+
+def rows_stream(vocab: int, n: int = 12, seed: int = 11):
+    """Phase 11's stream: prompts of 16-160 tokens, 8-32 new tokens;
+    shorter than phase 3's, since phase 11 serves it six times, once op by
+    op."""
+    rng = np.random.default_rng(seed)
+    return [(rng.integers(0, vocab, size=int(rng.integers(16, 161))
+                          ).astype(np.int32), int(rng.integers(8, 33)))
+            for _ in range(n)]
+# phase 11's counts, predicted from lengths alone by a CPU run of
+# ``phase_ssm_rows`` at reduced width (the stream drawn at the full
+# vocabulary, its tokens taken mod the reduced one)
+_RING = {"staged": 4, "inseg_admissions": 4, "preemptions": 0,
+         "preempt_readmits": 0, "pressure_stalls": 0,
+         "prefill_dispatches": 1, "chunk_admits": 6,
+         "decode_dispatches": 15, "decode_steps": 230,
+         "busy_slot_steps": 1333, "peak_concurrency": 8}
+_FED = dict(_RING, prefill_dispatches=0, chunk_admits=8, decode_steps=234,
+            busy_slot_steps=1420)
+SSM_ROWS_PREDICTED = {
+    "ring": _RING, "ring uncaptured": _RING, "fed": _FED,
+    "fed, forced preempt": dict(_FED, preemptions=1, preempt_readmits=1,
+                                decode_dispatches=17, decode_steps=267,
+                                busy_slot_steps=1468)}
+
+
+def ssm_serve(torch, dev, eng, stream, hook=None):
+    """A streamed serve of ``stream`` on a warm engine; returns the
+    requests, the counts it added and its wall seconds."""
+    before = dict(eng.stats)
+    t0 = time.perf_counter()
+    reqs, chunks = stream_serve(eng, stream, hook)
+    torch.cuda.synchronize(dev)
+    wall = time.perf_counter() - t0
+    for r in reqs:
+        check(r.tokens is not None and len(r.tokens) == r.max_new_tokens
+              and chunks[r.rid] == [int(x) for x in r.tokens],
+              f"request {r.rid}: tokens {r.tokens} or chunks")
+    return reqs, {k: v - before[k] for k, v in eng.stats.items()}, wall
+
+
+# phase 11's same-form check: f32 at full width, one group of layers (3
+# mLSTM blocks and the sLSTM block; each layer's state starts on its own),
+# a prompt of this many tokens fed one a step through decode from the
+# empty state against the recurrent form's prefill of it. The same
+# recurrence, its projections as GEMMs of other shapes: every state leaf
+# within this share of the leaf's largest magnitude (5e-5 measured on the
+# CPU at this width)
+SSM_FORMS_LAYERS = 4
+SSM_FORMS_LEN = 64
+SSM_FORMS_RTOL = 1e-3
+SSM_LEAVES = ("mC", "mn", "mm", "sh", "sc", "sn", "sm")
+
+
+def ssm_reset_rows(torch, model, eng):
+    """The rows a seat, a recovery and the step graph's ring refill write
+    (the engine's ``_reset_rows``, one per leaf, batch axis leading)
+    against the cells' own zero-token states (``_mlstm_state0``,
+    ``slstm_state0``) at every layer, exactly, and against the reference's
+    values: -1e30 stabilizers, the 1e-6 sLSTM normalizer, zeros
+    elsewhere."""
+    from repro_torch.models import xlstm as X
+    cfg, rows = model.cfg, eng._reset_rows
+    check(set(rows) == set(SSM_LEAVES), f"reset rows {sorted(rows)}")
+    dev = rows["mC"].device
+    own = (X._mlstm_state0(1, cfg.n_heads, cfg.head_dim, dev)
+           + X.slstm_state0(1, cfg.d_model, dev))
+    for name, ref in zip(SSM_LEAVES, own):
+        got = rows[name]
+        check(torch.equal(got, ref[:, None].expand_as(got)),
+              f"reset row {name} is not the cells' zero-token state")
+    neg, floor = float(np.float32(-1e30)), float(np.float32(1e-6))
+    for name, want in (("mm", neg), ("sm", neg), ("sn", floor)):
+        check(bool((rows[name] == want).all()),
+              f"reset row {name} is not {want}")
+    for name in ("mC", "mn", "sh", "sc"):
+        check(not bool(rows[name].any()), f"reset row {name} is not 0")
+
+
+def ssm_fed_forms(torch, dev, cfg, prompts):
+    """f32, full width, ``SSM_FORMS_LAYERS`` layers, its own seeded
+    weights: ``prompts`` (cut to ``SSM_FORMS_LEN`` tokens) fed one token a
+    step through decode from ``empty_state`` (what a seated prompt goes
+    through) against ``prefill_xlstm`` in the recurrent form (each cell
+    from its own zero-token state): the next-token logits and all seven
+    state leaves. Returns the largest gap of each, relative to the leaf's
+    largest magnitude."""
+    from repro_torch.models import build_model
+    from repro_torch.models import xlstm as X
+    cfg32 = dataclasses.replace(cfg, n_layers=SSM_FORMS_LAYERS,
+                                dtype="float32", param_dtype="float32")
+    m32 = build_model(cfg32, dev)
+    p32 = m32.init(SEED)
+    n = SSM_FORMS_LEN
+    toks = torch.from_numpy(np.stack([p[:n] for p in prompts]).astype(
+        np.int64)).to(dev)
+    B = toks.shape[0]
+    with torch.no_grad():
+        want, wc = X.prefill_xlstm(m32.cfg, p32, toks, mode="recurrent")
+        cache = m32.empty_state(B, n)
+        for t in range(n):
+            got, cache = m32.decode(p32, cache, toks[:, t:t + 1],
+                                    torch.full((B,), t, dtype=torch.int32,
+                                               device=dev))
+    gaps = {"logits": ((got - want).abs().max()
+                       / want.abs().max()).item()}
+    for name in SSM_LEAVES:
+        scale = wc[name].abs().max().clamp_min(1e-30)
+        gaps[name] = ((cache[name] - wc[name]).abs().max() / scale).item()
+    check(bool(torch.isfinite(got).all()), "fed forms: non-finite logits")
+    check(max(gaps.values()) <= SSM_FORMS_RTOL,
+          f"fed from the empty state against the recurrent prefill: "
+          f"relative gaps {gaps} > {SSM_FORMS_RTOL}")
+    del m32, p32
+    return gaps
+
+
+def ssm_alone(torch, dev, model, params, req, batch):
+    """``req`` served alone: its prompt fed one token a step through
+    ``model.decode`` from a fresh ``empty_state``, then greedy, with all
+    ``batch`` rows alike (the engine's batch, so every product has the
+    engine's shapes). Returns its generated tokens."""
+    feed = [int(x) for x in req.prompt]
+    cache = model.empty_state(batch, len(feed) + req.max_new_tokens)
+    out = []
+    with torch.no_grad():
+        for t in range(len(feed) + req.max_new_tokens - 1):
+            tok = feed[t] if t < len(feed) else out[-1]
+            logits, cache = model.decode(
+                params, cache,
+                torch.full((batch, 1), tok, dtype=torch.int32, device=dev),
+                torch.full((batch,), t, dtype=torch.int32, device=dev))
+            if t + 1 >= len(feed):
+                out.append(int(torch.argmax(logits[0, -1])))
+    return np.array(out, np.int32)
+
+
+def phase_ssm_rows(torch, dev, model, params, card, predicted=None,
+                   stream=None):
+    """xlstm-1.3b at full width: the engine's empty rows and what a seat,
+    a recovery and the in-graph refill make of them.
+
+    (a) A ring serve: the prompts straddle ``SSM_THRESHOLD`` (those past it
+    are seated from the empty state and fed), ``PRESSURE_STAGE`` staging
+    slots (the graph refills freed slots, resetting their rows to the
+    empty state), against an uncaptured engine with the same knobs: the
+    same tokens bit for bit. Its reset rows must be the cells' own
+    zero-token states exactly (``ssm_reset_rows``). (b) A fed serve
+    (``chunk_threshold=0``: every prompt seated and fed, the reason Queue
+    C gives) uninterrupted, and the same with a forced ``preempt()``
+    mid-serve: the preempted request recovers through a seat from the
+    empty state to the uninterrupted tokens bit for bit, and so do the
+    others. Every serve's counts must be ``predicted`` (the CPU
+    rehearsal's, ``SSM_ROWS_PREDICTED``). (c) Two requests of the fed
+    serve, the shortest one the graph refilled into a slot that held
+    another request and the preempted one, equal the same request served
+    alone from a fresh empty state, bit for bit (``ssm_alone``): a cell
+    whose rows the refill left as they were would carry the earlier
+    occupant's state into them. (d) The feed from the empty state against
+    the recurrent prefill, in f32 (``ssm_fed_forms``). No output can see
+    a zero stabilizer, so only (a)'s exact rows do: a cell's state is C
+    and n scaled by exp(-m) and its output a ratio of the two, so with C
+    and n at 0 the start of m cancels; and with m at -1e30 a stale C or n
+    is scaled by exp(-1e30) = 0 at the first step. A reset that missed a
+    cell's C and m alike changes the tokens, and (b) and (c) fail (a CPU
+    rehearsal at reduced width with each of mC+mm and sc+sm left out of
+    the reset). The stream is ``rows_stream``'s. Returns the phase's
+    numbers."""
+    from repro_torch.serving.engine import ServingEngine
+    predicted = SSM_ROWS_PREDICTED if predicted is None else predicted
+    stream = rows_stream(model.cfg.vocab) if stream is None else stream
+    lens = [len(p) for p, _ in stream]
+    ring = dict(GEOMETRY, chunk_threshold=SSM_THRESHOLD,
+                stage_slots=PRESSURE_STAGE, stream=True)
+    fed = dict(ring, chunk_threshold=0)
+    n_over = sum(n > SSM_THRESHOLD for n in lens)
+    counts = {}
+
+    def run(cls, knobs, label, hook=None, rows=False):
+        eng = cls(model, params, **knobs)
+        eng.warmup(prompt_lens=lens)
+        check(not eng._paged, f"{label}: paged")
+        if rows:
+            ssm_reset_rows(torch, model, eng)
+        reqs, d, wall = ssm_serve(torch, dev, eng, stream, hook)
+        counts[label] = {k: d[k] for k in PRESSURE_COUNTS}
+        if cls is ServingEngine and dev.type == "cuda":
+            check(d["graph_replays"] == d["decode_steps"] > 0
+                  and eng.stats["decode_traces"] == 1,
+                  f"{label}: {d['graph_replays']} replays for "
+                  f"{d['decode_steps']} steps")
+        del eng
+        return reqs, d, wall
+
+    r_ring, d_ring, w_ring = run(ServingEngine, ring, "ring", rows=True)
+    # prompts over the threshold are seated (chunked admits) or staged
+    # and refilled in the graph; the rest prefill
+    check(0 < d_ring["chunk_admits"] <= n_over
+          and d_ring["inseg_admissions"] > 0
+          and d_ring["prefill_dispatches"] > 0,
+          f"ring serve: {counts['ring']} for {n_over} prompts over "
+          f"{SSM_THRESHOLD}")
+    r_unc, _, _ = run(uncaptured_engine(), ring, "ring uncaptured")
+    check(all(np.array_equal(a.tokens, b.tokens)
+              for a, b in zip(r_ring, r_unc)),
+          "ring serve: graphed tokens differ from the uncaptured body's")
+    check(counts["ring uncaptured"] == counts["ring"],
+          "ring serve: uncaptured counts differ")
+    r_fed, d_fed, w_fed = run(ServingEngine, fed, "fed")
+    forced = {}
+
+    def hook(e):
+        live = [s for s in range(e.max_batch) if e._slot_req[s] is not None
+                and e._slot_pos[s] + 1 >= len(e._slot_prefix[s])]
+        if "preempt" not in forced and e.stats["decode_steps"] >= 32 \
+                and live:
+            forced["preempt"] = e._slot_req[live[0]]
+            e.preempt(live[0])
+
+    r_pre, d_pre, _ = run(ServingEngine, fed, "fed, forced preempt", hook)
+    p = forced.get("preempt")
+    check(p is not None and p.preemptions >= 1
+          and d_pre["preempt_readmits"] == d_pre["preemptions"] >= 1,
+          f"forced preempt: {forced}, {counts['fed, forced preempt']}")
+    check(all(np.array_equal(a.tokens, b.tokens)
+              for a, b in zip(r_fed, r_pre)),
+          "forced preempt: tokens differ from the uninterrupted serve's")
+    print(f"  {SSM_ARCH} ring serve (threshold {SSM_THRESHOLD}, "
+          f"{PRESSURE_STAGE} staging slots, page size inert): tokens equal "
+          f"the uncaptured body's bit for bit; reset rows equal the cells' "
+          f"zero-token states exactly; fed serve (threshold 0) with a "
+          f"forced preempt of request {p.rid} after step 32: every token "
+          f"equal to the uninterrupted serve's; {len(r_ring)} requests, "
+          f"ring {sum(len(r.tokens) for r in r_ring) / w_ring:.1f} tok/s, "
+          f"fed {sum(len(r.tokens) for r in r_fed) / w_fed:.1f} tok/s on "
+          f"{card}")
+    print(f"  {SSM_ARCH} phase 11 counts {counts}")
+    if predicted:
+        check(counts == predicted, f"phase 11 counts {counts} against the "
+              f"CPU rehearsal's {predicted}")
+    # (c) the ring refills of the fed serve take the requests past the
+    # first max_batch, each into a slot another request held
+    mb = GEOMETRY["max_batch"]
+    refilled = min(r_fed[mb:], key=lambda r: len(r.prompt) + len(r.tokens))
+    alone = {}
+    for r in (refilled, r_fed[p.rid]):
+        alone[r.rid] = ssm_alone(torch, dev, model, params, r, mb)
+        check(np.array_equal(alone[r.rid], r.tokens),
+              f"request {r.rid} of the fed serve differs from the same "
+              f"request served alone from a fresh empty state")
+    print(f"  {SSM_ARCH}: requests {sorted(alone)} of the fed serve (the "
+          f"shortest refilled in the graph, the preempted one) equal each "
+          f"served alone from a fresh empty state, bit for bit")
+    # (d) the feed from the empty state against the recurrent prefill
+    over = [q for q, _ in stream if len(q) >= SSM_FORMS_LEN][:8]
+    gaps = ssm_fed_forms(torch, dev, model.cfg, over)
+    print(f"  {SSM_ARCH} f32, {SSM_FORMS_LAYERS} layers: {len(over)} "
+          f"prompts of {SSM_FORMS_LEN} tokens fed through decode from the "
+          f"empty state against the recurrent prefill: relative gaps "
+          + ", ".join(f"{k} {v:.2e}" for k, v in gaps.items())
+          + f" (bound {SSM_FORMS_RTOL})")
+    return dict(counts=counts, gaps=gaps, alone=sorted(alone),
+                ring_tok_s=sum(len(r.tokens) for r in r_ring) / w_ring)
+
+
 def main() -> int:
     if not (SRC / "repro_torch").is_dir():
         print(f"error: {SRC / 'repro_torch'} not found; run chip_smoke.py "
@@ -3327,7 +3876,11 @@ def main() -> int:
               phase_fused_decode(torch, dev, gen, P=256,
                                  pos_list=FUSED_LONG_POS),
               # zamba2-1.2b's shared block: K = 32 KV heads, G = 1
-              phase_fused_decode(torch, dev, gen, K=32, G=1, D=64)]
+              phase_fused_decode(torch, dev, gen, K=32, G=1, D=64),
+              # moonshot-v1-16b-a3b: K = 16, G = 1, D = 128, the write row
+              # on span edges
+              phase_fused_decode(torch, dev, gen, K=16, G=1, D=128,
+                                 pos_list=FUSED_SPAN_POS)]
     fused["other_shapes"] = [{k: o[k] for k in (
         "shape", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
         "host_us")} for o in others]
@@ -3341,12 +3894,25 @@ def main() -> int:
 
     t0 = time.perf_counter()
     print("phase 3: main paths (ServingEngine.serve, full width)")
-    bf16, int8 = phase_main_path(torch, dev, card)
-    whisper = phase_family(torch, dev, "whisper-base", card)
-    vision = phase_family(torch, dev, "llama-3.2-vision-90b", card,
-                          VISION_LAYERS)
-    hybrid = phase_hybrid(torch, dev, card)
-    paths = [bf16, bf16["chunked"], int8, whisper, vision, hybrid]
+    # moonshot first, with nothing else on the card: its 57.8 GB of
+    # weights, freed before the next path
+    path_s = {}
+
+    def timed(label, fn, *args):
+        t1 = time.perf_counter()
+        out = fn(*args)
+        path_s[label] = time.perf_counter() - t1
+        return out
+
+    moe = timed(MOE_ARCH, phase_moe, torch, dev, card)
+    bf16, int8 = timed("llama3.2-1b", phase_main_path, torch, dev, card)
+    whisper = timed("whisper-base", phase_family, torch, dev,
+                    "whisper-base", card)
+    vision = timed("llama-3.2-vision-90b", phase_family, torch, dev,
+                   "llama-3.2-vision-90b", card, VISION_LAYERS)
+    hybrid = timed(HYBRID_ARCH, phase_hybrid, torch, dev, card)
+    ssm = timed(SSM_ARCH, phase_ssm, torch, dev, card)
+    paths = [moe, bf16, bf16["chunked"], int8, whisper, vision, hybrid, ssm]
     for k in kernels:
         k["launches"] = sum(r["launches"].get(k["name"], 0) for r in paths)
     for label, r in (("llama3.2-1b bf16", bf16),
@@ -3354,7 +3920,8 @@ def main() -> int:
                       bf16["chunked"]),
                      ("llama3.2-1b int8", int8), ("whisper-base", whisper),
                      (f"llama-3.2-vision-90b ({VISION_LAYERS} layers)",
-                      vision), (HYBRID_ARCH, hybrid)):
+                      vision), (HYBRID_ARCH, hybrid), (SSM_ARCH, ssm),
+                     (MOE_ARCH, moe)):
         p = r.get("profile")
         busy = (f"device {p['device_ms']:.1f} / wall {p['wall_ms']:.1f} ms, "
                 f"busy share {p['busy_share']:.3f}" if p else "not profiled")
@@ -3372,6 +3939,8 @@ def main() -> int:
                   f"graphs against {pf['eager_ms']:.3f} ms op by op; "
                   f"{pf['graphs']} prefill graphs, capture peak "
                   f"{pf['peak_gb']:.3f} GB on {card}")
+    print("  phase 3 by path: " + ", ".join(
+        f"{k} {v:.1f} s" for k, v in path_s.items()))
     print(f"  phase 3 took {time.perf_counter() - t0:.1f} s")
 
     t0 = time.perf_counter()
@@ -3433,6 +4002,12 @@ def main() -> int:
         k["launches"] += (hp["launches"].get(k["name"], 0)
                           + hs["launches"].get(k["name"], 0))
     print(f"  phase 10 took {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    print(f"phase 11: the ssm engine's state rows ({SSM_ARCH} full width: "
+          f"chunked seats, the staging ring, a forced preempt, the empty rows)")
+    phase_ssm_rows(torch, dev, *ssm.pop("ssm")[:2], card)
+    torch.cuda.empty_cache()
+    print(f"  phase 11 took {time.perf_counter() - t0:.1f} s")
     print(f"all phases passed in {time.perf_counter() - t_start:.1f} s")
     for k in kernels:
         print(f"kernel {k['name']}: {k['launches']} main-path launches, "

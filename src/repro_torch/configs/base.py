@@ -1,9 +1,9 @@
 """Architecture configuration (the port's own copy of ``repro.configs.base``).
 
-The fields, defaults and ``reduced()`` of the dense, hybrid (Mamba2 +
-shared attention), audio (enc-dec) and vlm (cross-attention) families come
-across; the MoE and xLSTM fields join with their model code. The
-kernel-dispatch names are the port's:
+The fields, defaults and ``reduced()`` of every family come across: dense,
+moe (routed experts), hybrid (Mamba2 + shared attention), ssm (xLSTM),
+audio (enc-dec) and vlm (cross-attention). The kernel-dispatch names are
+the port's:
 
 * ``attention_impl``: ``"torch"`` (plain PyTorch) or ``"cuda"`` (the
   hand-written flash-prefill and decode-attention kernels);
@@ -37,10 +37,17 @@ class ArchConfig:
     vocab: int
     head_dim: Optional[int] = None   # default: d_model // n_heads
     rope_theta: float = 500_000.0
+    # --- MoE ---
+    n_experts: int = 0
+    top_k: int = 0
+    n_shared_experts: int = 0
+    capacity_factor: float = 1.25
     # --- SSM / hybrid ---
     ssm_state: int = 0               # Mamba2 state size N
     ssm_chunk: int = 256             # SSD chunk length
     shared_attn_every: int = 6       # zamba2: shared attention block period
+    # --- xLSTM ---
+    slstm_every: int = 4             # one sLSTM block per this many layers
     # --- audio (enc-dec) ---
     n_encoder_layers: int = 0
     # --- vlm ---
@@ -71,23 +78,49 @@ class ArchConfig:
 
     def param_count(self) -> int:
         """Weights that ``init`` makes, norm scales aside (untied embed and
-        head).
+        head); for the moe family every expert.
 
-        ``repro``'s formula counts the audio decoder's cross blocks without
-        their MLPs and adds the vlm cross layers' attention once more; for
-        the hybrid family it sizes ``w_dt`` by the attention heads where
-        the layer has ``d_inner // head_dim_mamba`` Mamba heads and leaves
-        out the convolutions, ``A_log``, ``D`` and ``dt_bias``. The count
-        here is that of the initialised tree, which the launcher turns into
-        weight bytes.
+        The count is that of the initialised tree, which the launcher turns
+        into weight bytes. ``repro``'s formula differs for four families:
+        it counts the audio decoder's cross blocks without their MLPs and
+        adds the vlm cross layers' attention once more; for the hybrid
+        family it sizes ``w_dt`` by the attention heads where the layer has
+        ``d_inner // head_dim_mamba`` Mamba heads and leaves out the
+        convolutions, ``A_log``, ``D`` and ``dt_bias``; for the ssm family
+        it takes 8 d^2 a mLSTM block and 5 d^2 a sLSTM block, where the
+        tree holds 6 d^2 + 2 H d + 2 H (``w_up``, ``wq``, ``wk``, ``wv``,
+        ``w_down``, ``w_gate`` and ``gate_bias``) and 4 d^2 + 4 H hd^2 +
+        4 d + 3 d f (``w_in``, ``r``, ``bias`` and the gated FFN of width
+        f = max(128, (4 d / 3) // 64 * 64)). The dense and moe counts are
+        ``repro``'s.
         """
-        if self.family not in ("dense", "hybrid", "audio", "vlm"):
-            raise NotImplementedError(
-                f"param_count for family {self.family!r} is not ported")
+        return self._count(active_only=False)
+
+    def active_param_count(self) -> int:
+        """Parameters touched per token: for the moe family the ``top_k``
+        routed and the shared experts only (``repro``'s ``active_only``
+        rule), every parameter for the others."""
+        return self._count(active_only=True)
+
+    def _count(self, active_only: bool) -> int:
         d, hd = self.d_model, self.head_dim
         attn = (d * self.n_heads * hd + 2 * d * self.n_kv_heads * hd
                 + self.n_heads * hd * d)
         block = attn + 3 * d * self.d_ff
+        emb = 2 * self.vocab * d
+        if self.family == "moe":
+            n_e = self.top_k if active_only else self.n_experts
+            n_e += self.n_shared_experts
+            return emb + self.n_layers * (attn + n_e * 3 * d * self.d_ff
+                                          + d * self.n_experts)
+        if self.family == "ssm":
+            # models.xlstm: n_s sLSTM blocks, the rest mLSTM
+            H = self.n_heads
+            n_s = self.n_layers // self.slstm_every
+            f = max(128, int(d * 4 / 3) // 64 * 64)
+            m_blk = 6 * d * d + 2 * H * d + 2 * H
+            s_blk = 4 * d * d + 4 * H * hd * hd + 4 * d + 3 * d * f
+            return emb + (self.n_layers - n_s) * m_blk + n_s * s_blk
         if self.family == "hybrid":
             # Mamba2 layer (models.ssm.mamba_dims): w_z, w_x, w_bc, w_dt,
             # out_proj, the two depthwise convs with their biases, A_log,
@@ -97,17 +130,11 @@ class ArchConfig:
             n2 = 2 * self.ssm_state
             mamba = (d * (2 * di + n2 + h) + di * d + 5 * (di + n2)
                      + 3 * h)
-            return 2 * self.vocab * d + self.n_layers * mamba + block
+            return emb + self.n_layers * mamba + block
         n_blocks = self.n_layers   # vlm: self and cross layers together
         if self.family == "audio":
             n_blocks = self.n_encoder_layers + 2 * self.n_layers
-        return 2 * self.vocab * d + n_blocks * block
-
-    def active_param_count(self) -> int:
-        """Parameters touched per token: every one of them, since no ported
-        family routes tokens to experts (``repro``'s MoE count joins with
-        the MoE family)."""
-        return self.param_count()
+        return emb + n_blocks * block
 
     def reduced(self) -> "ArchConfig":
         """Tiny same-family config for CPU tests (``repro``'s ``reduced``)."""
@@ -122,6 +149,9 @@ class ArchConfig:
             head_dim=16,
             d_ff=128,
             vocab=256,
+            n_experts=min(self.n_experts, 4) if self.n_experts else 0,
+            top_k=min(self.top_k, 2) if self.top_k else 0,
+            n_shared_experts=min(self.n_shared_experts, 1),
             ssm_state=min(self.ssm_state, 16) if self.ssm_state else 0,
             ssm_chunk=32,
             n_encoder_layers=min(self.n_encoder_layers, 2),

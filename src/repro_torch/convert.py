@@ -1,7 +1,10 @@
 """Carry weights from the JAX package's parameter tree into the port.
 
 The input is a nested dict whose leaves are arrays (anything ``np.asarray``
-accepts, such as JAX arrays) or quantized weights. A quantized weight is
+accepts, such as JAX arrays) or quantized weights: any family's tree, the
+xLSTM ``mlstm``/``slstm`` stacks (with the sLSTM ``ffn``) and the MoE
+``layers/moe`` stacks (``router``, the per-expert ``w_gate``/``w_up``/
+``w_down`` and ``shared``) among them, carried leaf for leaf. A quantized weight is
 read by duck typing — any object with ``.w_q`` and ``.scales`` — so no
 ``repro`` class is imported. Quantized projections are laid out once, here,
 in the int8 GEMM's 2-D ``(Kd, N)`` form (``models.quantize``); the JAX

@@ -48,13 +48,17 @@ tokens/s and dispatch counts:
     PYTHONPATH=src python -m repro_torch.launch.serve --real-engine \\
         --device cpu --reduced --arch zamba2-1.2b --speculate llama3.2-1b:4
 
-``--arch`` takes llama3.2-1b (dense), zamba2-1.2b (hybrid), whisper-base
-(audio) and llama-3.2-vision-90b (vlm) for the real data plane. On CUDA
-the config selects the kernel impls (flash prefill, fused paged decode, the paged and
-contiguous decode kernels of the cross-attention and, with ``--quantize
-int8``, the int8 GEMM; int8 is dense-only, as in ``repro``). A config whose
-weights do not fit the card is refused before anything is allocated: the
-published 100-layer llama-3.2-vision-90b takes 175 GB in bf16. Weights are
+``--arch`` takes any registered arch for the real data plane: llama3.2-1b
+(dense), zamba2-1.2b (hybrid), moonshot-v1-16b-a3b (moe), xlstm-1.3b (ssm:
+no attention, so a page size is inert), whisper-base (audio) and
+llama-3.2-vision-90b (vlm) among them. On CUDA the config selects the
+kernel impls (flash prefill, fused paged decode, the paged and contiguous
+decode kernels of the cross-attention and, with ``--quantize int8``, the
+int8 GEMM; int8 is dense-only, as in ``repro``). A config whose weights do
+not fit the card is refused before anything is allocated: the published
+100-layer llama-3.2-vision-90b takes 175 GB in bf16, qwen3-moe-235b-a22b
+463 GB (its G = 16 would be refused by ``build_model`` next: the decode
+kernels take G <= 8). moonshot-v1-16b-a3b's 57.8 GB fit one 80 GB card. Weights are
 random, made from a fixed seed on the device. The paged layout with pages
 of 16 is the default; ``--page-size 0`` serves the contiguous KV layout.
 With ``--prefix-cache`` half the requests of the engine demo open with one

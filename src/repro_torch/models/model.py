@@ -17,15 +17,17 @@
   and sequence axes from it and pages the leaves that have a sequence axis;
 * ``empty_state(batch, max_len, enc_len=None)``: the cache of a sequence
   that has seen no tokens, the slot reset of chunked prefill, in-segment
-  admission and recovery: zeros for every ported family (the hybrid
-  family's SSM and conv states start at 0);
+  admission and recovery: zeros for every family but ssm, whose xLSTM
+  stabilizers start at -1e30 and sLSTM normalizer at 1e-6
+  (``xlstm.xlstm_empty_state``); the hybrid family's SSM and conv states
+  start at 0;
 * ``decode_window(params, cache, tokens (B, S), pos (B,))``: the
   teacher-forced S-token window of the speculative verifier, set for the
   dense family only (its KV write and attend have an exact batched form);
   the other families verify one token at a time through ``decode``.
 
-The dense, hybrid, audio and vlm families are ported; the others raise
-``NotImplementedError``.
+Every family of ``repro`` is ported: dense, moe, hybrid, ssm, audio and
+vlm (an unknown family fails in ``ArchConfig``).
 """
 from __future__ import annotations
 
@@ -38,8 +40,10 @@ from repro_torch import resolve_device
 from repro_torch.configs.base import ArchConfig
 from repro_torch.kernels.decode_attention import decode_body
 from repro_torch.kernels.flash_attention import flash_body
+from repro_torch.models import moe as MOE
 from repro_torch.models import ssm as SSM
 from repro_torch.models import transformer as T
+from repro_torch.models import xlstm as X
 
 Batch = Dict[str, torch.Tensor]
 
@@ -61,11 +65,13 @@ def _cache_shapes(cfg: ArchConfig, batch: int, max_len: int,
                   enc_len: Optional[int] = None):
     dtype = T.DTYPES[cfg.dtype]
     kv = (cfg.n_kv_heads, cfg.head_dim)
-    if cfg.family == "dense":
+    if cfg.family in ("dense", "moe"):
         sh = (cfg.n_layers, batch, max_len) + kv
         return {"k": (sh, dtype), "v": (sh, dtype)}
     if cfg.family == "hybrid":
         return SSM.zamba_cache_shapes(cfg, batch, max_len)
+    if cfg.family == "ssm":
+        return X.xlstm_cache_shapes(cfg, batch, max_len)
     if cfg.family == "audio":
         sh = (cfg.n_layers, batch, max_len) + kv
         xsh = (cfg.n_layers, batch, enc_len or max_len) + kv
@@ -84,10 +90,18 @@ _FAMILIES = {
               lambda cfg, p, b: T.prefill_dense(cfg, p, b["tokens"],
                                                 length=b.get("length")),
               T.decode_dense),
+    "moe": (MOE.init_moe,
+            lambda cfg, p, b: MOE.prefill_moe(cfg, p, b["tokens"],
+                                              length=b.get("length")),
+            MOE.decode_moe),
     "hybrid": (SSM.init_zamba,
                lambda cfg, p, b: SSM.prefill_zamba(cfg, p, b["tokens"],
                                                    length=b.get("length")),
                SSM.decode_zamba),
+    "ssm": (X.init_xlstm,
+            lambda cfg, p, b: X.prefill_xlstm(cfg, p, b["tokens"],
+                                              length=b.get("length")),
+            X.decode_xlstm),
     "audio": (T.init_audio,
               lambda cfg, p, b: T.prefill_audio(cfg, p, b["tokens"],
                                                 b["frames"],
@@ -103,9 +117,10 @@ _FAMILIES = {
 
 def build_model(cfg: ArchConfig, device="cuda") -> Model:
     """The model of ``cfg`` on ``device`` (default CUDA; raises without it)."""
-    if cfg.attention_impl == "cuda":
+    if cfg.attention_impl == "cuda" and cfg.family != "ssm":
         # no quiet fall back to the plain path: a geometry that no kernel
-        # body takes (phi3-mini's head_dim 96) is refused here
+        # body takes (phi3-mini's head_dim 96, qwen3-moe's G = 16) is
+        # refused here; the ssm family (xLSTM) has no attention
         dtype = T.DTYPES[cfg.dtype]
         try:
             flash_body(dtype, cfg.head_dim)
@@ -116,10 +131,6 @@ def build_model(cfg: ArchConfig, device="cuda") -> Model:
                 f"head_dim {cfg.head_dim} with G={cfg.q_per_kv} in "
                 f"{cfg.dtype} ({e})") from e
     dev = resolve_device(device)
-    if cfg.family not in _FAMILIES:
-        raise NotImplementedError(
-            f"family {cfg.family!r} is not ported yet (ported: "
-            f"{', '.join(_FAMILIES)})")
     if dev.type == "cpu" and (cfg.attention_impl == "cuda"
                               or cfg.quantize == "int8_cuda"):
         raise ValueError(f"config {cfg.name!r} asks for the CUDA kernels "
@@ -136,6 +147,8 @@ def build_model(cfg: ArchConfig, device="cuda") -> Model:
         return _cache_shapes(cfg, batch, max_len, enc_len)
 
     def empty_state(batch, max_len, enc_len=None):
+        if cfg.family == "ssm":
+            return X.xlstm_empty_state(cfg, batch, dev)
         return {n: torch.zeros(sh, dtype=dt, device=dev)
                 for n, (sh, dt) in cache_shapes(batch, max_len,
                                                 enc_len).items()}

@@ -83,7 +83,7 @@ def init_zamba(cfg: ArchConfig, gen: torch.Generator, device) -> Params:
         "embed": L.embed_init(gen, (cfg.vocab, cfg.d_model), dtype,
                               device=device),
         "mamba": _mamba_stack_init(cfg, gen, cfg.n_layers, dtype, device),
-        "shared": T.layer_params(shared, 0),
+        "shared": T.stack_layer(shared, 0),
         "ln_f": torch.zeros((cfg.d_model,), dtype=dtype, device=device),
         "head": L.embed_init(gen, (cfg.vocab, cfg.d_model), dtype,
                              device=device),

@@ -28,19 +28,27 @@ Params = Dict[str, Any]
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
 
-def _block_stack_init(cfg: ArchConfig, gen: torch.Generator, n: int,
-                      dtype, device) -> Params:
-    """``n`` stacked self-attention + SwiGLU blocks."""
-    d, hd, nk, f = cfg.d_model, cfg.head_dim, cfg.n_kv_heads, cfg.d_ff
+def _attn_stack_init(cfg: ArchConfig, gen: torch.Generator, n: int,
+                     dtype, device) -> Params:
+    """``n`` stacked attention projections, grouped (K, G) head layout."""
+    d, hd, nk = cfg.d_model, cfg.head_dim, cfg.n_kv_heads
     g = cfg.n_heads // nk
     kw = dict(device=device)
     return {
-        "attn": {
-            "wq": L.dense_init(gen, (n, d, nk, g, hd), dtype, 1, **kw),
-            "wk": L.dense_init(gen, (n, d, nk, hd), dtype, 1, **kw),
-            "wv": L.dense_init(gen, (n, d, nk, hd), dtype, 1, **kw),
-            "wo": L.dense_init(gen, (n, nk, g, hd, d), dtype, -1, **kw),
-        },
+        "wq": L.dense_init(gen, (n, d, nk, g, hd), dtype, 1, **kw),
+        "wk": L.dense_init(gen, (n, d, nk, hd), dtype, 1, **kw),
+        "wv": L.dense_init(gen, (n, d, nk, hd), dtype, 1, **kw),
+        "wo": L.dense_init(gen, (n, nk, g, hd, d), dtype, -1, **kw),
+    }
+
+
+def _block_stack_init(cfg: ArchConfig, gen: torch.Generator, n: int,
+                      dtype, device) -> Params:
+    """``n`` stacked self-attention + SwiGLU blocks."""
+    d, f = cfg.d_model, cfg.d_ff
+    kw = dict(device=device)
+    return {
+        "attn": _attn_stack_init(cfg, gen, n, dtype, device),
         "mlp": {
             "w_gate": L.dense_init(gen, (n, d, f), dtype, 1, **kw),
             "w_up": L.dense_init(gen, (n, d, f), dtype, 1, **kw),
@@ -88,11 +96,11 @@ def _slice(w, i: int):
     return w.layer(i) if isinstance(w, QuantizedWeight) else w[i]
 
 
-def layer_params(stack: Params, i: int) -> Params:
-    """Layer ``i``'s parameters as views into the stacked tree."""
-    return {"attn": {k: _slice(w, i) for k, w in stack["attn"].items()},
-            "mlp": {k: _slice(w, i) for k, w in stack["mlp"].items()},
-            "ln1": stack["ln1"][i], "ln2": stack["ln2"][i]}
+def stack_layer(stack: Params, i: int) -> Params:
+    """Layer ``i`` of a stacked tree (nested dicts; int8 weights sliced
+    per layer), as views."""
+    return {k: (stack_layer(w, i) if isinstance(w, dict) else _slice(w, i))
+            for k, w in stack.items()}
 
 
 def _ffn_residual(x, out_attn, blk, qi):
@@ -100,18 +108,27 @@ def _ffn_residual(x, out_attn, blk, qi):
     return x + L.swiglu(L.rmsnorm(x, blk["ln2"]), blk["mlp"], qimpl=qi)
 
 
-def _self_block(cfg: ArchConfig, x, blk, positions, *, causal=True,
-                kv_valid_len=None, impl: Optional[str] = None):
-    """One self-attention block over the whole sequence; returns (x, k, v)
-    with the block's roped k/v (B, S, K, D)."""
-    qi = qimpl_for(cfg.quantize)
+def _self_attn(cfg: ArchConfig, x, blk, positions, *, causal=True,
+               kv_valid_len=None, impl: Optional[str] = None):
+    """The attention half of a self block over the whole sequence: norm,
+    projections, RoPE and attention under the config's impl. Returns (o
+    (B, S, K, G, D), k, v) with the block's roped k/v (B, S, K, D)."""
     h = L.rmsnorm(x, blk["ln1"])
-    q, k, v = L.attn_qkv(h, blk["attn"], qimpl=qi)
+    q, k, v = L.attn_qkv(h, blk["attn"], qimpl=qimpl_for(cfg.quantize))
     q = L.apply_rope(q, positions, cfg.rope_theta)
     k = L.apply_rope(k, positions, cfg.rope_theta)
     o = L.attention_core(q, k, v, causal=causal, kv_valid_len=kv_valid_len,
                          impl=impl or cfg.attention_impl)
-    return _ffn_residual(x, o, blk, qi), k, v
+    return o, k, v
+
+
+def _self_block(cfg: ArchConfig, x, blk, positions, *, causal=True,
+                kv_valid_len=None, impl: Optional[str] = None):
+    """One self-attention block over the whole sequence; returns (x, k, v)
+    with the block's roped k/v (B, S, K, D)."""
+    o, k, v = _self_attn(cfg, x, blk, positions, causal=causal,
+                         kv_valid_len=kv_valid_len, impl=impl)
+    return _ffn_residual(x, o, blk, qimpl_for(cfg.quantize)), k, v
 
 
 def _cross_kv(ctx, blk):
@@ -129,26 +146,34 @@ def _cross_block(x, blk, attend):
     return _ffn_residual(x, attend(q), blk, "torch")
 
 
-def _decode_block(cfg: ArchConfig, x, blk, kc, vc, bt, pos):
-    """One decode step through one self block, updating its cache in
-    place. x: (B, 1, d). With a (B, P) block table ``bt``, kc/vc are the
-    shared (n_phys, ps, K, D) pools; with ``bt`` None they are the
-    contiguous (B, S_max, K, D) slot rows, written at ``pos`` and attended
-    up to ``pos + 1``, per slot."""
-    qi = qimpl_for(cfg.quantize)
+def _decode_attn(cfg: ArchConfig, x, blk, kc, vc, bt, pos):
+    """The attention half of one decode step through a self block, writing
+    its k/v into the cache in place; returns o (B, 1, K, G, D). x: (B, 1,
+    d). With a (B, P) block table ``bt``, kc/vc are the shared (n_phys,
+    ps, K, D) pools (the fused paged kernel under ``impl="cuda"``); with
+    ``bt`` None they are the contiguous (B, S_max, K, D) slot rows, written
+    at ``pos`` and attended up to ``pos + 1``, per slot (the contiguous
+    kernel's per-slot form)."""
     positions = pos.reshape(-1, 1)
     h = L.rmsnorm(x, blk["ln1"])
-    q, k, v = L.attn_qkv(h, blk["attn"], qimpl=qi)
+    q, k, v = L.attn_qkv(h, blk["attn"], qimpl=qimpl_for(cfg.quantize))
     q = L.apply_rope(q, positions, cfg.rope_theta)
     k = L.apply_rope(k, positions, cfg.rope_theta)
     if bt is None:
         KV.update_layer_cache(kc, vc, k, v, pos)
-        o = L.attention_core(q, kc, vc, causal=False, kv_valid_len=pos + 1,
-                             impl=cfg.attention_impl)
-    else:
-        o, _, _ = L.paged_update_attend(q, k, v, kc, vc, bt, pos,
-                                        impl=cfg.attention_impl)
-    return _ffn_residual(x, o, blk, qi)
+        return L.attention_core(q, kc, vc, causal=False,
+                                kv_valid_len=pos + 1,
+                                impl=cfg.attention_impl)
+    o, _, _ = L.paged_update_attend(q, k, v, kc, vc, bt, pos,
+                                    impl=cfg.attention_impl)
+    return o
+
+
+def _decode_block(cfg: ArchConfig, x, blk, kc, vc, bt, pos):
+    """One decode step through one self block (``_decode_attn``, then the
+    MLP), updating its cache in place."""
+    o = _decode_attn(cfg, x, blk, kc, vc, bt, pos)
+    return _ffn_residual(x, o, blk, qimpl_for(cfg.quantize))
 
 
 def _head(cfg: ArchConfig, params: Params, x, length=None):
@@ -167,7 +192,7 @@ def prefill_dense(cfg: ArchConfig, params: Params, tokens: torch.Tensor,
     x = L.embed_tokens(tokens, params["embed"], DTYPES[cfg.dtype])
     ks, vs = [], []
     for i in range(cfg.n_layers):
-        x, k, v = _self_block(cfg, x, layer_params(params["layers"], i),
+        x, k, v = _self_block(cfg, x, stack_layer(params["layers"], i),
                               positions)
         ks.append(k)
         vs.append(v)
@@ -187,7 +212,7 @@ def decode_dense(cfg: ArchConfig, params: Params, cache, token: torch.Tensor,
     bt = cache.get("bt")
     x = L.embed_tokens(token, params["embed"], DTYPES[cfg.dtype])
     for i in range(cfg.n_layers):
-        x = _decode_block(cfg, x, layer_params(params["layers"], i),
+        x = _decode_block(cfg, x, stack_layer(params["layers"], i),
                           cache["k"][i], cache["v"][i], bt, pos)
     return _head(cfg, params, x), cache
 
@@ -215,7 +240,7 @@ def decode_window_dense(cfg: ArchConfig, params: Params, cache,
     positions = pos.reshape(B, 1) + torch.arange(S, device=tokens.device)
     x = L.embed_tokens(tokens, params["embed"], DTYPES[cfg.dtype])
     for i in range(cfg.n_layers):
-        blk = layer_params(params["layers"], i)
+        blk = stack_layer(params["layers"], i)
         kc, vc = cache["k"][i], cache["v"][i]
         h = L.rmsnorm(x, blk["ln1"])
         q, k, v = L.attn_qkv(h, blk["attn"], qimpl=qi)
@@ -259,12 +284,12 @@ def prefill_vlm(cfg: ArchConfig, params: Params, tokens: torch.Tensor,
     ks, vs, xks, xvs = [], [], [], []
     for c in range(n_cross):
         for j in range(per):
-            x, k, v = _self_block(cfg, x, layer_params(params["layers"],
+            x, k, v = _self_block(cfg, x, stack_layer(params["layers"],
                                                        c * per + j),
                                   positions)
             ks.append(k)
             vs.append(v)
-        blk = layer_params(params["cross_layers"], c)
+        blk = stack_layer(params["cross_layers"], c)
         xk, xv = _cross_kv(img, blk)
         x = _cross_block(x, blk, lambda q: L.attention_core(
             q, xk, xv, causal=False, impl=cfg.attention_impl))
@@ -292,11 +317,11 @@ def decode_vlm(cfg: ArchConfig, params: Params, cache, token: torch.Tensor,
     x = L.embed_tokens(token, params["embed"], DTYPES[cfg.dtype])
     for c in range(n_cross):
         for j in range(per):
-            x = _decode_block(cfg, x, layer_params(params["layers"],
+            x = _decode_block(cfg, x, stack_layer(params["layers"],
                                                    c * per + j),
                               cache["k"][c, j], cache["v"][c, j], bt, pos)
         xk, xv = cache["xk"][c], cache["xv"][c]
-        x = _cross_block(x, layer_params(params["cross_layers"], c),
+        x = _cross_block(x, stack_layer(params["cross_layers"], c),
                          lambda q: L.attention_core(
                              q, xk, xv, causal=False,
                              impl=cfg.attention_impl))
@@ -327,7 +352,7 @@ def prefill_audio(cfg: ArchConfig, params: Params, tokens: torch.Tensor,
     enc = frames.to(dtype)
     enc_positions = torch.arange(enc.shape[1], device=enc.device)[None, :]
     for i in range(cfg.n_encoder_layers):
-        enc, _, _ = _self_block(cfg, enc, layer_params(params["encoder"], i),
+        enc, _, _ = _self_block(cfg, enc, stack_layer(params["encoder"], i),
                                 enc_positions, causal=False,
                                 kv_valid_len=length, impl=ctx_impl)
     enc_len = (length if length is not None
@@ -335,9 +360,9 @@ def prefill_audio(cfg: ArchConfig, params: Params, tokens: torch.Tensor,
     x = L.embed_tokens(tokens, params["embed"], dtype)
     ks, vs, xks, xvs = [], [], [], []
     for i in range(cfg.n_layers):
-        x, k, v = _self_block(cfg, x, layer_params(params["decoder"], i),
+        x, k, v = _self_block(cfg, x, stack_layer(params["decoder"], i),
                               positions)
-        blk = layer_params(params["cross"], i)
+        blk = stack_layer(params["cross"], i)
         xk, xv = _cross_kv(enc, blk)
         x = _cross_block(x, blk, lambda q: L.attention_core(
             q, xk, xv, causal=False, kv_valid_len=length, impl=ctx_impl))
@@ -364,7 +389,7 @@ def decode_audio(cfg: ArchConfig, params: Params, cache, token: torch.Tensor,
     enc_len = cache["enc_len"]
     x = L.embed_tokens(token, params["embed"], DTYPES[cfg.dtype])
     for i in range(cfg.n_layers):
-        x = _decode_block(cfg, x, layer_params(params["decoder"], i),
+        x = _decode_block(cfg, x, stack_layer(params["decoder"], i),
                           cache["k"][i], cache["v"][i], bt, pos)
         xk, xv = cache["xk"][i], cache["xv"][i]
         if bt is None:
@@ -377,5 +402,5 @@ def decode_audio(cfg: ArchConfig, params: Params, cache, token: torch.Tensor,
                 return L.paged_attention_core(q, xk, xv, bt,
                                               kv_valid_len=enc_len,
                                               impl=cfg.attention_impl)
-        x = _cross_block(x, layer_params(params["cross"], i), attend)
+        x = _cross_block(x, stack_layer(params["cross"], i), attend)
     return _head(cfg, params, x), cache

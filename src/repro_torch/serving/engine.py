@@ -111,9 +111,12 @@ preemption; ``cancel``/``cancel_overdue`` cut requests short.
 
 Chunked, staged and optimistic admission restart a slot from an empty
 decode state. The audio and vlm families need encoder KV from prefill and
-per-slot state rows, so, as in the JAX engine, they clamp
+per-slot state rows, and the moe family's expert capacity depends on the
+co-batched tokens, so, as in the JAX engine, they clamp
 ``chunk_threshold`` to None, ``stage_slots`` to 0 and ``admission`` to
-worst-case, and cannot be preempted or speculate.
+worst-case, and cannot be preempted or speculate. The moe family also
+admits one prompt per prefill dispatch (``_group_admit``): its prefill
+programs are of ``nbatch`` 1 only.
 
 **Kernel pool layout.** With ``attention_impl="cuda"`` every pool carries
 one extra *trash* page at index ``n_pages``, the block table's sentinel: the
@@ -172,6 +175,13 @@ writes the slot's state rows. Not every leaf is in the pool, so the prefix
 cache clamps off and host swap falls back to recompute, as in the JAX
 engine.
 
+**SSM family** (xLSTM). Every leaf is a per-slot f32 state with no
+sequence axis, so nothing is paged: a page size is inert (``_paged``
+false, no allocator) and the engine runs the contiguous path. The empty
+state is not zeros (the stabilizers start at -1e30, the sLSTM normalizer
+at 1e-6), and the seats and the in-graph refill reset to it as for the
+hybrid family. The prefix cache clamps off and host swap falls back.
+
 **Speculative decoding** (``speculate=(draft_model, draft_params)``,
 ``spec_k``). A round replaces a decode segment when every live slot is
 past its seated prefix and ``spec_k`` positions short of its span: the
@@ -180,14 +190,14 @@ dense draft (``_DraftRunner``, its own contiguous cache) proposes
 ``[tok, d_0 .. d_{k-1}]`` at ``pos .. pos + k`` and takes its own argmax
 at each position, and the host accepts the longest matching prefix plus
 the target's next token, so the stream is plain greedy decode's. The
-dense target verifies in one ``decode_window`` forward; the hybrid target
-in ``spec_k + 1`` single-token decodes, and a slot whose window was not
-all accepted is re-seated through the teacher-forced replay (its state
-advanced through rejected feeds). On the card the propose, the verify and
-each draft resync bucket are captured CUDA graphs (``warmup()``), over
-static buffers: the host writes the round's ``tok``/``pos`` in one copy,
-reads the drafts and the target's argmaxes in one read, runs the accept
-loop and writes ``tok``, ``pos`` and ``rem`` back in one copy. A
+dense target verifies in one ``decode_window`` forward; the hybrid and
+ssm targets in ``spec_k + 1`` single-token decodes, and a slot whose
+window was not all accepted is re-seated through the teacher-forced
+replay (its state advanced through rejected feeds). On the card the
+propose, the verify and each draft resync bucket are captured CUDA graphs
+(``warmup()``), over static buffers: the host writes the round's
+``tok``/``pos`` in one copy, reads the drafts and the target's argmaxes
+in one read, runs the accept loop and writes ``tok``, ``pos`` and ``rem`` back in one copy. A
 speculating target attends in plain PyTorch: the verify window runs
 outside the fused decode kernel, so ``attention_impl="cuda"`` raises
 (``ArchConfig.for_device(dev, speculate=True)`` builds the target; its
@@ -872,12 +882,18 @@ class ServingEngine:
         self.decode_block = decode_block
         self.min_bucket = min_bucket
         self.stream = bool(stream)
+        # MoE expert capacity is a function of the co-batched token count,
+        # so a grouped admit could change which tokens are dropped against
+        # a serial run: moe prompts are admitted one per dispatch
+        self._group_admit = cfg.family != "moe"
         # chunked prefill, the staging ring and preemption recovery restart
-        # a slot from an empty decode state (the hybrid family's state rows
-        # reset to it); the audio and vlm families need encoder KV from
-        # prefill and admit whole prompts, as in the JAX engine (whose moe
-        # family, not ported, is clamped too)
-        self._chunk_ok = cfg.family in ("dense", "hybrid")
+        # a slot from the family's empty decode state (the hybrid family's
+        # zero state rows, xLSTM's -1e30 stabilizers); the audio and vlm
+        # families need encoder KV from prefill and admit whole prompts,
+        # and moe stays out because feeding prompt tokens inside the shared
+        # decode batch would change its capacity drops against the solo
+        # prefill, as in the JAX engine
+        self._chunk_ok = cfg.family in ("dense", "hybrid", "ssm")
         self.chunk_threshold = chunk_threshold if self._chunk_ok else None
         self.stage_slots = int(stage_slots) if self._chunk_ok else 0
         # speculative decoding: the checks of the JAX engine, in its order
@@ -889,8 +905,8 @@ class ServingEngine:
             if not self._chunk_ok:
                 raise ValueError(
                     f"family {cfg.family!r} cannot speculate: mismatch "
-                    "rollback needs the teacher-forced replay path (dense "
-                    "and hybrid)")
+                    "rollback needs the teacher-forced replay path (dense, "
+                    "hybrid and ssm)")
             if cfg.attention_impl == "cuda":
                 raise ValueError(
                     "speculative decoding needs attention_impl='torch': the "
@@ -908,11 +924,13 @@ class ServingEngine:
             self.stage_slots = 0
         self.preempt_policy = preempt_policy
         self.page_size = page_size
-        # every ported family has leaves with a sequence axis, so a page
-        # size always pages the cache; None is the contiguous layout
-        self._paged = page_size is not None
         shapes = model.cache_shapes(max_batch, max_len, enc_len=max_len)
         self._axes = KV.leaf_axes(model.cache_shapes, max_len)
+        # a page size pages the leaves with a sequence axis; None is the
+        # contiguous layout, and so is a family with no such leaf (xLSTM's
+        # O(1) states), whatever the knob says
+        self._paged = page_size is not None and any(
+            sax != -1 for _, sax in self._axes.values())
         # every leaf position-addressable (no per-slot state): the gate of
         # the prefix cache and of host swap, which rebuild a slot from pool
         # pages alone
@@ -1292,7 +1310,8 @@ class ServingEngine:
         buckets = {bucket_len(max(n, 1), self.min_bucket, self.max_len)
                    for n in lens + [1]}
         for b in sorted(buckets):
-            for nb in sorted({1, self.max_batch}):
+            for nb in sorted({1, self.max_batch} if self._group_admit
+                             else {1}):
                 self._get_prefill(b, nb)
         if self.device.type == "cuda" and self._graph is None:
             self._capture()
@@ -1823,13 +1842,15 @@ class ServingEngine:
             b = bucket_len(len(r.prompt), self.min_bucket, self.max_len)
             groups.setdefault(b, []).append((r, s))
         for b, pairs in sorted(groups.items()):
-            rs = [r for r, _ in pairs]
-            slots = [s for _, s in pairs]
-            firsts = self._admit_group(b, rs, slots)
-            for r, s, f in zip(rs, slots, firsts):
-                self._gen[s] = [int(f)]
-                self._slot_req[s] = r
-                self._slot_pos[s] = len(r.prompt)
+            for unit in ([pairs] if self._group_admit
+                         else [[p] for p in pairs]):
+                rs = [r for r, _ in unit]
+                slots = [s for _, s in unit]
+                firsts = self._admit_group(b, rs, slots)
+                for r, s, f in zip(rs, slots, firsts):
+                    self._gen[s] = [int(f)]
+                    self._slot_req[s] = r
+                    self._slot_pos[s] = len(r.prompt)
         while self.stage_slots and self._pending and \
                 not self._preempted and len(self._staged) < self.stage_slots:
             r = self._pending[0]

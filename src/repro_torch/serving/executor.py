@@ -225,7 +225,7 @@ class EngineExecutor:
         if not self.cfg.speculate:
             return {}
         arch_cfg = self.arch_cfgs[variant.arch]
-        if arch_cfg.family not in ("dense", "hybrid"):
+        if arch_cfg.family not in ("dense", "hybrid", "ssm"):
             return {}
         name, _, ks = self.cfg.speculate.partition(":")
         spec_k = int(ks) if ks else 4

@@ -1349,9 +1349,13 @@ def test_master_autoscaler_boots_h100_workers_after_startup_latency():
 def test_serving_archs_are_the_registry_minus_the_multi_card_giant():
     from repro_torch.sim.cluster import serving_archs
     names = [a.name for a in serving_archs()]
-    # llama-3.2-vision-90b's 175 GB of bf16 weights fit no single card or
-    # host slot; every other registered arch has an h100-1 variant
-    assert names == [n for n in ARCHS if n != "llama-3.2-vision-90b"]
+    # llama-3.2-vision-90b's 175 GB and qwen3-moe-235b-a22b's 463 GB of
+    # bf16 weights fit no single card or host slot; every other registered
+    # arch (moonshot-v1-16b-a3b's 57.8 GB and xlstm-1.3b among them) has an
+    # h100-1 variant
+    assert names == [n for n in ARCHS if n not in (
+        "llama-3.2-vision-90b", "qwen3-moe-235b-a22b")]
+    assert {"moonshot-v1-16b-a3b", "xlstm-1.3b"} <= set(names)
     for cfg in serving_archs():
         assert any(v.hardware == "h100-1"
                    for v in prof.generate_variants(cfg)), cfg.name

@@ -72,6 +72,9 @@ FLASH_BF16_CASES = [
     (1, 300, 320, 8, 8, 128, True, 0, 250),     # ragged S, valid_len < T
     (1, 64, 512, 8, 8, 128, True, 448, None),   # q_offset > 0
     (2, 256, 1601, 8, 8, 128, False, 0, None),  # vision cross prefill
+    # moonshot-v1-16b-a3b: K = 16 KV heads, G = 1, D = 128
+    (2, 256, 256, 16, 1, 128, True, 0, None),   # grouped causal prefill
+    (1, 300, 300, 16, 1, 128, True, 0, 250),    # ragged S, valid_len < T
 ]
 
 
@@ -1376,3 +1379,160 @@ def test_cuda_decode_kernels_at_zamba_k32(dtype):
         np.testing.assert_allclose(contiguous.cpu().numpy(),
                                    want32.cpu().numpy(), rtol=1e-4,
                                    atol=1e-4)
+
+
+# ---------------------------------------------------------------------------
+# the moe (moonshot-v1-16b-a3b) and ssm (xlstm-1.3b) families
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+def test_cuda_decode_kernels_at_moonshot_k16(dtype):
+    """moonshot's attention: K = 16 KV heads, G = 1, D = 128. The fused
+    paged kernel (B1, the write row on a span edge) and the contiguous
+    kernel's per-slot form (B5) against their plain versions (bf16: the
+    f32 ulp rule; f32: 1e-4), and B5 giving B1's bits on the same rows."""
+    dev = _need_cuda()
+    dt = getattr(torch, dtype)
+    B, K, G, D, ps, P = 8, 16, 1, 128, 16, 32
+    T = P * ps
+    gen = torch.Generator(device=dev).manual_seed(16)
+    q = torch.randn((B, K, G, D), generator=gen, device=dev).to(dt)
+    k = torch.randn((B, T, K, D), generator=gen, device=dev).to(dt)
+    v = torch.randn((B, T, K, D), generator=gen, device=dev).to(dt)
+    pos = torch.tensor([0, 1, 63, 64, 127, 128, 300, T - 1],
+                       dtype=torch.int32, device=dev)
+    kp = torch.zeros((B * P + 1, ps, K, D), dtype=dt, device=dev)
+    vp = torch.zeros_like(kp)
+    kp[:B * P] = k.reshape(B * P, ps, K, D)
+    vp[:B * P] = v.reshape(B * P, ps, K, D)
+    bt = torch.arange(B * P, dtype=torch.int32, device=dev).reshape(B, P)
+    rows = torch.arange(B, device=dev)
+    kn = k[rows, pos.long()].contiguous()
+    vn = v[rows, pos.long()].contiguous()
+    paged, _, _ = fused_paged_decode_attention(q, kn, vn, kp.clone(),
+                                               vp.clone(), bt, pos)
+    contiguous = decode_attention(q, k, v, pos + 1)
+    want32 = decode_attention_plain(q.float(), k.float(), v.float(), pos + 1)
+    torch.cuda.synchronize()
+    assert torch.equal(paged, contiguous)
+    if dt == torch.bfloat16:
+        assert ref.bf16_ulp_ratio(contiguous, want32) <= 1.0
+    else:
+        np.testing.assert_allclose(contiguous.cpu().numpy(),
+                                   want32.cpu().numpy(), rtol=1e-4,
+                                   atol=1e-4)
+
+
+@pytest.mark.cuda
+def test_cuda_moe_ffn_same_bits_on_every_call_and_in_a_graph():
+    """The MoE FFN at moonshot's width (64 experts, top 6, 2 shared, d
+    2048, d_ff 1408; one layer, bf16) on a decode batch of 8 rows and a
+    prefill of 512: two calls give the same bits, and so does a replay of
+    the captured call (the dispatch is a plain indexed write, the combine
+    a fixed-order sum: no atomics)."""
+    from repro_torch.models import moe as M
+    from repro_torch.serving.engine import capture_graph
+    dev = _need_cuda()
+    cfg = dataclasses.replace(ARCHS["moonshot-v1-16b-a3b"], n_layers=1)
+    gen = torch.Generator(device=dev).manual_seed(3)
+    from repro_torch.models.transformer import stack_layer
+    p = stack_layer(M._moe_mlp_init(cfg, gen, 1, torch.bfloat16, dev), 0)
+    for rows in (8, 512):
+        x = torch.randn((1, rows, cfg.d_model), generator=gen,
+                        device=dev).bfloat16()
+        a = M.moe_ffn_dense(x, p, cfg)
+        b = M.moe_ffn_dense(x, p, cfg)
+        out = torch.empty_like(a)
+
+        def body():
+            out.copy_(M.moe_ffn_dense(x, p, cfg))
+
+        body()
+        graph, _ = capture_graph(dev, body)
+        out.zero_()
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(a, b) and torch.equal(out, a), rows
+        assert a.isfinite().all()
+
+
+@pytest.mark.cuda
+def test_cuda_moe_engine_graphs_match_uncaptured_one_prompt_a_dispatch():
+    """moonshot (reduced) on the kernel impls: the graphed serve's tokens
+    equal the uncaptured body's, paged and contiguous alike; one prefill
+    dispatch per request, every key of ``nbatch`` 1."""
+    dev = _need_cuda()
+    cfg = ARCHS["moonshot-v1-16b-a3b"].reduced().for_device(dev)
+    m = build_model(cfg, device=dev)
+    params = m.init(0)
+    rng = np.random.default_rng(9)
+    stream = [(rng.integers(0, 256, size=int(n)).astype(np.int32), int(k))
+              for n, k in zip(rng.integers(3, 30, 8), rng.integers(1, 8, 8))]
+    toks = []
+    for ps in (8, None):
+        for cls in (ServingEngine, _Uncaptured):
+            eng = cls(m, params, **dict(KW, page_size=ps, n_pages=None))
+            eng.warmup(prompt_lens=[len(p) for p, _ in stream])
+            reqs = [Request(rid=i, prompt=p, max_new_tokens=k)
+                    for i, (p, k) in enumerate(stream)]
+            eng.serve(reqs)
+            torch.cuda.synchronize(dev)
+            assert eng.stats["prefill_dispatches"] == len(stream)
+            assert {nb for nb, _ in eng._prefill_fns} == {1}
+            toks.append([r.tokens for r in reqs])
+    for run in toks[1:]:
+        for a, b in zip(toks[0], run):
+            np.testing.assert_array_equal(a, b)
+
+
+@pytest.mark.cuda
+def test_cuda_xlstm_ring_refill_writes_the_empty_rows_in_the_graph():
+    """xlstm (reduced) on the card, every prompt fed (``chunk_threshold=0``)
+    and a page size that must stay inert: with the staging ring the
+    captured step refills freed slots, resetting their state rows to the
+    -1e30 empty state inside the graph; the tokens equal boundary-only
+    admission's and an uncaptured engine's with the ring. A slot the
+    graph refilled holds the empty rows after the refilling step."""
+    dev = _need_cuda()
+    cfg = ARCHS["xlstm-1.3b"].reduced().for_device(dev)
+    m = build_model(cfg, device=dev)
+    params = m.init(0)
+    rng = np.random.default_rng(8)
+    stream = [(rng.integers(0, 256, size=int(n)).astype(np.int32), int(k))
+              for n, k in zip(rng.integers(3, 12, 8), rng.integers(1, 6, 8))]
+    kw = dict(max_batch=2, max_len=64, decode_block=8, min_bucket=4,
+              page_size=8, chunk_threshold=0)
+    runs = []
+    for cls, stage in ((ServingEngine, 0), (ServingEngine, 4),
+                       (_Uncaptured, 4)):
+        eng = cls(m, params, stage_slots=stage, **kw)
+        assert not eng._paged
+        eng.warmup()
+        reqs = [Request(rid=i, prompt=p, max_new_tokens=k)
+                for i, (p, k) in enumerate(stream)]
+        eng.serve(reqs)
+        torch.cuda.synchronize(dev)
+        runs.append(([r.tokens for r in reqs], dict(eng.stats)))
+    (t0, s0), (tr, sr), (tu, _) = runs
+    for a, b, c in zip(t0, tr, tu):
+        np.testing.assert_array_equal(a, b)
+        np.testing.assert_array_equal(a, c)
+    assert sr["inseg_admissions"] > 0 and s0["inseg_admissions"] == 0
+    assert sr["graph_replays"] == sr["decode_steps"]
+    # one replay whose step refills slot 0 from the ring
+    eng = ServingEngine(m, params, stage_slots=2, **kw)
+    eng.warmup()
+    eng._seat_prefix(0, np.array([4], np.int32), 1)
+    eng._staged.append((Request(rid=9, prompt=np.array([9, 8], np.int32),
+                                max_new_tokens=2), ("stage", 0), None))
+    eng._ring_stale = True
+    eng._sync_ring()
+    for name in eng._reset_rows:
+        eng._cache[name].normal_()
+    eng._step_i.zero_()
+    eng._graph.replay()
+    torch.cuda.synchronize(dev)
+    assert int(eng._comp_adm[0]) == 1
+    for name, row in eng._reset_rows.items():
+        assert torch.equal(eng._cache[name][:, 0], row[0]), name

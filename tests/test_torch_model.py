@@ -282,9 +282,12 @@ def test_default_device_entry_points_raise_without_cuda():
 
 
 def test_unported_families_and_kernel_impl_on_cpu_raise():
+    """Every family of ``repro`` is ported, so an unknown family is the
+    one left to refuse, in ``ArchConfig`` as in the reference; the kernel
+    impls on the CPU raise in ``build_model``."""
     cfg = T_ARCHS["llama3.2-1b"].reduced()
-    with pytest.raises(NotImplementedError):
-        t_build(dataclasses.replace(cfg, family="moe"), device="cpu")
+    with pytest.raises(ValueError, match="unknown family"):
+        dataclasses.replace(cfg, family="rnn")
     with pytest.raises(ValueError, match="CUDA kernels"):
         t_build(cfg.for_device("cuda"), device="cpu")
     assert cfg.for_device("cpu") is cfg

@@ -8,10 +8,10 @@ stream through the port's plain and speculating engines; where the JAX
 engine is served too (the bit-identity matrix, the fuzz's first trials)
 the port gives its tokens and its ``spec_rounds``, ``spec_proposed``,
 ``spec_accepted`` and ``decode_steps`` on weights carried across with
-``convert.py``. The reference's ``xlstm-1.3b`` target waits for the ssm
-family's port: its matrix here is ``llama3.2-1b`` (dense, one
-``decode_window`` verify) and ``zamba2-1.2b`` (hybrid, the sequential
-verify and the replay re-seat) x page size None and 8. The reference's
+``convert.py``. The matrix is the reference's: ``llama3.2-1b`` (dense,
+one ``decode_window`` verify), ``xlstm-1.3b`` (ssm: the sequential verify
+and the replay re-seat; a page size is inert) and ``zamba2-1.2b`` (hybrid,
+the same verify and re-seat) x page size None and 8. The reference's
 Pallas case is the port's ``attention_impl="cuda"``, refused by name
 before anything launches (no CUDA needed).
 
@@ -101,10 +101,22 @@ def _pair(arch, draft, stream_kw, spec_k, quantize="none", **kw):
     spec = _stream(Request, vocab, **stream_kw)
     eng = _serve(ServingEngine, tm, tp, spec, speculate=(tdm, tdp),
                  spec_k=spec_k, **kw)
-    jspec = _stream(JRequest, vocab, **stream_kw)
-    jeng = _serve(JEngine, jm, jp, jspec, speculate=(jdm, jdp),
-                  spec_k=spec_k, **kw)
-    return _tokens(plain), eng, _tokens(spec), jeng, _tokens(jspec)
+    # the JAX serve, shared by cases that give it the same inputs: a page
+    # size is inert for the attention-free ssm family
+    paged = tm.cfg.family != "ssm"
+    key = (arch, quantize, id(draft), tuple(sorted(stream_kw.items())),
+           spec_k, tuple(sorted((k, v) for k, v in kw.items()
+                                if paged or k != "page_size")))
+    if key not in _JAX_SERVES:
+        jspec = _stream(JRequest, vocab, **stream_kw)
+        jeng = _serve(JEngine, jm, jp, jspec, speculate=(jdm, jdp),
+                      spec_k=spec_k, **kw)
+        _JAX_SERVES[key] = jeng, _tokens(jspec)
+    jeng, jtokens = _JAX_SERVES[key]
+    return _tokens(plain), eng, _tokens(spec), jeng, jtokens
+
+
+_JAX_SERVES: dict = {}
 
 
 def _assert_jax_counts(eng, jeng):
@@ -117,15 +129,15 @@ def _assert_jax_counts(eng, jeng):
 # bit identity across families, layouts and acceptance regimes
 
 
-@pytest.mark.parametrize("arch", ["llama3.2-1b", "zamba2-1.2b"])
+@pytest.mark.parametrize("arch", ["llama3.2-1b", "zamba2-1.2b",
+                                  "xlstm-1.3b"])
 @pytest.mark.parametrize("page_size", [None, 8])
 def test_spec_matches_plain_greedy(arch, page_size):
     """Speculating == plain, token for token, and == the JAX engine's
     tokens and spec counts. The dense target drafts with its own int8
-    variant (whole windows accepted); the hybrid target with an unrelated
-    dense model (near-zero acceptance: the sequential verify and the
-    replay run every round). The xlstm-1.3b target waits for the ssm
-    family's port."""
+    variant (whole windows accepted); the hybrid and ssm targets with an
+    unrelated dense model (near-zero acceptance: the sequential verify and
+    the replay run every round)."""
     draft = (_build(arch, "int8") if arch == "llama3.2-1b"
              else _build("llama3.2-1b"))
     assert draft[2].cfg.vocab == _build(arch)[2].cfg.vocab
@@ -270,6 +282,10 @@ def test_spec_engine_validation():
     assert hm.cfg.vocab == tm.cfg.vocab
     with pytest.raises(ValueError, match="dense"):
         ServingEngine(tm, tp, max_batch=2, speculate=(hm, hp))
+    _, _, sm, sp = _build("xlstm-1.3b")
+    assert sm.cfg.vocab == tm.cfg.vocab
+    with pytest.raises(ValueError, match="dense"):
+        ServingEngine(tm, tp, max_batch=2, speculate=(sm, sp))
     # families without the replay path cannot speculate
     wm = t_build(T_ARCHS["whisper-base"].reduced(), "cpu")
     with pytest.raises(ValueError, match="family"):
