@@ -231,6 +231,25 @@ fails:
    alone from a fresh empty state bit for bit; and in f32 at 4 layers,
    the prompt fed from the empty state against the recurrent prefill,
    logits and every state leaf within 1e-3 of the leaf's scale.
+12. **Training** (``phase_train``), on the plain impls (the kernels have
+   no backward; no kernel may launch): (a) llama3.2-1b at full width,
+   bf16, batch 8 x seq 64 from ``training.data``, ``AdamWConfig()``
+   defaults, 5 steps through ``train()``: every loss and grad norm finite,
+   every param leaf moved, the step-0 loss within ``TRAIN_F32_LOSS_TOL``
+   of the same batch's loss through an f32 copy of the params; prints
+   step ms (median of steps 2-5), tokens/s, peak memory and 6 x params x
+   tokens / step time as a share of 989 TFLOP/s. (b) llama3.2-1b at full
+   width cut to 2 layers, f32, batch 2 x seq 32: loss and every grad leaf
+   on the card against the CPU on the same params (made on the CPU and
+   moved), within 1e-4 of each leaf's scale (``TRAIN_GRAD_TOL``: 3e-4 for
+   the hybrid family, whose f32 is 1.25e-4 from f64). (c) each of the
+   six families reduced: loss and grads against the CPU as in (b), and
+   the crash-at-17, resume-from-10 restart of ``test_training.py``'s
+   ``test_checkpoint_restart_exact`` (rtol 1e-5, atol 1e-6 against an
+   uninterrupted run). (d) llama3.2-1b at full width, batch 1 x seq 4096
+   (``train_4k``'s sequence), 2 steps on ``attention_impl="torch_chunked"``
+   and 2 on the plain impl: step-0 loss and grad norm within
+   ``TRAIN_LONG_TOL``; prints each impl's step ms and peak memory.
 
 The last lines are the card's ``name, power.limit``, one JSON line with
 every kernel's numbers, and the result line
@@ -242,6 +261,7 @@ import dataclasses
 import itertools
 import json
 import re
+import shutil
 import statistics
 import subprocess
 import sys
@@ -258,6 +278,27 @@ HBM_BYTES_PER_S = 3.35e12
 BF16_FLOPS = 989e12
 
 SEED = 0
+# phase 12 (training): the full-width run's batch, sequence and steps; the
+# long run's sequence (train_4k's, repro/configs/shapes.py) and steps
+TRAIN_ARCH = "llama3.2-1b"
+TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 8, 64, 5
+TRAIN_LONG_SEQ, TRAIN_LONG_STEPS = 4096, 2
+TRAIN_FAMILIES = ["llama3.2-1b", "moonshot-v1-16b-a3b", "zamba2-1.2b",
+                  "xlstm-1.3b", "whisper-base", "llama-3.2-vision-90b"]
+# bf16 step-0 loss against the f32 copy's (absolute; the loss is about
+# ln(128256) = 11.76 at init)
+TRAIN_F32_LOSS_TOL = 2e-3
+# card against CPU, f32: the loss (relative) and each grad leaf (of the
+# leaf's largest CPU magnitude). The hybrid family takes its decays as
+# exponentials of cumulative sums: f32 itself is off by 1.25e-4 of the
+# scale of zamba2's conv_x_w grad against f64 on the CPU
+# (scripts/grad_f64_gap.py), so it is held to 3e-4
+TRAIN_LOSS_RTOL = 1e-5
+TRAIN_GRAD_TOL = {"hybrid": 3e-4}
+TRAIN_GRAD_TOL_DEFAULT = 1e-4
+# chunked against plain attention at seq 4096, bf16: step-0 loss
+# (absolute) and grad norm (relative)
+TRAIN_LONG_TOL = dict(loss=2e-3, grad_norm=5e-3)
 # phase 3's engine geometry
 GEOMETRY = dict(max_batch=8, max_len=512, decode_block=16, page_size=16)
 # Timed serves of the stream per path. The serve is host-bound and the
@@ -3829,6 +3870,227 @@ def phase_ssm_rows(torch, dev, model, params, card, predicted=None,
                 ring_tok_s=sum(len(r.tokens) for r in r_ring) / w_ring)
 
 
+# ---------------------------------------------------------------------------
+# phase 12: training on the plain impls
+
+
+def loss_and_grads(model, params, batch):
+    """(loss, {leaf key: grad}) of ``model.loss`` at ``params``."""
+    from repro_torch.training.train_loop import loss_and_grads as lg
+    from repro_torch.tree import leaves
+    loss, grads = lg(model, params, batch)
+    return float(loss), dict(leaves(grads))
+
+
+def grads_on_card_and_cpu(torch, dev, cfg, batch_np, label):
+    """Loss and every grad leaf of ``cfg`` (f32) on the card against the
+    CPU, on the same params (made on the CPU and moved) and batch. Returns
+    the worst grad error as a share of its leaf's scale."""
+    from repro_torch.models import build_model
+    from repro_torch.tree import tree_map
+    cpu_model = build_model(cfg, device="cpu")
+    params = cpu_model.init(SEED)
+    cpu_batch = {k: torch.from_numpy(v) for k, v in batch_np.items()}
+    l_cpu, g_cpu = loss_and_grads(cpu_model, params, cpu_batch)
+    l_dev, g_dev = loss_and_grads(
+        build_model(cfg, device=dev),
+        tree_map(lambda t: t.to(dev), params),
+        {k: v.to(dev) for k, v in cpu_batch.items()})
+    worst, worst_key = 0.0, None
+    for k, g in g_cpu.items():
+        scale = float(g.abs().max())
+        err = float((g_dev[k].cpu() - g).abs().max())
+        share = err / scale if scale > 0 else (0.0 if err == 0 else 1e30)
+        if share >= worst:
+            worst, worst_key = share, k
+    rel = abs(l_dev - l_cpu) / abs(l_cpu)
+    tol = TRAIN_GRAD_TOL.get(cfg.family, TRAIN_GRAD_TOL_DEFAULT)
+    print(f"  {label}: loss card {l_dev:.6f} cpu {l_cpu:.6f} (rel "
+          f"{rel:.2e}, tol {TRAIN_LOSS_RTOL}); worst grad {worst:.2e} of "
+          f"its scale at {worst_key} (tol {tol}), {len(g_cpu)} leaves")
+    check(rel <= TRAIN_LOSS_RTOL, f"{label}: loss card {l_dev} cpu {l_cpu}")
+    check(worst <= tol, f"{label}: grad {worst_key} {worst}")
+    return worst
+
+
+def restart_on_card(torch, dev, arch):
+    """``test_checkpoint_restart_exact`` on the card: crash at step 17,
+    resume from the step-10 checkpoint, against an uninterrupted run.
+    Returns the largest param difference."""
+    from repro_torch.configs.registry import ARCHS
+    from repro_torch.models import build_model
+    from repro_torch.training import data as data_lib
+    from repro_torch.training.optimizer import AdamWConfig
+    from repro_torch.training.train_loop import TrainConfig, train
+    from repro_torch.tree import leaves
+    model = build_model(ARCHS[arch].reduced(), device=dev)
+    tcfg = TrainConfig(opt=AdamWConfig(lr=1e-3, warmup_steps=2,
+                                       total_steps=30), ckpt_every=10)
+    dcfg = data_lib.DataConfig(batch=4, seq=32, seed=0)
+    ckpt = ROOT / "build" / "train_ckpt" / arch
+    shutil.rmtree(ckpt, ignore_errors=True)
+    try:
+        try:
+            train(model, dcfg, steps=30, tcfg=tcfg, ckpt_dir=str(ckpt),
+                  fail_at_step=17)
+            check(False, f"{arch}: no injected failure at step 17")
+        except RuntimeError as e:
+            check("injected failure" in str(e), f"{arch}: {e}")
+        out = train(model, dcfg, steps=30, tcfg=tcfg, ckpt_dir=str(ckpt))
+    finally:
+        shutil.rmtree(ckpt, ignore_errors=True)
+    check(out["resumed_from"] == 10, f"{arch}: resumed from "
+          f"{out['resumed_from']}")
+    clean = train(model, dcfg, steps=30, tcfg=tcfg)
+    resumed = dict(leaves(out["state"]["params"]))
+    worst = 0.0
+    for k, want in leaves(clean["state"]["params"]):
+        diff = (resumed[k] - want).abs()
+        check(bool((diff <= 1e-6 + 1e-5 * want.abs()).all()),
+              f"{arch}: resumed param {k} differs by "
+              f"{float(diff.max())}")
+        worst = max(worst, float(diff.max()))
+    return worst
+
+
+def phase_train(torch, dev, card):
+    """Phase 12 (a)-(d): see the module docstring."""
+    from repro_torch.configs.registry import ARCHS
+    from repro_torch.kernels import build
+    from repro_torch.models import build_model
+    from repro_torch.training import data as data_lib
+    from repro_torch.training.optimizer import AdamWConfig
+    from repro_torch.training.train_loop import TrainConfig, train
+    from repro_torch.tree import leaves, tree_map
+    cfg = ARCHS[TRAIN_ARCH]
+    check(cfg.attention_impl == "torch" and cfg.remat, "training config")
+    out = {}
+
+    # (a) full width, bf16, 5 steps through train()
+    t0 = time.perf_counter()
+    model = build_model(cfg, device=dev)
+    dcfg = data_lib.DataConfig(batch=TRAIN_BATCH, seq=TRAIN_SEQ)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    build.reset_launch_counts()
+    run = train(model, dcfg, steps=TRAIN_STEPS,
+                tcfg=TrainConfig(opt=AdamWConfig()))
+    launched = {k: v for k, v in build.launch_counts.items() if v}
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    check(not launched, f"training launched kernels: {launched}")
+    check(all(np.isfinite(run["losses"])) and
+          all(np.isfinite(run["grad_norms"])),
+          f"non-finite loss or grad norm: {run['losses']} "
+          f"{run['grad_norms']}")
+    params = run["state"]["params"]
+    first = model.init(SEED)                     # train()'s step-0 params
+    start = dict(leaves(first))
+    moved = {k: int((p != start[k]).sum()) for k, p in leaves(params)}
+    check(all(n > 0 for n in moved.values()),
+          f"params did not move: {[k for k, n in moved.items() if not n]}")
+    n_moved = sum(moved.values())
+    n_params = sum(p.numel() for _, p in leaves(params))
+    del run["state"], params
+    torch.cuda.empty_cache()
+    cfg32 = dataclasses.replace(cfg, dtype="float32", param_dtype="float32")
+    first32 = tree_map(lambda t: t.float(), first)
+    del first, start
+    batch0 = {k: torch.from_numpy(v).to(dev)
+              for k, v in data_lib.batch_at_step(cfg, dcfg, 0).items()}
+    with torch.no_grad():
+        loss32 = float(build_model(cfg32, device=dev).loss(first32, batch0))
+    del first32
+    torch.cuda.empty_cache()
+    gap = abs(run["losses"][0] - loss32)
+    step_s = statistics.median(run["step_s"][1:])
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    share = 6 * cfg.param_count() * tokens / step_s / BF16_FLOPS
+    print(f"  (a) {TRAIN_ARCH} full width bf16, batch {TRAIN_BATCH} x seq "
+          f"{TRAIN_SEQ}, {TRAIN_STEPS} steps: losses "
+          f"{[round(x, 4) for x in run['losses']]}, grad norms "
+          f"{[round(x, 3) for x in run['grad_norms']]}; step-0 loss "
+          f"{run['losses'][0]:.5f} against the f32 copy's {loss32:.5f} "
+          f"(gap {gap:.2e}, tol {TRAIN_F32_LOSS_TOL}); {n_moved} of "
+          f"{n_params} params moved")
+    print(f"  (a) step {step_s * 1e3:.2f} ms (median of steps 2-"
+          f"{TRAIN_STEPS}; step 1 {run['step_s'][0] * 1e3:.1f} ms), "
+          f"{tokens / step_s:.0f} tokens/s, 6 x {cfg.param_count()} "
+          f"params x tokens / step time = {share:.4f} of 989 TFLOP/s; "
+          f"peak memory {peak:.2f} GB on {card}")
+    check(gap <= TRAIN_F32_LOSS_TOL, f"bf16 step-0 loss {run['losses'][0]} "
+          f"vs f32 {loss32}")
+    out["a"] = dict(step_ms=step_s * 1e3, tok_s=tokens / step_s,
+                    flop_share=share, peak_gb=peak, loss_gap=gap)
+    del model, run
+    print(f"  (a) took {time.perf_counter() - t0:.1f} s")
+
+    # (b) full width cut to 2 layers, f32: card against CPU
+    t0 = time.perf_counter()
+    cfg2 = dataclasses.replace(cfg, n_layers=2, dtype="float32",
+                               param_dtype="float32")
+    out["b"] = grads_on_card_and_cpu(
+        torch, dev, cfg2, data_lib.batch_at_step(
+            cfg2, data_lib.DataConfig(batch=2, seq=32), 0),
+        f"(b) {TRAIN_ARCH} full width, 2 layers, f32, batch 2 x seq 32")
+    torch.cuda.empty_cache()
+    print(f"  (b) took {time.perf_counter() - t0:.1f} s")
+
+    # (c) each family reduced: card against CPU, and the restart
+    t0 = time.perf_counter()
+    out["c"] = {}
+    for arch in TRAIN_FAMILIES:
+        small = ARCHS[arch].reduced()
+        worst = grads_on_card_and_cpu(
+            torch, dev, small, data_lib.batch_at_step(
+                small, data_lib.DataConfig(batch=2, seq=32), 0),
+            f"(c) {arch} reduced")
+        t1 = time.perf_counter()
+        restart = restart_on_card(torch, dev, arch)
+        print(f"  (c) {arch}: resumed from step 10 after a crash at 17, "
+              f"params within {restart:.2e} of an uninterrupted run "
+              f"(rtol 1e-5, atol 1e-6; {time.perf_counter() - t1:.1f} s)")
+        out["c"][arch] = dict(grad=worst, restart=restart)
+    print(f"  (c) took {time.perf_counter() - t0:.1f} s")
+
+    # (d) seq 4096: the chunked attention against the plain impl
+    t0 = time.perf_counter()
+    long = data_lib.DataConfig(batch=1, seq=TRAIN_LONG_SEQ)
+    out["d"] = {}
+    for impl in ("torch", "torch_chunked"):
+        m = build_model(dataclasses.replace(cfg, attention_impl=impl),
+                        device=dev)
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        run = train(m, long, steps=TRAIN_LONG_STEPS,
+                    tcfg=TrainConfig(opt=AdamWConfig()))
+        out["d"][impl] = dict(loss=run["losses"][0],
+                              grad_norm=run["grad_norms"][0],
+                              step_ms=run["step_s"][-1] * 1e3,
+                              first_ms=run["step_s"][0] * 1e3,
+                              peak_gb=torch.cuda.max_memory_allocated()
+                              / 1e9)
+        del m, run
+        torch.cuda.empty_cache()
+    plain, chunked = out["d"]["torch"], out["d"]["torch_chunked"]
+    dl = abs(chunked["loss"] - plain["loss"])
+    dn = abs(chunked["grad_norm"] - plain["grad_norm"]) / plain["grad_norm"]
+    for impl, r in out["d"].items():
+        print(f"  (d) {TRAIN_ARCH} full width bf16, batch 1 x seq "
+              f"{TRAIN_LONG_SEQ}, attention {impl}: step-0 loss "
+              f"{r['loss']:.5f}, grad norm {r['grad_norm']:.4f}; step 2 "
+              f"{r['step_ms']:.1f} ms (step 1 {r['first_ms']:.1f}), peak "
+              f"memory {r['peak_gb']:.2f} GB on {card}")
+    print(f"  (d) chunked against plain: loss gap {dl:.2e} (tol "
+          f"{TRAIN_LONG_TOL['loss']}), grad norm {dn:.2e} relative (tol "
+          f"{TRAIN_LONG_TOL['grad_norm']})")
+    check(dl <= TRAIN_LONG_TOL["loss"], f"seq 4096 loss {chunked['loss']} "
+          f"vs {plain['loss']}")
+    check(dn <= TRAIN_LONG_TOL["grad_norm"], f"seq 4096 grad norm "
+          f"{chunked['grad_norm']} vs {plain['grad_norm']}")
+    print(f"  (d) took {time.perf_counter() - t0:.1f} s")
+    return out
+
+
 def main() -> int:
     if not (SRC / "repro_torch").is_dir():
         print(f"error: {SRC / 'repro_torch'} not found; run chip_smoke.py "
@@ -4008,6 +4270,13 @@ def main() -> int:
     phase_ssm_rows(torch, dev, *ssm.pop("ssm")[:2], card)
     torch.cuda.empty_cache()
     print(f"  phase 11 took {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    print(f"phase 12: training ({TRAIN_ARCH} full width bf16 through "
+          f"train(), the f32 backward card against CPU, six families "
+          f"reduced with restart, seq {TRAIN_LONG_SEQ} chunked attention)")
+    phase_train(torch, dev, card)
+    torch.cuda.empty_cache()
+    print(f"  phase 12 took {time.perf_counter() - t0:.1f} s")
     print(f"all phases passed in {time.perf_counter() - t_start:.1f} s")
     for k in kernels:
         print(f"kernel {k['name']}: {k['launches']} main-path launches, "

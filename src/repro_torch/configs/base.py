@@ -5,8 +5,11 @@ moe (routed experts), hybrid (Mamba2 + shared attention), ssm (xLSTM),
 audio (enc-dec) and vlm (cross-attention). The kernel-dispatch names are
 the port's:
 
-* ``attention_impl``: ``"torch"`` (plain PyTorch) or ``"cuda"`` (the
-  hand-written flash-prefill and decode-attention kernels);
+* ``attention_impl``: ``"torch"`` (plain PyTorch), ``"torch_chunked"``
+  (plain PyTorch, with long full-sequence attention taken block by block
+  and a recomputing backward: the counterpart of ``"xla_chunked"``) or
+  ``"cuda"`` (the hand-written flash-prefill and decode-attention
+  kernels, which have no backward);
 * ``quantize``: ``"none"``, ``"int8"`` (plain dequant matmul) or
   ``"int8_cuda"`` (the int8 GEMM kernel).
 
@@ -19,7 +22,7 @@ import dataclasses
 from typing import Optional
 
 FAMILIES = ("dense", "moe", "hybrid", "ssm", "audio", "vlm")
-ATTENTION_IMPLS = ("torch", "cuda")
+ATTENTION_IMPLS = ("torch", "torch_chunked", "cuda")
 QUANTIZE_MODES = ("none", "int8", "int8_cuda")
 
 
@@ -57,6 +60,7 @@ class ArchConfig:
     param_dtype: str = "bfloat16"
     attention_impl: str = "torch"
     quantize: str = "none"
+    remat: bool = True               # recompute each block in backward
     subquadratic: bool = False
     source: str = ""
 
@@ -161,6 +165,7 @@ class ArchConfig:
                             if self.n_image_tokens else 0),
             dtype="float32",
             param_dtype="float32",
+            remat=False,
         )
 
     def for_device(self, device, speculate: bool = False) -> "ArchConfig":

@@ -2,11 +2,13 @@
 
 A "binary" is either (a) a byte-size record for simulated variants (load
 latency derives from bytes / load bandwidth), or (b) an actual parameter
-tree held in memory for real execution. The on-disk store (``root``) goes
-through the distributed checkpoint module, which is not ported yet, so a
-``root`` raises."""
+tree for real execution, held in memory and, with a ``root``, persisted
+through ``repro_torch.distributed.checkpoint`` (``repro``'s on-disk
+format): a tree not held in memory is restored from there as host
+tensors, the same path as a training checkpoint's restore."""
 from __future__ import annotations
 
+import os
 from typing import Any, Dict, Optional
 
 from repro_torch.sim import hardware as HW
@@ -16,10 +18,9 @@ class ModelRepository:
     def __init__(self, root: Optional[str] = None):
         self._sizes: Dict[str, float] = {}
         self._blobs: Dict[str, Any] = {}
+        self.root = root
         if root:
-            raise NotImplementedError(
-                "not ported yet: an on-disk model repository (root=) needs "
-                "the distributed checkpoint module")
+            os.makedirs(root, exist_ok=True)
 
     # -- simulated binaries -------------------------------------------------
     def put_size(self, name: str, num_bytes: float) -> None:
@@ -36,10 +37,18 @@ class ModelRepository:
     # -- real parameter pytrees ----------------------------------------------
     def put_params(self, name: str, params: Any) -> None:
         self._blobs[name] = params
+        if self.root is not None:
+            from repro_torch.distributed import checkpoint as ckpt
+            ckpt.save_pytree(os.path.join(self.root, name.replace("/", "_")),
+                             params)
 
     def get_params(self, name: str) -> Any:
         if name in self._blobs:
             return self._blobs[name]
+        if self.root is not None:
+            from repro_torch.distributed import checkpoint as ckpt
+            return ckpt.load_pytree(
+                os.path.join(self.root, name.replace("/", "_")))
         raise KeyError(name)
 
     def get_params_quantized(self, name: str, mode: str = "int8") -> Any:

@@ -27,6 +27,19 @@ def require_cuda(t: torch.Tensor, what: str) -> None:
                          f"tensor on {t.device}; use the plain impl on CPU")
 
 
+def require_no_grad(what: str, *tensors: torch.Tensor) -> None:
+    """A kernel impl asked for a gradient raises. The wrappers launch
+    through raw pointers into fresh outputs, so autograd would record no
+    edge through the kernel and the gradient would be silently wrong;
+    training runs the plain impls. Serving runs under ``no_grad`` or
+    ``inference_mode``, where this never fires."""
+    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
+        raise RuntimeError(
+            f"{what} has no backward: an input requires grad with grad "
+            "mode on; train on the plain impls (attention_impl 'torch' or "
+            "'torch_chunked', quantize 'none' or 'int8')")
+
+
 def flash_attention_grouped(q, k, v, *, causal=True, q_offset=0,
                             kv_valid_len=None, impl="cuda"):
     """q: (B, S, K, G, D); k/v: (B, T, K, D). Returns (B, S, K, G, D)."""
@@ -44,4 +57,4 @@ def flash_attention_grouped(q, k, v, *, causal=True, q_offset=0,
 
 
 __all__ = ["fused_paged_decode_attention", "paged_decode_attention",
-           "flash_attention_grouped", "require_cuda"]
+           "flash_attention_grouped", "require_cuda", "require_no_grad"]

@@ -1,0 +1,48 @@
+"""Training launcher of the port (``repro.launch.train``): trains one
+architecture on the synthetic data stream on ``--device`` (default CUDA,
+which raises without it), at full width unless ``--reduced``:
+
+    PYTHONPATH=src python -m repro_torch.launch.train --device cpu \\
+        --reduced --steps 3
+    PYTHONPATH=src python -m repro_torch.launch.train --arch llama3.2-1b \\
+        --steps 100 --ckpt /path/to/run
+
+The model runs on the plain impls (the kernels have no backward).
+``repro``'s ``--dryrun`` and ``--multi-pod`` wait for the dry-run port.
+"""
+from __future__ import annotations
+
+import argparse
+from typing import Optional, Sequence
+
+
+def main(argv: Optional[Sequence[str]] = None) -> None:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--arch", default="llama3.2-1b")
+    ap.add_argument("--steps", type=int, default=100)
+    ap.add_argument("--batch", type=int, default=8)
+    ap.add_argument("--seq", type=int, default=64)
+    ap.add_argument("--ckpt", default=None)
+    ap.add_argument("--device", default="cuda", choices=["cuda", "cpu"],
+                    help="where the model trains (cuda raises without a GPU)")
+    ap.add_argument("--reduced", action="store_true",
+                    help="the architecture's reduced (CPU-sized) config")
+    args = ap.parse_args(argv)
+
+    from repro_torch.configs.registry import ARCHS
+    from repro_torch.models import build_model
+    from repro_torch.training import data as data_lib
+    from repro_torch.training.optimizer import AdamWConfig
+    from repro_torch.training.train_loop import TrainConfig, train
+
+    cfg = ARCHS[args.arch].reduced() if args.reduced else ARCHS[args.arch]
+    model = build_model(cfg, device=args.device)
+    dcfg = data_lib.DataConfig(batch=args.batch, seq=args.seq)
+    tcfg = TrainConfig(opt=AdamWConfig(total_steps=args.steps))
+    out = train(model, dcfg, steps=args.steps, tcfg=tcfg,
+                ckpt_dir=args.ckpt, log=print)
+    print(f"final loss {out['losses'][-1]:.4f}")
+
+
+if __name__ == "__main__":
+    main()

@@ -8,6 +8,13 @@ Numerics follow the JAX layers: RMSNorm scales by ``1 + scale`` in f32,
 RoPE is split-half in f32, the plain attention takes its softmax in f32 and
 casts the probabilities to ``q.dtype`` before the PV product, and the LM
 head accumulates and returns f32.
+
+Training differentiates the plain impls only. A kernel impl asked for a
+gradient raises (``kops.require_no_grad``): its wrappers launch through raw
+pointers, so autograd would see no edge through them and the gradient
+would be silently wrong. ``"torch_chunked"`` takes long full-sequence
+attention block by block with a recomputing backward
+(``ChunkedAttention``), the counterpart of ``repro``'s ``_attention_chunked``.
 """
 from __future__ import annotations
 
@@ -21,6 +28,8 @@ from repro_torch.models.quantize import QuantizedWeight, qeinsum
 
 Params = Dict[str, Any]
 NEG_INF = -1e30
+# the impls that run plain PyTorch (and so have a backward)
+PLAIN_IMPLS = ("torch", "torch_chunked")
 
 # ---------------------------------------------------------------------------
 # initializers (seeded by a torch.Generator on the target device)
@@ -89,10 +98,14 @@ def attention_core(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     decode and whisper's contiguous cross-attention), a longer one to
     flash prefill, which takes only a scalar, so per-slot lengths there
     raise by name (the JAX layer sends them to XLA; the port's callers
-    ask for ``impl="torch"``).
+    ask for ``impl="torch"``). The kernel impl raises when asked for a
+    gradient. ``impl="torch_chunked"`` sends a long full-sequence call
+    (no ``kv_valid_len``, S > 256, S % 256 == 0, T % 512 == 0) to
+    ``attention_chunked`` and the rest to the plain path.
     """
     vec_valid = torch.is_tensor(kv_valid_len) and kv_valid_len.ndim > 0
     if impl == "cuda":
+        kops.require_no_grad("attention impl 'cuda'", q, k, v)
         if vec_valid and q.shape[1] != 1:
             raise NotImplementedError(
                 "attention_core: the flash kernel takes a scalar kv_valid_len;"
@@ -100,10 +113,15 @@ def attention_core(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         return kops.flash_attention_grouped(
             q, k, v, causal=causal, q_offset=q_offset,
             kv_valid_len=kv_valid_len, impl="cuda")
-    if impl not in ("torch", "cuda"):
+    if impl not in PLAIN_IMPLS:
         raise ValueError(f"unknown attention impl {impl!r}")
     B, S, K, G, D = q.shape
     T = k.shape[1]
+    if impl == "torch_chunked" and kv_valid_len is None and S > 256 \
+            and S % 256 == 0 and T % 512 == 0:
+        # repro's dispatch condition for "xla_chunked"
+        # (repro/models/layers.py:317-321); anything else is plain
+        return attention_chunked(q, k, v, causal=causal, q_offset=q_offset)
     scores = torch.einsum("bskgd,btkd->bkgst", q.float(), k.float()) \
         * (D ** -0.5)
     if causal or kv_valid_len is not None:
@@ -120,6 +138,138 @@ def attention_core(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         scores = torch.where(mask, scores, torch.full_like(scores, NEG_INF))
     probs = torch.softmax(scores, dim=-1).to(q.dtype)
     return torch.einsum("bkgst,btkd->bskgd", probs, v.to(q.dtype))
+
+
+# ---------------------------------------------------------------------------
+# chunked attention with a recomputing backward (repro's _attention_chunked)
+
+
+def _chunk_mask(causal: bool, qi: int, kj: int, qb: int, kb: int,
+                q_offset: int, device) -> Optional[torch.Tensor]:
+    """The (qb, kb) live mask of query block ``qi`` against key block
+    ``kj``; None when every pair is live (a mask would change nothing)."""
+    if not causal or kj * kb + kb - 1 <= qi * qb + q_offset:
+        return None
+    t_idx = kj * kb + torch.arange(kb, device=device)
+    s_idx = qi * qb + q_offset + torch.arange(qb, device=device)
+    return t_idx[None, :] <= s_idx[:, None]
+
+
+def _block_live(causal: bool, qi: int, kj: int, qb: int, kb: int,
+                q_offset: int) -> bool:
+    """Whether any pair of the two blocks is live. A block that is wholly
+    masked adds exact zeros in both passes (its probabilities are
+    exp(-1e30 - m) = 0 against a live row's max), so skipping it changes
+    no bit."""
+    return not causal or kj * kb <= qi * qb + q_offset + qb - 1
+
+
+def _chunked_fwd(q, k, v, causal, q_offset, qb, kb):
+    """Returns (out (B, S, K, G, D) in q's dtype, lse (B, K, G, S) f32)."""
+    B, S, K, G, D = q.shape
+    T = k.shape[1]
+    scale = D ** -0.5
+    out = torch.empty_like(q)
+    lse = torch.empty((B, K, G, S), dtype=torch.float32, device=q.device)
+    qf, kf, vf = q.float(), k.float(), v.float()
+    for qi in range(S // qb):
+        rows = slice(qi * qb, (qi + 1) * qb)
+        qblk = qf[:, rows]
+        m_run = torch.full((B, K, G, qb), NEG_INF, device=q.device)
+        l_run = torch.zeros((B, K, G, qb), device=q.device)
+        acc = torch.zeros((B, K, G, qb, D), device=q.device)
+        for kj in range(T // kb):
+            if not _block_live(causal, qi, kj, qb, kb, q_offset):
+                continue
+            cols = slice(kj * kb, (kj + 1) * kb)
+            s = torch.einsum("bskgd,btkd->bkgst", qblk, kf[:, cols]) * scale
+            mask = _chunk_mask(causal, qi, kj, qb, kb, q_offset, q.device)
+            if mask is not None:
+                s = s.masked_fill(~mask, NEG_INF)
+            m_new = torch.maximum(m_run, torch.amax(s, dim=-1))
+            p = torch.exp(s - m_new[..., None])
+            alpha = torch.exp(m_run - m_new)
+            l_run = l_run * alpha + torch.sum(p, dim=-1)
+            acc = acc * alpha[..., None] + torch.einsum(
+                "bkgst,btkd->bkgsd", p.to(v.dtype).float(), vf[:, cols])
+            m_run = m_new
+        l_run = torch.clamp(l_run, min=1e-30)
+        out[:, rows] = (acc / l_run[..., None]).permute(0, 3, 1, 2, 4) \
+            .to(q.dtype)
+        lse[..., rows] = m_run + torch.log(l_run)
+    return out, lse
+
+
+def _chunked_bwd(q, k, v, out, lse, dout, causal, q_offset, qb, kb):
+    """FlashAttention-style recomputing backward: per (key block, query
+    block) pair the probabilities are rebuilt from ``lse``; nothing S x T
+    is stored. Returns (dq, dk, dv) in the inputs' dtypes."""
+    B, S, K, G, D = q.shape
+    T = k.shape[1]
+    scale = D ** -0.5
+    qf, kf, vf, dof = q.float(), k.float(), v.float(), dout.float()
+    # D_i = rowsum(dOut * Out): (B, K, G, S)
+    delta = torch.einsum("bskgd,bskgd->bkgs", dof, out.float())
+    dq = torch.zeros(q.shape, dtype=torch.float32, device=q.device)
+    dk = torch.zeros(k.shape, dtype=torch.float32, device=q.device)
+    dv = torch.zeros(v.shape, dtype=torch.float32, device=q.device)
+    for kj in range(T // kb):
+        cols = slice(kj * kb, (kj + 1) * kb)
+        kblk, vblk = kf[:, cols], vf[:, cols]
+        for qi in range(S // qb):
+            if not _block_live(causal, qi, kj, qb, kb, q_offset):
+                continue
+            rows = slice(qi * qb, (qi + 1) * qb)
+            qblk, doblk = qf[:, rows], dof[:, rows]
+            s = torch.einsum("bskgd,btkd->bkgst", qblk, kblk) * scale
+            mask = _chunk_mask(causal, qi, kj, qb, kb, q_offset, q.device)
+            if mask is not None:
+                s = s.masked_fill(~mask, NEG_INF)
+            p = torch.exp(s - lse[..., rows, None])        # (B,K,G,qb,kb)
+            dp = torch.einsum("bskgd,btkd->bkgst", doblk, vblk)
+            ds = p * (dp - delta[..., rows, None])
+            dq[:, rows] += torch.einsum("bkgst,btkd->bskgd", ds, kblk) \
+                * scale
+            dk[:, cols] += torch.einsum("bkgst,bskgd->btkd", ds, qblk) \
+                * scale
+            dv[:, cols] += torch.einsum("bkgst,bskgd->btkd", p, doblk)
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+
+
+class ChunkedAttention(torch.autograd.Function):
+    """Online-softmax attention over (qb, kb) blocks whose backward
+    recomputes each block's probabilities: the S x T scores exist in
+    neither pass. The forward saves ``(q, k, v, out, lse)``, as
+    ``repro``'s custom VJP does."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, q_offset, qb, kb):
+        out, lse = _chunked_fwd(q, k, v, causal, q_offset, qb, kb)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.args = (causal, q_offset, qb, kb)
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v, out, lse = ctx.saved_tensors
+        dq, dk, dv = _chunked_bwd(q, k, v, out, lse, dout.contiguous(),
+                                  *ctx.args)
+        return dq, dk, dv, None, None, None, None
+
+
+def attention_chunked(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                      causal: bool, q_offset: int = 0, q_block: int = 256,
+                      k_block: int = 512) -> torch.Tensor:
+    """q (B, S, K, G, D), k/v (B, T, K, D) -> (B, S, K, G, D) through
+    ``ChunkedAttention`` with blocks of min(q_block, S) queries and
+    min(k_block, T) keys; S and T must be multiples of them."""
+    S, T = q.shape[1], k.shape[1]
+    qb, kb = min(q_block, S), min(k_block, T)
+    if S % qb or T % kb:
+        raise ValueError(f"attention_chunked: S {S} / T {T} are not "
+                         f"multiples of the blocks {qb} / {kb}")
+    return ChunkedAttention.apply(q, k, v, bool(causal), int(q_offset), qb,
+                                  kb)
 
 
 def window_attention_core(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -160,11 +310,12 @@ def paged_attention_core(q, k_pool, v_pool, block_table, *, kv_valid_len,
     ``attention_core``.
     """
     if impl == "cuda":
+        kops.require_no_grad("attention impl 'cuda'", q)
         kops.require_cuda(q, "paged_attention_core")
         return kops.paged_decode_attention(
             q[:, 0].contiguous(), k_pool, v_pool, block_table,
             kv_valid_len)[:, None]
-    if impl != "torch":
+    if impl not in PLAIN_IMPLS:
         raise ValueError(f"unknown attention impl {impl!r}")
     kc = KV.gather_block_kv(k_pool, block_table)
     vc = KV.gather_block_kv(v_pool, block_table)
@@ -183,12 +334,13 @@ def paged_update_attend(q, k, v, k_pool, v_pool, block_table, pos, *,
     and then runs the gathered masked attend.
     """
     if impl == "cuda":
+        kops.require_no_grad("attention impl 'cuda'", q, k, v)
         kops.require_cuda(q, "paged_update_attend")
         o, k_pool, v_pool = kops.fused_paged_decode_attention(
             q[:, 0].contiguous(), k[:, 0].contiguous(), v[:, 0].contiguous(),
             k_pool, v_pool, block_table, pos)
         return o[:, None], k_pool, v_pool
-    if impl != "torch":
+    if impl not in PLAIN_IMPLS:
         raise ValueError(f"unknown attention impl {impl!r}")
     k_pool, v_pool = KV.paged_update_layer_cache(k_pool, v_pool, k, v,
                                                  block_table, pos)
@@ -249,16 +401,48 @@ def select_last(x: torch.Tensor, length: Optional[torch.Tensor]) -> torch.Tensor
     return torch.gather(x, 1, idx[:, None, None].expand(-1, 1, x.shape[2]))
 
 
+class _HeadBf16(torch.autograd.Function):
+    """bf16 x (N, d) times the bf16 head (V, d) into f32 logits on CUDA,
+    with a backward (``torch.mm(..., out_dtype=)`` has none). The f32
+    logit grads enter the two backward products rounded to bf16, whose
+    results are bf16 (the params' dtype) accumulated in f32."""
+
+    @staticmethod
+    def forward(ctx, x2, head):
+        ctx.save_for_backward(x2, head)
+        return torch.mm(x2, head.t(), out_dtype=torch.float32)
+
+    @staticmethod
+    def backward(ctx, g):
+        x2, head = ctx.saved_tensors
+        g = g.to(torch.bfloat16)
+        return torch.mm(g, head), torch.mm(g.t(), x2)
+
+
 def lm_logits(x: torch.Tensor, head: torch.Tensor) -> torch.Tensor:
     """Logits in f32, accumulated in f32 (no rounding to the working dtype).
 
-    On CUDA a bf16 head goes through ``torch.mm(..., out_dtype=float32)``;
-    elsewhere the operands are widened first.
+    On CUDA a bf16 head goes through ``_HeadBf16``, whose forward is
+    ``torch.mm(..., out_dtype=float32)``; elsewhere the operands are
+    widened first.
     """
     B, S, d = x.shape
     x2 = x.reshape(B * S, d)
     if x.is_cuda and x.dtype == torch.bfloat16:
-        out = torch.mm(x2, head.t(), out_dtype=torch.float32)
+        out = _HeadBf16.apply(x2, head)
     else:
         out = x2.float() @ head.float().t()
     return out.reshape(B, S, -1)
+
+
+def cross_entropy(logits: torch.Tensor, targets: torch.Tensor) -> torch.Tensor:
+    """Mean token cross-entropy: logits (B, S, V) f32, targets (B, S) int.
+
+    The mean over tokens of logsumexp minus the gold logit. The gold logit
+    is gathered: each row reads one element, so its backward writes one
+    element a row and gives the same bits every call on the card (``repro``
+    takes it by a mask-reduce, for a vocab-sharded layout; the value is the
+    same)."""
+    logz = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, targets.long()[..., None])[..., 0]
+    return torch.mean(logz - gold)

@@ -3,6 +3,12 @@
 ``build_model(cfg, device)`` returns a ``Model`` with
 
 * ``init(seed) -> params``: seeded random weights on the model's device;
+* ``forward(params, batch) -> logits``: the full-sequence causal forward
+  of training, (B, S, V) f32; ``batch`` carries ``"tokens"`` and the
+  family's encoder input (below). With ``cfg.remat`` each block is
+  recomputed in backward;
+* ``loss(params, batch) -> scalar``: the mean token cross-entropy of
+  ``forward`` against ``batch["targets"]``;
 * ``prefill(params, batch) -> (logits, cache)``: ``batch`` carries
   ``"tokens"`` (B, S), optionally ``"length"`` (B,) valid prefix lengths
   of right-padded prompts, and the stub encoder input of its family:
@@ -40,6 +46,7 @@ from repro_torch import resolve_device
 from repro_torch.configs.base import ArchConfig
 from repro_torch.kernels.decode_attention import decode_body
 from repro_torch.kernels.flash_attention import flash_body
+from repro_torch.models import layers as L
 from repro_torch.models import moe as MOE
 from repro_torch.models import ssm as SSM
 from repro_torch.models import transformer as T
@@ -53,12 +60,16 @@ class Model:
     cfg: ArchConfig
     device: torch.device
     init: Callable[..., Any]
+    forward: Callable[..., torch.Tensor]
     prefill: Callable[..., Any]
     decode: Callable[..., Any]
     cache_shapes: Callable[..., Dict[str, Tuple[Tuple[int, ...],
                                                 torch.dtype]]]
     empty_state: Optional[Callable[..., Dict[str, torch.Tensor]]] = None
     decode_window: Optional[Callable[..., Any]] = None
+
+    def loss(self, params, batch: Batch) -> torch.Tensor:
+        return L.cross_entropy(self.forward(params, batch), batch["targets"])
 
 
 def _cache_shapes(cfg: ArchConfig, batch: int, max_len: int,
@@ -85,29 +96,38 @@ def _cache_shapes(cfg: ArchConfig, batch: int, max_len: int,
 
 
 _FAMILIES = {
-    # family -> (init, prefill(cfg, params, batch), decode)
+    # family -> (init, forward(cfg, params, batch),
+    #            prefill(cfg, params, batch), decode)
     "dense": (T.init_dense,
+              lambda cfg, p, b: T.forward_dense(cfg, p, b["tokens"]),
               lambda cfg, p, b: T.prefill_dense(cfg, p, b["tokens"],
                                                 length=b.get("length")),
               T.decode_dense),
     "moe": (MOE.init_moe,
+            lambda cfg, p, b: MOE.forward_moe(cfg, p, b["tokens"]),
             lambda cfg, p, b: MOE.prefill_moe(cfg, p, b["tokens"],
                                               length=b.get("length")),
             MOE.decode_moe),
     "hybrid": (SSM.init_zamba,
+               lambda cfg, p, b: SSM.forward_zamba(cfg, p, b["tokens"]),
                lambda cfg, p, b: SSM.prefill_zamba(cfg, p, b["tokens"],
                                                    length=b.get("length")),
                SSM.decode_zamba),
     "ssm": (X.init_xlstm,
+            lambda cfg, p, b: X.forward_xlstm(cfg, p, b["tokens"]),
             lambda cfg, p, b: X.prefill_xlstm(cfg, p, b["tokens"],
                                               length=b.get("length")),
             X.decode_xlstm),
     "audio": (T.init_audio,
+              lambda cfg, p, b: T.forward_audio(cfg, p, b["tokens"],
+                                                b["frames"]),
               lambda cfg, p, b: T.prefill_audio(cfg, p, b["tokens"],
                                                 b["frames"],
                                                 length=b.get("length")),
               T.decode_audio),
     "vlm": (T.init_vlm,
+            lambda cfg, p, b: T.forward_vlm(cfg, p, b["tokens"],
+                                            b["image_embeds"]),
             lambda cfg, p, b: T.prefill_vlm(cfg, p, b["tokens"],
                                             b["image_embeds"],
                                             length=b.get("length")),
@@ -136,7 +156,7 @@ def build_model(cfg: ArchConfig, device="cuda") -> Model:
         raise ValueError(f"config {cfg.name!r} asks for the CUDA kernels "
                          "but the device is the CPU")
 
-    init_fn, prefill_fn, decode_fn = _FAMILIES[cfg.family]
+    init_fn, forward_fn, prefill_fn, decode_fn = _FAMILIES[cfg.family]
 
     def init(seed: int = 0):
         gen = torch.Generator(device=dev)
@@ -162,9 +182,36 @@ def build_model(cfg: ArchConfig, device="cuda") -> Model:
         cfg=cfg,
         device=dev,
         init=init,
+        forward=lambda p, b: forward_fn(cfg, p, b),
         prefill=lambda p, b: prefill_fn(cfg, p, b),
         decode=lambda p, c, t, pos: decode_fn(cfg, p, c, t, pos),
         cache_shapes=cache_shapes,
         empty_state=empty_state,
         decode_window=window,
     )
+
+
+def make_batch(cfg: ArchConfig, gen: torch.Generator, batch: int, seq: int,
+               with_targets: bool = True) -> Batch:
+    """A random batch for smoke tests and examples, drawn from ``gen`` on
+    its device: int32 ``"tokens"`` (and ``"targets"``) and the family's
+    encoder input in ``cfg.dtype``. ``repro``'s ``make_batch`` draws from
+    ``jax.random``, whose bits no torch generator gives, so tests that
+    compare the two packages feed both the same numpy batch."""
+    dev = gen.device
+    b: Batch = {"tokens": torch.randint(0, cfg.vocab, (batch, seq),
+                                        generator=gen, device=dev,
+                                        dtype=torch.int32)}
+    if with_targets:
+        b["targets"] = torch.randint(0, cfg.vocab, (batch, seq),
+                                     generator=gen, device=dev,
+                                     dtype=torch.int32)
+    dtype = T.DTYPES[cfg.dtype]
+    if cfg.family == "audio":
+        b["frames"] = torch.randn((batch, seq, cfg.d_model), generator=gen,
+                                  device=dev).to(dtype)
+    if cfg.family == "vlm":
+        b["image_embeds"] = torch.randn(
+            (batch, cfg.n_image_tokens, cfg.d_model), generator=gen,
+            device=dev).to(dtype)
+    return b

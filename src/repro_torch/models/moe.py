@@ -1,5 +1,5 @@
 """Mixture-of-Experts decoder (moonshot 64 experts top-6, qwen3 128 top-8;
-the serving part of ``repro.models.moe``).
+``repro.models.moe`` but for the expert-parallel lowering).
 
 The FFN is ``repro``'s single-device lowering, ``moe_ffn_dense``:
 capacity-bounded top-k routing with token dropping (GShard-style), every
@@ -142,7 +142,11 @@ def moe_ffn_dense(x: torch.Tensor, p: Params,
     combine gathers each token's k outputs (a dropped one's weight is 0),
     weights them in x's dtype and sums them over k in one reduction (a
     fixed order; bf16 accumulates in f32 and rounds once, where
-    ``repro``'s scatter-add rounds after each add). This is the port's
+    ``repro``'s scatter-add rounds after each add). The backward is the
+    same bits every call on the card too: the repeat is an expand, whose
+    backward sums over k, and the gather an indexed read, whose backward
+    accumulates sorted by index (``index_select`` and
+    ``repeat_interleave`` would add with atomics). This is the port's
     only lowering: ``repro``'s expert-parallel ``moe_ffn_ep`` waits for
     the distributed port."""
     B, S, d = x.shape
@@ -154,10 +158,10 @@ def moe_ffn_dense(x: torch.Tensor, p: Params,
     pos, keep = _dispatch_indices(idx, cfg, C)
     flat = (idx * C + pos).masked_fill(~keep, E * C).reshape(n * k)
     buf = x.new_zeros((E * C + 1, d))
-    buf.index_copy_(0, flat, x2.repeat_interleave(k, dim=0))
+    buf.index_copy_(0, flat, x2[:, None].expand(n, k, d).reshape(n * k, d))
     out = _expert_gemm(buf[:E * C].view(E, C, d), p["w_gate"], p["w_up"],
                        p["w_down"]).reshape(E * C, d)
-    gathered = out.index_select(0, torch.clamp(flat, max=E * C - 1))
+    gathered = out[torch.clamp(flat, max=E * C - 1)]
     w_f = (w * keep).to(x.dtype)
     y = torch.sum(gathered.reshape(n, k, d) * w_f[..., None], dim=1)
     y = y.reshape(B, S, d)
@@ -167,12 +171,30 @@ def moe_ffn_dense(x: torch.Tensor, p: Params,
 
 
 # ---------------------------------------------------------------------------
-# full model: prefill / decode
+# full model: forward / prefill / decode
 
 
 def _moe_residual(cfg: ArchConfig, x, o, blk):
     x = x + L.attn_out(o, blk["attn"])
     return x + moe_ffn_dense(L.rmsnorm(x, blk["ln2"]), blk["moe"], cfg)
+
+
+def forward_moe(cfg: ArchConfig, params: Params,
+                tokens: torch.Tensor) -> torch.Tensor:
+    """The causal forward of training (the dense dispatch; ``repro``'s
+    expert-parallel lowering waits for the distributed port): tokens (B,
+    S) -> logits (B, S, V) f32, each layer a remat body. Capacity comes
+    from all B * S tokens."""
+    positions = T._positions(tokens)
+    x = L.embed_tokens(tokens, params["embed"], T.DTYPES[cfg.dtype])
+
+    def body(x, blk):
+        o, _, _ = T._self_attn(cfg, x, blk, positions)
+        return _moe_residual(cfg, x, o, blk)
+
+    for blk in T.unstack(params["layers"], cfg.n_layers):
+        x = T.remat(cfg, body, x, blk)
+    return T._logits(params, x)
 
 
 def prefill_moe(cfg: ArchConfig, params: Params, tokens: torch.Tensor,
@@ -186,8 +208,7 @@ def prefill_moe(cfg: ArchConfig, params: Params, tokens: torch.Tensor,
     positions = torch.arange(tokens.shape[1], device=tokens.device)[None, :]
     x = L.embed_tokens(tokens, params["embed"], T.DTYPES[cfg.dtype])
     ks, vs = [], []
-    for i in range(cfg.n_layers):
-        blk = T.stack_layer(params["layers"], i)
+    for blk in T.unstack(params["layers"], cfg.n_layers):
         o, k, v = T._self_attn(cfg, x, blk, positions)
         x = _moe_residual(cfg, x, o, blk)
         ks.append(k)
@@ -205,8 +226,7 @@ def decode_moe(cfg: ArchConfig, params: Params, cache, token: torch.Tensor,
     (B, 1, V) f32, cache)."""
     bt = cache.get("bt")
     x = L.embed_tokens(token, params["embed"], T.DTYPES[cfg.dtype])
-    for i in range(cfg.n_layers):
-        blk = T.stack_layer(params["layers"], i)
+    for i, blk in enumerate(T.unstack(params["layers"], cfg.n_layers)):
         o = T._decode_attn(cfg, x, blk, cache["k"][i], cache["v"][i], bt,
                            pos)
         x = _moe_residual(cfg, x, o, blk)

@@ -22,6 +22,7 @@ from typing import NamedTuple, Tuple
 import torch
 
 from repro_torch.kernels.int8_matmul import int8_matmul
+from repro_torch.kernels.ops import require_no_grad
 
 
 class QuantizedWeight(NamedTuple):
@@ -113,6 +114,7 @@ def qeinsum(x: torch.Tensor, qw: QuantizedWeight, n_contract: int,
     batch = x.shape[:x.ndim - n_contract]
     x2 = x.reshape(-1, qw.w_q.shape[0])
     if impl == "cuda":
+        require_no_grad("qeinsum impl 'cuda' (quantize 'int8_cuda')", x)
         if not x.is_cuda:
             raise ValueError("qeinsum: the CUDA int8 impl was asked for a "
                              f"tensor on {x.device}; use quantize='int8'")

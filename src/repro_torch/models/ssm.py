@@ -1,5 +1,4 @@
-"""Mamba2 (SSD) blocks and the Zamba2 hybrid backbone (the serving part of
-``repro.models.ssm``).
+"""Mamba2 (SSD) blocks and the Zamba2 hybrid backbone (``repro.models.ssm``).
 
 The SSD layer follows the chunked algorithm of Mamba-2 [arXiv:2405.21060]:
 intra-chunk contributions through a (Q, Q) decay-masked score matrix,
@@ -83,7 +82,7 @@ def init_zamba(cfg: ArchConfig, gen: torch.Generator, device) -> Params:
         "embed": L.embed_init(gen, (cfg.vocab, cfg.d_model), dtype,
                               device=device),
         "mamba": _mamba_stack_init(cfg, gen, cfg.n_layers, dtype, device),
-        "shared": T.stack_layer(shared, 0),
+        "shared": T.unstack(shared, 1)[0],
         "ln_f": torch.zeros((cfg.d_model,), dtype=dtype, device=device),
         "head": L.embed_init(gen, (cfg.vocab, cfg.d_model), dtype,
                              device=device),
@@ -319,6 +318,34 @@ def _shared_block(cfg: ArchConfig, x, shared: Params, positions):
     """The shared transformer block over a whole sequence (causal); returns
     (x, k, v) with its roped k/v (B, S, K, D)."""
     return T._self_block(cfg, x, shared, positions)
+
+
+def forward_zamba(cfg: ArchConfig, params: Params,
+                  tokens: torch.Tensor) -> torch.Tensor:
+    """The causal forward of training: tokens (B, S) -> logits (B, S, V)
+    f32. Remat as ``repro``'s: each group (its Mamba layers and the shared
+    block) is a remat body holding one per Mamba layer, and so is each
+    tail layer."""
+    positions = T._positions(tokens)
+    x = L.embed_tokens(tokens, params["embed"], T.DTYPES[cfg.dtype])
+    layers = T.unstack(params["mamba"], cfg.n_layers)
+    shared = params["shared"]
+
+    def mamba(x, blk):
+        return x + mamba_block_full(x, blk, cfg)[0]
+
+    def group(x, blks):
+        for blk in blks:
+            x = T.remat(cfg, mamba, x, blk)
+        return _shared_block(cfg, x, shared, positions)[0]
+
+    for grp, ids in _split_mamba_stack(cfg):
+        if grp is not None:
+            x = T.remat(cfg, group, x, [layers[i] for i in ids])
+        else:
+            for i in ids:
+                x = T.remat(cfg, mamba, x, layers[i])
+    return T._logits(params, x)
 
 
 def prefill_zamba(cfg: ArchConfig, params: Params, tokens: torch.Tensor,

@@ -1,9 +1,13 @@
 """Dense decoder-only transformer, plus the VLM (cross-attention image
-layers) and audio (enc-dec) backbones that reuse its blocks (the serving
-part of ``repro.models.transformer``).
+layers) and audio (enc-dec) backbones that reuse its blocks
+(``repro.models.transformer``).
 
 Parameters are stacked on a leading layer axis, as in the JAX package, and
-the layer loop is a Python loop over per-layer views. Prefill returns the
+the layer loop is a Python loop over per-layer views. The full-sequence
+forwards of training (``forward_dense``, ``forward_vlm``,
+``forward_audio``) unbind each stack once (``unstack``) and, with
+``cfg.remat``, recompute each block in backward (``remat``) at the
+granularity of ``repro``'s ``_maybe_remat``. Prefill returns the
 per-layer k/v of the prompt (and the cross-attention k/v of the context);
 decode runs one token per slot against the cache, which it updates in
 place: paged KV pools read and written through a ``"bt"`` block table, or,
@@ -15,9 +19,10 @@ frame embeddings (B, S, d_model), vlm precomputed patch embeddings
 """
 from __future__ import annotations
 
-from typing import Any, Dict, Optional, Tuple
+from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import torch
+import torch.utils.checkpoint
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models import kvcache as KV
@@ -92,15 +97,32 @@ def init_audio(cfg: ArchConfig, gen: torch.Generator, device) -> Params:
                                     "cross": cfg.n_layers})
 
 
-def _slice(w, i: int):
-    return w.layer(i) if isinstance(w, QuantizedWeight) else w[i]
+def unstack(stack: Params, n: int) -> List[Params]:
+    """The ``n`` layers of a stacked tree (nested dicts; int8 weights
+    sliced per layer), as views, each leaf unbound once.
+
+    Under autograd, ``unbind``'s backward stacks the layer grads in one
+    pass, where indexing each layer would write a zero tensor the size of
+    the whole stack per layer."""
+    def split(w):
+        if isinstance(w, QuantizedWeight):
+            return [w.layer(i) for i in range(n)]
+        if isinstance(w, dict):
+            return unstack(w, n)
+        return torch.unbind(w, 0)
+
+    leaves = {k: split(w) for k, w in stack.items()}
+    return [{k: v[i] for k, v in leaves.items()} for i in range(n)]
 
 
-def stack_layer(stack: Params, i: int) -> Params:
-    """Layer ``i`` of a stacked tree (nested dicts; int8 weights sliced
-    per layer), as views."""
-    return {k: (stack_layer(w, i) if isinstance(w, dict) else _slice(w, i))
-            for k, w in stack.items()}
+def remat(cfg: ArchConfig, fn: Callable, *args):
+    """``fn(*args)``, recomputed in backward when ``cfg.remat`` and grad
+    mode are on (``repro``'s ``jax.checkpoint`` of a scan body). Nothing in
+    a remat body writes into a tensor that autograd saved."""
+    if cfg.remat and torch.is_grad_enabled():
+        return torch.utils.checkpoint.checkpoint(
+            fn, *args, use_reentrant=False, preserve_rng_state=False)
+    return fn(*args)
 
 
 def _ffn_residual(x, out_attn, blk, qi):
@@ -181,6 +203,36 @@ def _head(cfg: ArchConfig, params: Params, x, length=None):
     return L.lm_logits(L.select_last(x, length), params["head"])
 
 
+def _positions(x: torch.Tensor) -> torch.Tensor:
+    """(1, S) positions of the sequence axis of x (B, S, ...)."""
+    return torch.arange(x.shape[1], device=x.device)[None, :]
+
+
+def _scan_blocks(cfg: ArchConfig, x, stack: Params, n: int, positions, *,
+                 causal=True, kv_valid_len=None):
+    """``n`` self blocks over the whole sequence, each a remat body."""
+    def body(x, blk):
+        return _self_block(cfg, x, blk, positions, causal=causal,
+                           kv_valid_len=kv_valid_len)[0]
+    for blk in unstack(stack, n):
+        x = remat(cfg, body, x, blk)
+    return x
+
+
+def _logits(params: Params, x):
+    return L.lm_logits(L.rmsnorm(x, params["ln_f"]), params["head"])
+
+
+def forward_dense(cfg: ArchConfig, params: Params,
+                  tokens: torch.Tensor) -> torch.Tensor:
+    """The causal forward of training: tokens (B, S) -> logits (B, S, V)
+    f32."""
+    x = L.embed_tokens(tokens, params["embed"], DTYPES[cfg.dtype])
+    x = _scan_blocks(cfg, x, params["layers"], cfg.n_layers,
+                     _positions(tokens))
+    return _logits(params, x)
+
+
 def prefill_dense(cfg: ArchConfig, params: Params, tokens: torch.Tensor,
                   length: Optional[torch.Tensor] = None):
     """tokens (B, S), right-padded; ``length`` (B,) valid prefix lengths.
@@ -191,9 +243,8 @@ def prefill_dense(cfg: ArchConfig, params: Params, tokens: torch.Tensor,
     positions = torch.arange(tokens.shape[1], device=tokens.device)[None, :]
     x = L.embed_tokens(tokens, params["embed"], DTYPES[cfg.dtype])
     ks, vs = [], []
-    for i in range(cfg.n_layers):
-        x, k, v = _self_block(cfg, x, stack_layer(params["layers"], i),
-                              positions)
+    for blk in unstack(params["layers"], cfg.n_layers):
+        x, k, v = _self_block(cfg, x, blk, positions)
         ks.append(k)
         vs.append(v)
     return _head(cfg, params, x, length), {"k": torch.stack(ks),
@@ -211,9 +262,8 @@ def decode_dense(cfg: ArchConfig, params: Params, cache, token: torch.Tensor,
     """
     bt = cache.get("bt")
     x = L.embed_tokens(token, params["embed"], DTYPES[cfg.dtype])
-    for i in range(cfg.n_layers):
-        x = _decode_block(cfg, x, stack_layer(params["layers"], i),
-                          cache["k"][i], cache["v"][i], bt, pos)
+    for i, blk in enumerate(unstack(params["layers"], cfg.n_layers)):
+        x = _decode_block(cfg, x, blk, cache["k"][i], cache["v"][i], bt, pos)
     return _head(cfg, params, x), cache
 
 
@@ -239,8 +289,7 @@ def decode_window_dense(cfg: ArchConfig, params: Params, cache,
     qi = qimpl_for(cfg.quantize)
     positions = pos.reshape(B, 1) + torch.arange(S, device=tokens.device)
     x = L.embed_tokens(tokens, params["embed"], DTYPES[cfg.dtype])
-    for i in range(cfg.n_layers):
-        blk = stack_layer(params["layers"], i)
+    for i, blk in enumerate(unstack(params["layers"], cfg.n_layers)):
         kc, vc = cache["k"][i], cache["v"][i]
         h = L.rmsnorm(x, blk["ln1"])
         q, k, v = L.attn_qkv(h, blk["attn"], qimpl=qi)
@@ -267,6 +316,41 @@ def _vlm_groups(cfg: ArchConfig):
     return n_cross, cfg.cross_attn_every - 1
 
 
+def _cross_full(cfg: ArchConfig, x, blk, ctx):
+    """A cross block over a whole context: its k/v from ``ctx``, then
+    ``_cross_block``."""
+    xk, xv = _cross_kv(ctx, blk)
+    return _cross_block(x, blk, lambda q: L.attention_core(
+        q, xk, xv, causal=False, impl=cfg.attention_impl))
+
+
+def forward_vlm(cfg: ArchConfig, params: Params, tokens: torch.Tensor,
+                image_embeds: torch.Tensor) -> torch.Tensor:
+    """tokens (B, S), image_embeds (B, n_image_tokens, d) -> logits (B, S,
+    V) f32. Each self layer is a remat body, and so is each cross block on
+    its own: a group-level remat would recompute the group's self layers
+    a second time (``repro/models/transformer.py:337-341``)."""
+    dtype = DTYPES[cfg.dtype]
+    n_cross, per = _vlm_groups(cfg)
+    positions = _positions(tokens)
+    img = image_embeds.to(dtype)
+    selfs = unstack(params["layers"], n_cross * per)
+    crosses = unstack(params["cross_layers"], n_cross)
+    x = L.embed_tokens(tokens, params["embed"], dtype)
+
+    def self_body(x, blk):
+        return _self_block(cfg, x, blk, positions)[0]
+
+    def cross_body(x, blk):
+        return _cross_full(cfg, x, blk, img)
+
+    for c in range(n_cross):
+        for blk in selfs[c * per:(c + 1) * per]:
+            x = remat(cfg, self_body, x, blk)
+        x = remat(cfg, cross_body, x, crosses[c])
+    return _logits(params, x)
+
+
 def prefill_vlm(cfg: ArchConfig, params: Params, tokens: torch.Tensor,
                 image_embeds: torch.Tensor,
                 length: Optional[torch.Tensor] = None):
@@ -281,15 +365,14 @@ def prefill_vlm(cfg: ArchConfig, params: Params, tokens: torch.Tensor,
     positions = torch.arange(tokens.shape[1], device=tokens.device)[None, :]
     img = image_embeds.to(dtype)
     x = L.embed_tokens(tokens, params["embed"], dtype)
+    selfs = unstack(params["layers"], n_cross * per)
+    crosses = unstack(params["cross_layers"], n_cross)
     ks, vs, xks, xvs = [], [], [], []
-    for c in range(n_cross):
-        for j in range(per):
-            x, k, v = _self_block(cfg, x, stack_layer(params["layers"],
-                                                       c * per + j),
-                                  positions)
+    for c, blk in enumerate(crosses):
+        for self_blk in selfs[c * per:(c + 1) * per]:
+            x, k, v = _self_block(cfg, x, self_blk, positions)
             ks.append(k)
             vs.append(v)
-        blk = stack_layer(params["cross_layers"], c)
         xk, xv = _cross_kv(img, blk)
         x = _cross_block(x, blk, lambda q: L.attention_core(
             q, xk, xv, causal=False, impl=cfg.attention_impl))
@@ -315,13 +398,14 @@ def decode_vlm(cfg: ArchConfig, params: Params, cache, token: torch.Tensor,
     bt = cache.get("bt")
     n_cross, per = _vlm_groups(cfg)
     x = L.embed_tokens(token, params["embed"], DTYPES[cfg.dtype])
-    for c in range(n_cross):
+    selfs = unstack(params["layers"], n_cross * per)
+    crosses = unstack(params["cross_layers"], n_cross)
+    for c, blk in enumerate(crosses):
         for j in range(per):
-            x = _decode_block(cfg, x, stack_layer(params["layers"],
-                                                   c * per + j),
-                              cache["k"][c, j], cache["v"][c, j], bt, pos)
+            x = _decode_block(cfg, x, selfs[c * per + j], cache["k"][c, j],
+                              cache["v"][c, j], bt, pos)
         xk, xv = cache["xk"][c], cache["xv"][c]
-        x = _cross_block(x, stack_layer(params["cross_layers"], c),
+        x = _cross_block(x, blk,
                          lambda q: L.attention_core(
                              q, xk, xv, causal=False,
                              impl=cfg.attention_impl))
@@ -330,6 +414,28 @@ def decode_vlm(cfg: ArchConfig, params: Params, cache, token: torch.Tensor,
 
 # ---------------------------------------------------------------------------
 # audio (enc-dec): stub frame embeddings in, decoder tokens out
+
+
+def forward_audio(cfg: ArchConfig, params: Params, tokens: torch.Tensor,
+                  frames: torch.Tensor) -> torch.Tensor:
+    """tokens (B, S), frames (B, T, d) stub frame embeddings -> logits (B,
+    S, V) f32. Each encoder block is a remat body, and so is each decoder
+    layer (its self block and its cross block together)."""
+    dtype = DTYPES[cfg.dtype]
+    enc = frames.to(dtype)
+    enc = _scan_blocks(cfg, enc, params["encoder"], cfg.n_encoder_layers,
+                       _positions(enc), causal=False)
+    positions = _positions(tokens)
+    x = L.embed_tokens(tokens, params["embed"], dtype)
+
+    def body(x, dec, cross):
+        x = _self_block(cfg, x, dec, positions)[0]
+        return _cross_full(cfg, x, cross, enc)
+
+    for dec, cross in zip(unstack(params["decoder"], cfg.n_layers),
+                          unstack(params["cross"], cfg.n_layers)):
+        x = remat(cfg, body, x, dec, cross)
+    return _logits(params, x)
 
 
 def prefill_audio(cfg: ArchConfig, params: Params, tokens: torch.Tensor,
@@ -351,18 +457,16 @@ def prefill_audio(cfg: ArchConfig, params: Params, tokens: torch.Tensor,
     ctx_impl = cfg.attention_impl if length is None else "torch"
     enc = frames.to(dtype)
     enc_positions = torch.arange(enc.shape[1], device=enc.device)[None, :]
-    for i in range(cfg.n_encoder_layers):
-        enc, _, _ = _self_block(cfg, enc, stack_layer(params["encoder"], i),
-                                enc_positions, causal=False,
+    for blk in unstack(params["encoder"], cfg.n_encoder_layers):
+        enc, _, _ = _self_block(cfg, enc, blk, enc_positions, causal=False,
                                 kv_valid_len=length, impl=ctx_impl)
     enc_len = (length if length is not None
                else torch.full((B,), frames.shape[1], device=tokens.device))
     x = L.embed_tokens(tokens, params["embed"], dtype)
     ks, vs, xks, xvs = [], [], [], []
-    for i in range(cfg.n_layers):
-        x, k, v = _self_block(cfg, x, stack_layer(params["decoder"], i),
-                              positions)
-        blk = stack_layer(params["cross"], i)
+    for dec, blk in zip(unstack(params["decoder"], cfg.n_layers),
+                        unstack(params["cross"], cfg.n_layers)):
+        x, k, v = _self_block(cfg, x, dec, positions)
         xk, xv = _cross_kv(enc, blk)
         x = _cross_block(x, blk, lambda q: L.attention_core(
             q, xk, xv, causal=False, kv_valid_len=length, impl=ctx_impl))
@@ -388,9 +492,10 @@ def decode_audio(cfg: ArchConfig, params: Params, cache, token: torch.Tensor,
     bt = cache.get("bt")
     enc_len = cache["enc_len"]
     x = L.embed_tokens(token, params["embed"], DTYPES[cfg.dtype])
-    for i in range(cfg.n_layers):
-        x = _decode_block(cfg, x, stack_layer(params["decoder"], i),
-                          cache["k"][i], cache["v"][i], bt, pos)
+    for i, (dec, cross) in enumerate(zip(
+            unstack(params["decoder"], cfg.n_layers),
+            unstack(params["cross"], cfg.n_layers))):
+        x = _decode_block(cfg, x, dec, cache["k"][i], cache["v"][i], bt, pos)
         xk, xv = cache["xk"][i], cache["xv"][i]
         if bt is None:
             def attend(q, xk=xk, xv=xv):
@@ -402,5 +507,5 @@ def decode_audio(cfg: ArchConfig, params: Params, cache, token: torch.Tensor,
                 return L.paged_attention_core(q, xk, xv, bt,
                                               kv_valid_len=enc_len,
                                               impl=cfg.attention_impl)
-        x = _cross_block(x, stack_layer(params["cross"], i), attend)
+        x = _cross_block(x, cross, attend)
     return _head(cfg, params, x), cache

@@ -1,5 +1,5 @@
-"""xLSTM backbone [arXiv:2405.04517] (the serving part of
-``repro.models.xlstm``): chunkwise-parallel mLSTM blocks with one
+"""xLSTM backbone [arXiv:2405.04517] (``repro.models.xlstm``):
+chunkwise-parallel mLSTM blocks with one
 sequential sLSTM block every ``slstm_every`` layers.
 
 mLSTM: a matrix memory C (dk x dv per head) with exponential input gating
@@ -338,6 +338,31 @@ def slstm_block(x, blk, cfg: ArchConfig, state=None, mask=None):
 # full model
 
 
+def forward_xlstm(cfg: ArchConfig, params: Params, tokens: torch.Tensor,
+                  mode: str = "chunked") -> torch.Tensor:
+    """The forward of training: tokens (B, S) -> logits (B, S, V) f32, the
+    mLSTM cells in ``mode`` (chunked by default). Remat as ``repro``'s:
+    each group (its mLSTM blocks and its sLSTM block) is a remat body
+    holding one per mLSTM block."""
+    x = L.embed_tokens(tokens, params["embed"], T.DTYPES[cfg.dtype])
+    g, m_per = xlstm_groups(cfg)
+    mlstms = T.unstack(params["mlstm"], g * m_per)
+    slstms = T.unstack(params["slstm"], g)
+
+    def mlstm(x, blk):
+        return x + mlstm_block(x, blk, cfg, mode=mode)[0]
+
+    def group(x, m_blks, s_blk):
+        for blk in m_blks:
+            x = T.remat(cfg, mlstm, x, blk)
+        return x + slstm_block(x, s_blk, cfg)[0]
+
+    for grp in range(g):
+        x = T.remat(cfg, group, x, mlstms[grp * m_per:(grp + 1) * m_per],
+                    slstms[grp])
+    return T._logits(params, x)
+
+
 def prefill_xlstm(cfg: ArchConfig, params: Params, tokens: torch.Tensor,
                   length: Optional[torch.Tensor] = None,
                   mode: str = "chunked"):
@@ -353,15 +378,14 @@ def prefill_xlstm(cfg: ArchConfig, params: Params, tokens: torch.Tensor,
         torch.arange(S, device=tokens.device)[None, :] < length.reshape(-1, 1)
     x = L.embed_tokens(tokens, params["embed"], T.DTYPES[cfg.dtype])
     g, m_per = xlstm_groups(cfg)
+    mlstms = T.unstack(params["mlstm"], g * m_per)
     m_states, s_states = [], []
-    for grp in range(g):
-        for j in range(m_per):
-            blk = T.stack_layer(params["mlstm"], grp * m_per + j)
+    for grp, s_blk in enumerate(T.unstack(params["slstm"], g)):
+        for blk in mlstms[grp * m_per:(grp + 1) * m_per]:
             y, st = mlstm_block(x, blk, cfg, mask=mask, mode=mode)
             x = x + y
             m_states.append(st)
-        y, st = slstm_block(x, T.stack_layer(params["slstm"], grp), cfg,
-                            mask=mask)
+        y, st = slstm_block(x, s_blk, cfg, mask=mask)
         x = x + y
         s_states.append(st)
     cache = {name: torch.stack([s[i] for s in m_states])
@@ -379,18 +403,18 @@ def decode_xlstm(cfg: ArchConfig, params: Params, cache, token: torch.Tensor,
     del pos
     x = L.embed_tokens(token, params["embed"], T.DTYPES[cfg.dtype])
     g, m_per = xlstm_groups(cfg)
-    for grp in range(g):
+    mlstms = T.unstack(params["mlstm"], g * m_per)
+    for grp, s_blk in enumerate(T.unstack(params["slstm"], g)):
         for j in range(m_per):
             i = grp * m_per + j
             state = (cache["mC"][i], cache["mn"][i], cache["mm"][i])
-            y, new = mlstm_block(x, T.stack_layer(params["mlstm"], i), cfg,
-                                 state=state, mode="recurrent")
+            y, new = mlstm_block(x, mlstms[i], cfg, state=state,
+                                 mode="recurrent")
             for leaf, t in zip(state, new):
                 leaf.copy_(t)
             x = x + y
         state = tuple(cache[n][grp] for n in ("sh", "sc", "sn", "sm"))
-        y, new = slstm_block(x, T.stack_layer(params["slstm"], grp), cfg,
-                             state=state)
+        y, new = slstm_block(x, s_blk, cfg, state=state)
         for leaf, t in zip(state, new):
             leaf.copy_(t)
         x = x + y

@@ -1436,8 +1436,8 @@ def test_cuda_moe_ffn_same_bits_on_every_call_and_in_a_graph():
     dev = _need_cuda()
     cfg = dataclasses.replace(ARCHS["moonshot-v1-16b-a3b"], n_layers=1)
     gen = torch.Generator(device=dev).manual_seed(3)
-    from repro_torch.models.transformer import stack_layer
-    p = stack_layer(M._moe_mlp_init(cfg, gen, 1, torch.bfloat16, dev), 0)
+    from repro_torch.models.transformer import unstack
+    p = unstack(M._moe_mlp_init(cfg, gen, 1, torch.bfloat16, dev), 1)[0]
     for rows in (8, 512):
         x = torch.randn((1, rows, cfg.d_model), generator=gen,
                         device=dev).bfloat16()
@@ -1536,3 +1536,137 @@ def test_cuda_xlstm_ring_refill_writes_the_empty_rows_in_the_graph():
     assert int(eng._comp_adm[0]) == 1
     for name, row in eng._reset_rows.items():
         assert torch.equal(eng._cache[name][:, 0], row[0]), name
+
+
+# ---------------------------------------------------------------------------
+# training on the card, on the plain impls (the kernels have no backward)
+
+TRAIN_FAMILIES = ["llama3.2-1b", "moonshot-v1-16b-a3b", "zamba2-1.2b",
+                  "xlstm-1.3b", "whisper-base", "llama-3.2-vision-90b"]
+
+
+def _loss_and_grads(model, params, batch):
+    from repro_torch.training.train_loop import loss_and_grads
+    from repro_torch.tree import leaves
+    loss, grads = loss_and_grads(model, params, batch)
+    return float(loss), dict(leaves(grads))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", TRAIN_FAMILIES)
+def test_cuda_training_grads_match_cpu(arch):
+    """Loss (rtol 1e-5) and every grad leaf (1e-4 of the leaf's scale;
+    3e-4 for the hybrid family, whose f32 grads are 1.25e-4 of the scale
+    from f64's on the CPU, ``scripts/grad_f64_gap.py``) of each family,
+    reduced, f32, on the card against the CPU on the same params and
+    batch."""
+    from repro_torch.models import make_batch
+    from repro_torch.tree import tree_map
+    dev = _need_cuda()
+    cfg = ARCHS[arch].reduced()
+    cpu = build_model(cfg, device="cpu")
+    params = cpu.init(0)
+    batch = make_batch(cfg, torch.Generator().manual_seed(0), 2, 32)
+    l_cpu, g_cpu = _loss_and_grads(cpu, params, batch)
+    l_dev, g_dev = _loss_and_grads(
+        build_model(cfg, device=dev), tree_map(lambda t: t.to(dev), params),
+        {k: v.to(dev) for k, v in batch.items()})
+    np.testing.assert_allclose(l_dev, l_cpu, rtol=1e-5)
+    tol = 3e-4 if cfg.family == "hybrid" else 1e-4
+    for k, g in g_cpu.items():
+        err = float((g_dev[k].cpu() - g).abs().max())
+        assert err <= tol * float(g.abs().max()), (k, err)
+
+
+@pytest.mark.cuda
+def test_cuda_train_restart_exact(tmp_path):
+    """``test_training.py``'s restart on the card: crash at step 17,
+    resume from step 10, equal to an uninterrupted run (rtol 1e-5, atol
+    1e-6)."""
+    from repro_torch.training import data as data_lib
+    from repro_torch.training.optimizer import AdamWConfig
+    from repro_torch.training.train_loop import TrainConfig, train
+    from repro_torch.tree import leaves
+    dev = _need_cuda()
+    model = build_model(ARCHS["llama3.2-1b"].reduced(), device=dev)
+    tcfg = TrainConfig(opt=AdamWConfig(lr=1e-3, warmup_steps=2,
+                                       total_steps=30), ckpt_every=10)
+    dcfg = data_lib.DataConfig(batch=4, seq=32, seed=0)
+    ckpt = str(tmp_path / "run")
+    with pytest.raises(RuntimeError, match="injected failure"):
+        train(model, dcfg, steps=30, tcfg=tcfg, ckpt_dir=ckpt,
+              fail_at_step=17)
+    out = train(model, dcfg, steps=30, tcfg=tcfg, ckpt_dir=ckpt)
+    assert out["resumed_from"] == 10
+    clean = train(model, dcfg, steps=30, tcfg=tcfg)
+    a = dict(leaves(out["state"]["params"]))
+    for k, y in leaves(clean["state"]["params"]):
+        np.testing.assert_allclose(a[k].cpu().numpy(), y.cpu().numpy(),
+                                   rtol=1e-5, atol=1e-6)
+
+
+@pytest.mark.cuda
+def test_cuda_torch_chunked_matches_plain():
+    """llama3.2-1b reduced, f32, S = 512 on the card: loss and grads on
+    ``torch_chunked`` against the plain impl (rtol 1e-5 / 1e-4)."""
+    from repro_torch.models import make_batch
+    dev = _need_cuda()
+    cfg = ARCHS["llama3.2-1b"].reduced()
+    batch = make_batch(cfg, torch.Generator(device=dev).manual_seed(2), 1,
+                       512)
+    out = []
+    for impl in ("torch", "torch_chunked"):
+        m = build_model(dataclasses.replace(cfg, attention_impl=impl),
+                        device=dev)
+        out.append(_loss_and_grads(m, m.init(0), batch))
+    (l0, g0), (l1, g1) = out
+    np.testing.assert_allclose(l1, l0, rtol=1e-5)
+    for k in g0:
+        np.testing.assert_allclose(g1[k].cpu().numpy(), g0[k].cpu().numpy(),
+                                   rtol=1e-4, atol=1e-6)
+
+
+@pytest.mark.cuda
+def test_cuda_kernel_impls_refuse_a_gradient():
+    """On card tensors too, the flash and int8 impls raise when asked for
+    a gradient, and run without one."""
+    from repro_torch.models import layers as L
+    from repro_torch.models.quantize import qeinsum, quantize_weight
+    dev = _need_cuda()
+    q = torch.randn((1, 64, 2, 4, 64), device=dev, dtype=torch.bfloat16)
+    k = torch.randn((1, 64, 2, 64), device=dev, dtype=torch.bfloat16)
+    with pytest.raises(RuntimeError, match="attention impl 'cuda'"):
+        L.attention_core(q.requires_grad_(True), k, k, causal=True,
+                         impl="cuda")
+    with torch.no_grad():
+        L.attention_core(q, k, k, causal=True, impl="cuda")
+    qw = quantize_weight(torch.randn((1, 256, 128), device=dev), (1,)
+                         ).layer(0)
+    x = torch.randn((4, 256), device=dev, requires_grad=True)
+    with pytest.raises(RuntimeError, match="int8_cuda"):
+        qeinsum(x, qw, 1, impl="cuda")
+    with torch.inference_mode():
+        qeinsum(x, qw, 1, impl="cuda")
+
+
+@pytest.mark.cuda
+def test_cuda_bf16_head_backward():
+    """The bf16 LM head on the card (``mm`` into f32 logits) has a
+    backward: its grads against the f32 product's within bf16 rounding
+    (rtol 2e-2 of each grad's scale)."""
+    from repro_torch.models import layers as L
+    dev = _need_cuda()
+    gen = torch.Generator(device=dev).manual_seed(0)
+    x = torch.randn((2, 16, 256), generator=gen, device=dev)
+    head = torch.randn((1000, 256), generator=gen, device=dev) * 0.02
+    g = torch.randn((2, 16, 1000), generator=gen, device=dev)
+    grads = []
+    for dt in (torch.bfloat16, torch.float32):
+        xs = x.to(dt).requires_grad_(True)
+        hs = head.to(dt).requires_grad_(True)
+        out = L.lm_logits(xs, hs)
+        assert out.dtype == torch.float32
+        grads.append(torch.autograd.grad(out, (xs, hs), g))
+    for lo, hi in zip(*grads):
+        err = float((lo.float() - hi).abs().max())
+        assert err <= 2e-2 * float(hi.abs().max()), err
