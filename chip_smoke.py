@@ -250,6 +250,29 @@ fails:
    (``train_4k``'s sequence), 2 steps on ``attention_impl="torch_chunked"``
    and 2 on the plain impl: step-0 loss and grad norm within
    ``TRAIN_LONG_TOL``; prints each impl's step ms and peak memory.
+13. **The distributed layer** (``phase_distributed``) on an NCCL world of
+   one rank (a ``FileStore`` under ``build/``; NCCL puts one rank on a
+   GPU, so the card holds a 1x1 ``("data", "model")`` mesh,
+   ``launch.mesh.make_host_mesh``; no fallback to another backend), on the
+   plain impls (``"torch_chunked"``: the reference lowers sharded code with
+   its plain impl, so no kernel may launch). ``build_model(...,
+   parallel=)`` must refuse ``attention_impl="cuda"`` and
+   ``quantize="int8_cuda"``. (a) llama3.2-1b at full width, bf16, params
+   and cache DTensors by ``param_specs``/``cache_specs``: 8 prompts of 256
+   tokens prefilled, then 16 greedy decode steps on a contiguous cache,
+   against the same calls unsharded: the tokens must be equal; prints the
+   largest logit difference, whether the bits are equal, and the host ms
+   of a decode step on the mesh and unsharded. (b) moonshot-v1-16b-a3b at
+   full width, depth cut to 4 of 48 layers: ``moe_ffn_ep`` at M = 1
+   against ``moe_ffn_dense`` on the same seeded bf16 input must give equal
+   bits (the same capacity and dispatch; the all-to-all is a copy), then
+   one ``Model.decode`` step on the mesh against unsharded, tokens equal.
+   (c) ``decode_attention_splitk`` called directly (at M = 1
+   ``attention_core`` never reaches it) at the vision model's decode
+   widths, B 8, K 8, G 8, D 128, over T 32,768 (``decode_32k``'s
+   sequence), bf16, at three valid lengths, against the plain
+   ``attention_core`` on the same inputs within ``SPLITK_TOL_ULPS`` bf16
+   ulps of the output's largest magnitude.
 
 The last lines are the card's ``name, power.limit``, one JSON line with
 every kernel's numbers, and the result line
@@ -4091,6 +4114,257 @@ def phase_train(torch, dev, card):
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 13: the distributed layer on an NCCL world of one rank
+
+# (a): llama3.2-1b's prompts, prompt length and greedy decode steps
+DIST_ARCH = "llama3.2-1b"
+DIST_PROMPTS, DIST_PROMPT_LEN, DIST_STEPS = 8, 256, 16
+# (b): moonshot-v1-16b-a3b's depth (of 48) and its EP input (B, S)
+DIST_MOE_LAYERS = 4
+DIST_MOE_TOKENS = (8, 64)
+# (c): the vision model's decode widths over decode_32k's sequence
+SPLITK_SHAPE = dict(B=8, K=8, G=8, D=128, T=32768)
+SPLITK_VALID = (32768, 20000, 1)
+# (c): split-K against the plain attention_core on the same bf16 inputs:
+# two bf16 ulps at the output's largest magnitude. The plain version
+# rounds the normalized probabilities to bf16 before its P.V product, the
+# split-K region the unnormalized exp(s - m) (the reference's order), so
+# the two differ by bf16 rounding of the probabilities
+SPLITK_TOL_ULPS = 2
+
+
+def dist_world(torch):
+    """An NCCL world of one rank (a ``FileStore`` under ``build/``) and the
+    1x1 host mesh on cuda:0. Raises when NCCL fails: no other backend."""
+    import torch.distributed as dist
+    from repro_torch.launch.mesh import make_host_mesh
+    store_dir = ROOT / "build" / "dist_store"
+    shutil.rmtree(store_dir, ignore_errors=True)
+    store_dir.mkdir(parents=True)
+    torch.cuda.set_device(0)
+    store = dist.FileStore(str(store_dir / "store"), 1)
+    dist.init_process_group("nccl", store=store, rank=0, world_size=1)
+    check(dist.get_backend() == "nccl", f"backend {dist.get_backend()}")
+    mesh = make_host_mesh()
+    check(mesh.device_type == "cuda", f"mesh on {mesh.device_type}")
+    return mesh
+
+
+def contiguous_cache(model, prefill_cache, batch, max_len):
+    """An empty contiguous cache of ``max_len`` rows, the prompt's leaves
+    written at its start."""
+    cache = model.empty_state(batch, max_len)
+    for name, leaf in prefill_cache.items():
+        dst = cache[name]
+        ax = next((i for i in range(dst.ndim)
+                   if dst.shape[i] != leaf.shape[i]), None)
+        (dst if ax is None else dst.narrow(ax, 0, leaf.shape[ax])).copy_(leaf)
+    return cache
+
+
+def greedy(torch, model, params, cache, tok, pos, steps):
+    """``steps`` greedy decode steps; returns (tokens (B, steps), logits of
+    every step, the host ms of each step)."""
+    from torch.distributed.tensor import DTensor
+    toks, logits, ms = [], [], []
+    for _ in range(steps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out, cache = model.decode(params, cache, tok, pos)
+        if isinstance(out, DTensor):
+            out = out.full_tensor()
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+        tok = torch.argmax(out[:, -1], -1).to(torch.int32)[:, None]
+        pos = pos + 1
+        toks.append(tok)
+        logits.append(out)
+    return torch.cat(toks, 1), torch.stack(logits), ms
+
+
+def phase_distributed(torch, dev, card):
+    """Phase 13 (a)-(c): see the module docstring."""
+    import torch.distributed as dist
+    from torch.distributed.tensor import DTensor
+    from repro_torch.configs.registry import ARCHS
+    from repro_torch.distributed import sharding as SH
+    from repro_torch.distributed.parallel import (ParallelConfig,
+                                                  activation_sharding_from)
+    from repro_torch.kernels import build
+    from repro_torch.models import build_model
+    from repro_torch.models import layers as L
+    from repro_torch.models import moe as MOE
+    from repro_torch.tree import leaves
+
+    mesh = dist_world(torch)
+    par = ParallelConfig(mesh, ("data",))
+    ax = SH.MeshAxes.from_mesh(mesh)
+    out = {}
+    rng = np.random.default_rng(SEED)
+    build.reset_launch_counts()
+    try:
+        # (a) llama3.2-1b full width, bf16, the plain chunked impl
+        t0 = time.perf_counter()
+        cfg = dataclasses.replace(ARCHS[DIST_ARCH],
+                                  attention_impl="torch_chunked")
+        for bad in (dict(attention_impl="cuda"), dict(quantize="int8_cuda")):
+            try:
+                build_model(dataclasses.replace(cfg, **bad), device=dev,
+                            parallel=par)
+                check(False, f"build_model took {bad} on a mesh")
+            except ValueError as e:
+                check("plain impls" in str(e), f"{bad}: {e}")
+        m0 = build_model(cfg, device=dev)
+        m1 = build_model(cfg, device=dev, parallel=par)
+        params = m0.init(SEED)
+        sp = SH.shard_tree(mesh, params, SH.param_specs(cfg, ax))
+        B, S = DIST_PROMPTS, DIST_PROMPT_LEN
+        tokens = torch.from_numpy(rng.integers(
+            0, cfg.vocab, (B, S)).astype(np.int32)).to(dev)
+        batch = {"tokens": tokens}
+        sb = SH.shard_tree(mesh, batch, SH.batch_specs(
+            cfg, B, ax, with_targets=False))
+        with torch.no_grad():
+            l0, c0 = m0.prefill(params, batch)
+            l1, c1 = m1.prefill(sp, sb)
+            check(isinstance(l1, DTensor) and all(
+                isinstance(v, DTensor) for v in c1.values()),
+                "the mesh prefill gave plain tensors")
+            l1 = l1.full_tensor()
+            pre_gap = float((l1 - l0).abs().max())
+            tok = torch.argmax(l0[:, -1], -1).to(torch.int32)[:, None]
+            check(torch.equal(tok, torch.argmax(l1[:, -1], -1).to(
+                torch.int32)[:, None]), "prefill tokens differ")
+            pos = torch.full((B,), S, dtype=torch.int32, device=dev)
+            cache0 = contiguous_cache(m0, c0, B, S + DIST_STEPS)
+            cache1 = SH.shard_tree(mesh, contiguous_cache(
+                m0, SH.gather_tree(c1), B,
+                S + DIST_STEPS), SH.cache_specs(cfg, B, ax))
+            t0_, lg0, ms0 = greedy(torch, m0, params, cache0, tok, pos,
+                                   DIST_STEPS)
+            t1_, lg1, ms1 = greedy(torch, m1, sp, cache1, tok, pos,
+                                   DIST_STEPS)
+        gap = float((lg1 - lg0).abs().max())
+        same_bits = bool(torch.equal(lg1, lg0))
+        ms_mesh, ms_plain = (statistics.median(ms1[1:]),
+                             statistics.median(ms0[1:]))
+        print(f"  (a) {DIST_ARCH} full width bf16 torch_chunked, {B} prompts "
+              f"x {S} tokens, {DIST_STEPS} greedy steps on the 1x1 mesh "
+              f"against unsharded: prefill logit gap {pre_gap:.3e}; decode "
+              f"tokens equal {bool(torch.equal(t0_, t1_))}, largest logit "
+              f"difference {gap:.3e}, bits equal {same_bits}")
+        print(f"  (a) decode step {ms_mesh:.2f} ms on the mesh (first step "
+              f"{ms1[0]:.1f} ms) against {ms_plain:.2f} ms unsharded (first "
+              f"{ms0[0]:.1f} ms), host time with a sync a step, on {card}")
+        check(torch.equal(t0_, t1_), "mesh decode tokens differ")
+        out["a"] = dict(prefill_gap=pre_gap, gap=gap, same_bits=same_bits,
+                        ms_mesh=ms_mesh, ms_plain=ms_plain,
+                        first_ms_mesh=ms1[0])
+        del m0, m1, params, sp, cache0, cache1, c0, c1, lg0, lg1
+        torch.cuda.empty_cache()
+        print(f"  (a) took {time.perf_counter() - t0:.1f} s")
+
+        # (b) moonshot full width at 4 layers: EP at M = 1 against dense
+        t0 = time.perf_counter()
+        cfg = dataclasses.replace(ARCHS[MOE_ARCH], n_layers=DIST_MOE_LAYERS,
+                                  attention_impl="torch_chunked")
+        m0 = build_model(cfg, device=dev)
+        m1 = build_model(cfg, device=dev, parallel=par)
+        params = m0.init(SEED)
+        sp = SH.shard_tree(mesh, params, SH.param_specs(cfg, ax))
+        layer = {k: (v[0] if torch.is_tensor(v) else
+                     {kk: vv[0] for kk, vv in v.items()})
+                 for k, v in params["layers"]["moe"].items()}
+        slayer = {k: (v[0] if isinstance(v, DTensor) else
+                      {kk: vv[0] for kk, vv in v.items()})
+                  for k, v in sp["layers"]["moe"].items()}
+        Bx, Sx = DIST_MOE_TOKENS
+        x = torch.from_numpy(rng.standard_normal(
+            (Bx, Sx, cfg.d_model)).astype(np.float32)).to(dev).to(
+            torch.bfloat16)
+        xd = SH.shard_tree(mesh, {"x": x}, {"x": SH.P()})["x"]
+        with torch.no_grad():
+            dense = MOE.moe_ffn_dense(x, layer, cfg)
+            ep = MOE.moe_ffn_ep(xd, slayer, cfg, par).full_tensor()
+        ep_gap = float((ep.float() - dense.float()).abs().max())
+        ep_bits = bool(torch.equal(ep, dense))
+        print(f"  (b) {MOE_ARCH} full width, layer 0 of {DIST_MOE_LAYERS}, "
+              f"x {Bx} x {Sx} bf16: moe_ffn_ep at M = 1 against "
+              f"moe_ffn_dense: bits equal {ep_bits}, largest difference "
+              f"{ep_gap:.3e}")
+        check(ep_bits, f"EP at M = 1 differs from dense by {ep_gap}")
+        tokens = torch.from_numpy(rng.integers(
+            0, cfg.vocab, (Bx, Sx)).astype(np.int32)).to(dev)
+        with torch.no_grad():
+            l0, c0 = m0.prefill(params, {"tokens": tokens})
+            l1, c1 = m1.prefill(sp, SH.shard_tree(
+                mesh, {"tokens": tokens}, SH.batch_specs(
+                    cfg, Bx, ax, with_targets=False)))
+            tok = torch.argmax(l0[:, -1], -1).to(torch.int32)[:, None]
+            pos = torch.full((Bx,), Sx, dtype=torch.int32, device=dev)
+            cache0 = contiguous_cache(m0, c0, Bx, Sx + 1)
+            cache1 = SH.shard_tree(mesh, contiguous_cache(
+                m0, SH.gather_tree(c1), Bx,
+                Sx + 1), SH.cache_specs(cfg, Bx, ax))
+            t0_, lg0, _ = greedy(torch, m0, params, cache0, tok, pos, 1)
+            t1_, lg1, _ = greedy(torch, m1, sp, cache1, tok, pos, 1)
+        pre_gap = float((l1.full_tensor() - l0).abs().max())
+        dgap = float((lg1 - lg0).abs().max())
+        print(f"  (b) one Model.decode step on the mesh: prefill logit gap "
+              f"{pre_gap:.3e}, decode logit gap {dgap:.3e}, bits equal "
+              f"{bool(torch.equal(lg1, lg0))}, tokens equal "
+              f"{bool(torch.equal(t0_, t1_))}")
+        check(torch.equal(t0_, t1_), "moe mesh decode tokens differ")
+        out["b"] = dict(ep_bits=ep_bits, ep_gap=ep_gap, decode_gap=dgap)
+        del m0, m1, params, sp, layer, slayer, cache0, cache1, c0, c1
+        torch.cuda.empty_cache()
+        print(f"  (b) took {time.perf_counter() - t0:.1f} s")
+
+        # (c) split-K decode called directly at the vision model's widths
+        t0 = time.perf_counter()
+        sk = SPLITK_SHAPE
+        gen = torch.Generator(device=dev).manual_seed(SEED)
+        q = torch.randn((sk["B"], 1, sk["K"], sk["G"], sk["D"]),
+                        generator=gen, device=dev).to(torch.bfloat16)
+        kc = torch.randn((sk["B"], sk["T"], sk["K"], sk["D"]), generator=gen,
+                         device=dev).to(torch.bfloat16)
+        vc = torch.randn((sk["B"], sk["T"], sk["K"], sk["D"]), generator=gen,
+                         device=dev).to(torch.bfloat16)
+        kv_spec = SH.P(None, "model", None, None)
+        kv = SH.shard_tree(mesh, {"k": kc, "v": vc},
+                           {"k": kv_spec, "v": kv_spec})
+        ctx = activation_sharding_from(par)
+        out["c"] = {}
+        with torch.no_grad():
+            for vl in SPLITK_VALID:
+                got = L.decode_attention_splitk(q, kv["k"], kv["v"], vl,
+                                                ctx).full_tensor()
+                want = L.attention_core(q, kc, vc, causal=False,
+                                        kv_valid_len=vl)
+                scale = float(want.float().abs().max())
+                err = float((got.float() - want.float()).abs().max())
+                tol = SPLITK_TOL_ULPS * 2.0 ** -8 * scale
+                print(f"  (c) decode_attention_splitk B {sk['B']} K "
+                      f"{sk['K']} G {sk['G']} D {sk['D']} T {sk['T']} bf16, "
+                      f"valid_len {vl}: max abs err {err:.3e} against the "
+                      f"plain attention_core (tol {tol:.3e}: "
+                      f"{SPLITK_TOL_ULPS} bf16 ulps at {scale:.3e})")
+                check(err <= tol, f"split-K at valid_len {vl}: {err}")
+                out["c"][vl] = err
+        del q, kc, vc, kv
+        torch.cuda.empty_cache()
+        print(f"  (c) took {time.perf_counter() - t0:.1f} s")
+    finally:
+        dist.destroy_process_group()
+    launched = {k: v for k, v in build.launch_counts.items() if v}
+    print(f"  phase 13 kernel launches: {launched or 'none'} (the mesh "
+          f"takes the plain impls)")
+    check(not launched, f"phase 13 launched kernels: {launched}")
+    out["launches"] = dict(build.launch_counts)
+    return out
+
+
 def main() -> int:
     if not (SRC / "repro_torch").is_dir():
         print(f"error: {SRC / 'repro_torch'} not found; run chip_smoke.py "
@@ -4277,6 +4551,13 @@ def main() -> int:
     phase_train(torch, dev, card)
     torch.cuda.empty_cache()
     print(f"  phase 12 took {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    print(f"phase 13: the distributed layer on an NCCL world of one rank "
+          f"({DIST_ARCH} full width, {MOE_ARCH} at {DIST_MOE_LAYERS} "
+          f"layers, split-K decode at T {SPLITK_SHAPE['T']})")
+    phase_distributed(torch, dev, card)
+    torch.cuda.empty_cache()
+    print(f"  phase 13 took {time.perf_counter() - t0:.1f} s")
     print(f"all phases passed in {time.perf_counter() - t_start:.1f} s")
     for k in kernels:
         print(f"kernel {k['name']}: {k['launches']} main-path launches, "

@@ -7,8 +7,12 @@ which raises without it), at full width unless ``--reduced``:
     PYTHONPATH=src python -m repro_torch.launch.train --arch llama3.2-1b \\
         --steps 100 --ckpt /path/to/run
 
-The model runs on the plain impls (the kernels have no backward).
-``repro``'s ``--dryrun`` and ``--multi-pod`` wait for the dry-run port.
+The model runs on the plain impls (the kernels have no backward). This
+launcher trains on one device; training on a mesh is
+``make_train_step`` over ``build_model(cfg, device, parallel=...)`` with
+params placed by ``distributed.sharding.param_specs``. ``repro``'s
+``--dryrun`` and ``--multi-pod`` (which lower on the production meshes)
+wait for the dry-run slice.
 """
 from __future__ import annotations
 

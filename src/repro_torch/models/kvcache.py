@@ -19,6 +19,7 @@ from typing import Any, Callable, Dict, Optional, Tuple
 
 import numpy as np
 import torch
+from torch.distributed.tensor import DTensor, Replicate, Shard
 
 
 def update_layer_cache(k_cache: torch.Tensor, v_cache: torch.Tensor,
@@ -31,7 +32,11 @@ def update_layer_cache(k_cache: torch.Tensor, v_cache: torch.Tensor,
     that the rows fit.
 
     One ``index_put_`` over (slot, row) index tensors: no mask, no read
-    back to the host, so a CUDA graph captures it."""
+    back to the host, so a CUDA graph captures it. DTensor caches (on a
+    mesh) take ``_sharded_update_layer_cache``."""
+    if isinstance(k_cache, DTensor):
+        return _sharded_update_layer_cache(k_cache, v_cache, k_new, v_new,
+                                           pos)
     B, S_max = k_cache.shape[:2]
     S_new = k_new.shape[1]
     pos = torch.as_tensor(pos, device=k_cache.device).long()
@@ -42,6 +47,62 @@ def update_layer_cache(k_cache: torch.Tensor, v_cache: torch.Tensor,
     k_cache.index_put_((slots, rows), k_new.to(k_cache.dtype))
     v_cache.index_put_((slots, rows), v_new.to(v_cache.dtype))
     return k_cache, v_cache
+
+
+def _sharded_update_layer_cache(k_cache, v_cache, k_new, v_new, pos):
+    """``update_layer_cache`` on DTensor caches, a local region over the
+    caches' placements (``sharding.cache_specs``): each rank writes the
+    rows of its own slots that fall in its own span of the sequence, at
+    the same clamped starts as the whole-tensor write. The new rows are
+    redistributed to the cache's placements, replicated over a mesh dim
+    that shards the sequence; ``pos`` is the same on every rank."""
+    mesh = k_cache.device_mesh
+    pl = tuple(k_cache.placements)
+    row_pl = [Replicate() if isinstance(p, Shard) and p.dim == 1 else p
+              for p in pl]
+    B, S_max = k_cache.shape[:2]
+    S_new = k_new.shape[1]
+    local_shape, offset = _local_span(k_cache.shape, mesh, pl)
+    kl, vl = k_cache.to_local(), v_cache.to_local()
+    if isinstance(pos, DTensor):
+        pos = pos.full_tensor()
+    pos = torch.as_tensor(pos, device=kl.device).long()
+    pos = pos.expand(B) if pos.ndim == 0 else pos
+    start = torch.clamp(pos, 0, S_max - S_new)
+    b0, t0 = offset[0], offset[1]
+    b_local, t_local = local_shape[0], local_shape[1]
+    rows = (start[b0:b0 + b_local, None] - t0
+            + torch.arange(S_new, device=kl.device))
+    slots = torch.arange(b_local, device=kl.device)[:, None].expand(
+        b_local, S_new)
+    live = (rows >= 0) & (rows < t_local)
+    for cache, new in ((kl, k_new), (vl, v_new)):
+        if not isinstance(new, DTensor):
+            new = DTensor.from_local(new, mesh, [Replicate()] * mesh.ndim,
+                                     run_check=False)
+        new = new.redistribute(mesh, row_pl).to_local()
+        cache.index_put_((slots[live], rows[live]),
+                         new[live].to(cache.dtype))
+    return k_cache, v_cache
+
+
+def _local_span(shape, mesh, placements) -> Tuple[list, list]:
+    """(local shape, global offset) of this rank's shard of an evenly
+    sharded tensor: a ``Shard(d)`` splits dim ``d`` over its mesh dim, the
+    mesh dims that split one tensor dim taken in mesh order, the first
+    major (``sharding.to_placements``). ``cache_specs`` shards only dims
+    that their mesh dims divide; any other split raises."""
+    size, offset = list(shape), [0] * len(shape)
+    for i, pl in enumerate(placements):
+        if not isinstance(pl, Shard):
+            continue
+        n = mesh.size(i)
+        if size[pl.dim] % n:
+            raise ValueError(f"cache dim {pl.dim} of {tuple(shape)} does "
+                             f"not split evenly over mesh dim {i} ({n})")
+        size[pl.dim] //= n
+        offset[pl.dim] += mesh.get_local_rank(i) * size[pl.dim]
+    return size, offset
 
 
 def page_coords(block_table: torch.Tensor, pos: Any,

@@ -15,13 +15,23 @@ pointers, so autograd would see no edge through them and the gradient
 would be silently wrong. ``"torch_chunked"`` takes long full-sequence
 attention block by block with a recomputing backward
 (``ChunkedAttention``), the counterpart of ``repro``'s ``_attention_chunked``.
+
+On a mesh (``build_model(..., parallel=...)``) the tensors are DTensors
+and their sharding propagates op by op, the counterpart of GSPMD:
+``constrain_residual`` pins the residual stream (``repro``'s
+``with_sharding_constraint``), and ``decode_attention_splitk`` is a local
+region with explicit collectives (``repro``'s ``shard_map``).
 """
 from __future__ import annotations
 
 from typing import Any, Dict, Optional, Tuple
 
 import torch
+import torch.distributed as dist
+from torch.distributed.tensor import DTensor, Replicate
+from torch.distributed.tensor.experimental import local_map
 
+from repro_torch.distributed.parallel import get_activation_sharding
 from repro_torch.kernels import ops as kops
 from repro_torch.models import kvcache as KV
 from repro_torch.models.quantize import QuantizedWeight, qeinsum
@@ -82,6 +92,102 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor,
 
 
 # ---------------------------------------------------------------------------
+# sharding: the residual constraint and the split-K decode region
+
+
+def as_dtensor(t: torch.Tensor, mesh) -> DTensor:
+    """``t`` as a DTensor on ``mesh``: a plain tensor (the same on every
+    rank, as ``implicit_replication`` takes it) becomes a replicated one."""
+    if isinstance(t, DTensor):
+        return t
+    return DTensor.from_local(t, mesh, [Replicate()] * mesh.ndim,
+                              run_check=False)
+
+
+def activation_placements(ctx, spec):
+    """DTensor placements of an activation spec on the context's mesh."""
+    from repro_torch.distributed.sharding import P, to_placements
+    return to_placements(ctx.mesh, P(*spec))
+
+
+def constrain_residual(x: torch.Tensor) -> torch.Tensor:
+    """Sequence-parallel placement of the (B, S, d) residual stream: batch
+    on the data axes where they divide it, sequence on the model axis
+    where it divides (``repro/models/layers.py:82-92``). A no-op outside a
+    mesh context and for a plain tensor."""
+    ctx = get_activation_sharding()
+    if ctx is None or ctx.mesh is None or x.ndim != 3 \
+            or not isinstance(x, DTensor):
+        return x
+    return x.redistribute(ctx.mesh, activation_placements(
+        ctx, (ctx.batch(x.shape[0]), ctx.seq(x.shape[1]), None)))
+
+
+def decode_attention_splitk(q, kc, vc, valid_len, ctx) -> torch.Tensor:
+    """Flash-decode over a sequence-sharded KV cache, a local region
+    (``repro/models/layers.py:239-282``).
+
+    q: (B, 1, K, G, D) replicated over the model axis; kc/vc: (B, T, K, D)
+    with T sharded over the model axis; ``valid_len`` one length for every
+    slot (an int or a 0-d tensor). Each rank scores its T / M keys from
+    the offset ``rank_in_model * T_local``, masks positions ``>=
+    valid_len``, takes the local max and ``all_reduce(MAX)``; then its
+    local ``p``, ``l`` and ``acc``, ``all_reduce(SUM)`` of ``l`` and
+    ``acc``, and the division. A shard wholly masked adds exact zeros. No
+    score or cache is gathered."""
+    mesh, m_axis = ctx.mesh, ctx.model_axis
+    group = mesh.get_group(m_axis)
+    rank = mesh.get_local_rank(m_axis)
+    B, _, K, G, D = q.shape
+    dax = ctx.batch(B)
+    q_pl = activation_placements(ctx, (dax, None, None, None, None))
+    kv_pl = activation_placements(ctx, (dax, m_axis, None, None))
+    if isinstance(valid_len, DTensor):
+        valid_len = valid_len.to_local()
+
+    def local_fn(q_l, k_l, v_l):
+        T_local = k_l.shape[1]
+        vlen = torch.as_tensor(valid_len, device=q_l.device)
+        s = torch.einsum("bskgd,btkd->bkgst", q_l.float(), k_l.float()) \
+            * (D ** -0.5)
+        t_idx = rank * T_local + torch.arange(T_local, device=q_l.device)
+        s = s.masked_fill(~(t_idx < vlen), NEG_INF)
+        m = torch.amax(s, dim=-1, keepdim=True)               # (b,k,g,1,1)
+        dist.all_reduce(m, op=dist.ReduceOp.MAX, group=group)
+        p = torch.exp(s - m)
+        l_ = torch.sum(p, dim=-1, keepdim=True)
+        acc = torch.einsum("bkgst,btkd->bskgd", p.to(v_l.dtype).float(),
+                           v_l.float())                       # (b,1,k,g,D)
+        dist.all_reduce(l_, op=dist.ReduceOp.SUM, group=group)
+        dist.all_reduce(acc, op=dist.ReduceOp.SUM, group=group)
+        den = torch.clamp(l_[..., 0], min=1e-30).permute(0, 3, 1, 2)
+        return (acc / den[..., None]).to(q_l.dtype)
+
+    fn = local_map(local_fn, out_placements=q_pl,
+                   in_placements=(q_pl, kv_pl, kv_pl), device_mesh=mesh,
+                   redistribute_inputs=True)
+    return fn(as_dtensor(q, mesh), as_dtensor(kc, mesh), as_dtensor(vc, mesh))
+
+
+def _splitk_ctx(q, k, kv_valid_len, impl: str):
+    """The context when ``attention_core`` takes the split-K decode, under
+    the reference's conditions (``repro/models/layers.py:302-311``): the
+    chunked impl, a one-token query with one scalar ``kv_valid_len``, a
+    mesh context, and a cache of T > 1 keys that the model axis divides
+    while it does not divide the KV heads (a head-sharded cache keeps the
+    propagated path). Else None."""
+    if impl != "torch_chunked" or q.shape[1] != 1 or kv_valid_len is None:
+        return None
+    ctx = get_activation_sharding()
+    if ctx is None or ctx.mesh is None:
+        return None
+    T, K = k.shape[1], k.shape[2]
+    if T > 1 and T % ctx.model_size == 0 and K % ctx.model_size != 0:
+        return ctx
+    return None
+
+
+# ---------------------------------------------------------------------------
 # attention
 
 
@@ -101,9 +207,15 @@ def attention_core(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     ask for ``impl="torch"``). The kernel impl raises when asked for a
     gradient. ``impl="torch_chunked"`` sends a long full-sequence call
     (no ``kv_valid_len``, S > 256, S % 256 == 0, T % 512 == 0) to
-    ``attention_chunked`` and the rest to the plain path.
+    ``attention_chunked`` and the rest to the plain path; under a mesh
+    context a one-token query with one scalar length goes to
+    ``decode_attention_splitk`` where ``_splitk_ctx`` says so.
     """
     vec_valid = torch.is_tensor(kv_valid_len) and kv_valid_len.ndim > 0
+    if not vec_valid:
+        ctx = _splitk_ctx(q, k, kv_valid_len, impl)
+        if ctx is not None:
+            return decode_attention_splitk(q, k, v, kv_valid_len, ctx)
     if impl == "cuda":
         kops.require_no_grad("attention impl 'cuda'", q, k, v)
         if vec_valid and q.shape[1] != 1:
@@ -423,16 +535,37 @@ def lm_logits(x: torch.Tensor, head: torch.Tensor) -> torch.Tensor:
     """Logits in f32, accumulated in f32 (no rounding to the working dtype).
 
     On CUDA a bf16 head goes through ``_HeadBf16``, whose forward is
-    ``torch.mm(..., out_dtype=float32)``; elsewhere the operands are
-    widened first.
+    ``torch.mm(..., out_dtype=float32)`` (on a mesh in a local region,
+    ``_head_bf16_region``); elsewhere the operands are widened first.
     """
     B, S, d = x.shape
     x2 = x.reshape(B * S, d)
     if x.is_cuda and x.dtype == torch.bfloat16:
-        out = _HeadBf16.apply(x2, head)
+        if isinstance(x2, DTensor):
+            out = _head_bf16_region(x2, head)
+        else:
+            out = _HeadBf16.apply(x2, head)
     else:
         out = x2.float() @ head.float().t()
     return out.reshape(B, S, -1)
+
+
+def _head_bf16_region(x2: DTensor, head: DTensor) -> DTensor:
+    """``_HeadBf16`` on a mesh, a local region (DTensor has no sharding
+    rule for ``mm`` with an ``out_dtype``): rows on the data axes where
+    they divide them, the vocab on the model axis where it divides it, as
+    ``param_specs`` shards the head; each rank multiplies its rows by its
+    vocab shard over the whole of d, so every logit is the unsharded
+    product's."""
+    ctx = get_activation_sharding()
+    vocab = ctx.model_axis if head.shape[0] % ctx.model_size == 0 else None
+    rows = ctx.batch(x2.shape[0])
+    fn = local_map(_HeadBf16.apply,
+                   out_placements=activation_placements(ctx, (rows, vocab)),
+                   in_placements=(activation_placements(ctx, (rows, None)),
+                                  activation_placements(ctx, (vocab, None))),
+                   device_mesh=ctx.mesh, redistribute_inputs=True)
+    return fn(x2, as_dtensor(head, ctx.mesh))
 
 
 def cross_entropy(logits: torch.Tensor, targets: torch.Tensor) -> torch.Tensor:
@@ -442,7 +575,14 @@ def cross_entropy(logits: torch.Tensor, targets: torch.Tensor) -> torch.Tensor:
     is gathered: each row reads one element, so its backward writes one
     element a row and gives the same bits every call on the card (``repro``
     takes it by a mask-reduce, for a vocab-sharded layout; the value is the
-    same)."""
+    same). On a mesh (DTensor logits, the vocab sharded) it is the
+    reference's mask-reduce, which stays sharded: a partial sum and a
+    small all-reduce, where a gather would need the whole row."""
     logz = torch.logsumexp(logits, dim=-1)
-    gold = torch.gather(logits, -1, targets.long()[..., None])[..., 0]
+    if isinstance(logits, DTensor):
+        vocab = torch.arange(logits.shape[-1], device=logits.device)
+        mask = vocab == targets.long()[..., None]
+        gold = torch.sum(logits.masked_fill(~mask, 0.0), dim=-1)
+    else:
+        gold = torch.gather(logits, -1, targets.long()[..., None])[..., 0]
     return torch.mean(logz - gold)

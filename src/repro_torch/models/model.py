@@ -34,16 +34,30 @@
 
 Every family of ``repro`` is ported: dense, moe, hybrid, ssm, audio and
 vlm (an unknown family fails in ``ArchConfig``).
+
+With ``parallel`` (a ``distributed.parallel.ParallelConfig``) the model runs
+on its mesh: the caller places params, batches and caches as DTensors
+(``distributed.sharding.shard_tree`` by ``param_specs``, ``batch_specs``
+and ``cache_specs``, a contiguous cache), and every entry point runs with
+the activation-sharding context set and inside ``implicit_replication()``,
+so the plain tensors made inside it (rope's angles, masks, ``arange``s)
+count as replicated. The moe family takes the expert-parallel lowering
+(``moe.moe_ffn_ep``) on the mesh.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 from typing import Any, Callable, Dict, Optional, Tuple
 
 import torch
+from torch.distributed.tensor.experimental import implicit_replication
 
 from repro_torch import resolve_device
 from repro_torch.configs.base import ArchConfig
+from repro_torch.distributed.parallel import (activation_sharding_from,
+                                              get_activation_sharding,
+                                              using_activation_sharding)
 from repro_torch.kernels.decode_attention import decode_body
 from repro_torch.kernels.flash_attention import flash_body
 from repro_torch.models import layers as L
@@ -67,9 +81,31 @@ class Model:
                                                 torch.dtype]]]
     empty_state: Optional[Callable[..., Dict[str, torch.Tensor]]] = None
     decode_window: Optional[Callable[..., Any]] = None
+    parallel: Optional[Any] = None
 
     def loss(self, params, batch: Batch) -> torch.Tensor:
-        return L.cross_entropy(self.forward(params, batch), batch["targets"])
+        with self.mesh_context():
+            return L.cross_entropy(self.forward(params, batch),
+                                   batch["targets"])
+
+    def mesh_context(self):
+        """The context every entry point runs in: on a mesh, the activation
+        sharding and ``implicit_replication()``; else nothing. A backward
+        through the model on a mesh runs in it too (``loss_and_grads``)."""
+        return _mesh_context(self.parallel)
+
+
+@contextlib.contextmanager
+def _mesh_context(parallel):
+    """Enter the mesh context once: ``implicit_replication()`` does not
+    nest (its exit turns it off), so a nested entry point (``loss`` around
+    ``forward``) leaves it to the outer one."""
+    if parallel is None or get_activation_sharding() is not None:
+        yield
+        return
+    with using_activation_sharding(activation_sharding_from(parallel)), \
+            implicit_replication():
+        yield
 
 
 def _cache_shapes(cfg: ArchConfig, batch: int, max_len: int,
@@ -96,17 +132,19 @@ def _cache_shapes(cfg: ArchConfig, batch: int, max_len: int,
 
 
 _FAMILIES = {
-    # family -> (init, forward(cfg, params, batch),
-    #            prefill(cfg, params, batch), decode)
+    # family -> (init, forward(cfg, params, batch[, parallel]),
+    #            prefill(cfg, params, batch[, parallel]), decode); the moe
+    #            family's entry points take the ParallelConfig last
     "dense": (T.init_dense,
               lambda cfg, p, b: T.forward_dense(cfg, p, b["tokens"]),
               lambda cfg, p, b: T.prefill_dense(cfg, p, b["tokens"],
                                                 length=b.get("length")),
               T.decode_dense),
     "moe": (MOE.init_moe,
-            lambda cfg, p, b: MOE.forward_moe(cfg, p, b["tokens"]),
-            lambda cfg, p, b: MOE.prefill_moe(cfg, p, b["tokens"],
-                                              length=b.get("length")),
+            lambda cfg, p, b, par=None: MOE.forward_moe(cfg, p, b["tokens"],
+                                                        par),
+            lambda cfg, p, b, par=None: MOE.prefill_moe(
+                cfg, p, b["tokens"], par, length=b.get("length")),
             MOE.decode_moe),
     "hybrid": (SSM.init_zamba,
                lambda cfg, p, b: SSM.forward_zamba(cfg, p, b["tokens"]),
@@ -135,8 +173,20 @@ _FAMILIES = {
 }
 
 
-def build_model(cfg: ArchConfig, device="cuda") -> Model:
-    """The model of ``cfg`` on ``device`` (default CUDA; raises without it)."""
+def build_model(cfg: ArchConfig, device="cuda", parallel=None) -> Model:
+    """The model of ``cfg`` on ``device`` (default CUDA; raises without it);
+    on ``parallel``'s mesh when given (the module docstring). A mesh takes
+    the plain impls only: the kernel wrappers launch on raw pointers of
+    whole tensors, and ``repro`` lowers sharded code with its plain impl,
+    so ``attention_impl="cuda"`` and ``quantize="int8_cuda"`` are refused
+    by name."""
+    if parallel is not None and (cfg.attention_impl == "cuda"
+                                 or cfg.quantize == "int8_cuda"):
+        raise ValueError(
+            f"config {cfg.name!r}: a mesh takes the plain impls; "
+            f"attention_impl={cfg.attention_impl!r} and quantize="
+            f"{cfg.quantize!r} ask for a kernel, whose wrapper launches on "
+            "a whole tensor (use attention_impl='torch_chunked')")
     if cfg.attention_impl == "cuda" and cfg.family != "ssm":
         # no quiet fall back to the plain path: a geometry that no kernel
         # body takes (phi3-mini's head_dim 96, qwen3-moe's G = 16) is
@@ -178,16 +228,30 @@ def build_model(cfg: ArchConfig, device="cuda") -> Model:
         def window(p, c, t, pos):
             return T.decode_window_dense(cfg, p, c, t, pos)
 
+    par = () if parallel is None or cfg.family != "moe" else (parallel,)
+
+    def on_mesh(fn):
+        """``fn`` with the mesh context around it (``parallel`` only)."""
+        if parallel is None:
+            return fn
+
+        def run(*args):
+            with _mesh_context(parallel):
+                return fn(*args)
+        return run
+
     return Model(
         cfg=cfg,
         device=dev,
         init=init,
-        forward=lambda p, b: forward_fn(cfg, p, b),
-        prefill=lambda p, b: prefill_fn(cfg, p, b),
-        decode=lambda p, c, t, pos: decode_fn(cfg, p, c, t, pos),
+        forward=on_mesh(lambda p, b: forward_fn(cfg, p, b, *par)),
+        prefill=on_mesh(lambda p, b: prefill_fn(cfg, p, b, *par)),
+        decode=on_mesh(lambda p, c, t, pos: decode_fn(cfg, p, c, t, pos,
+                                                      *par)),
         cache_shapes=cache_shapes,
         empty_state=empty_state,
-        decode_window=window,
+        decode_window=window and on_mesh(window),
+        parallel=parallel,
     )
 
 

@@ -1,17 +1,24 @@
 """Mixture-of-Experts decoder (moonshot 64 experts top-6, qwen3 128 top-8;
-``repro.models.moe`` but for the expert-parallel lowering).
+``repro.models.moe``).
 
-The FFN is ``repro``'s single-device lowering, ``moe_ffn_dense``:
-capacity-bounded top-k routing with token dropping (GShard-style), every
-expert run over its capacity buffer, so a step reads every expert's
-weights. The routing, the dispatch, the expert GEMMs (``torch.bmm``) and
-the combine are plain PyTorch, as they are XLA in the JAX package,
-outside any Pallas kernel. They give the same bits on every call: the
-dispatch is a plain indexed write (kept assignments have unique (expert,
-position) pairs; dropped ones go to a spare row that nothing reads) and
-the combine sums each token's k weighted expert outputs in one reduction
-of fixed order, where ``repro`` scatter-adds both (atomics on a GPU). The
-expert-parallel lowering (``moe_ffn_ep``) waits for the distributed port.
+Two FFN lowerings, ``moe_ffn_ep`` on a mesh and ``moe_ffn_dense``
+without one:
+
+* ``moe_ffn_dense``, ``repro``'s single-device lowering: capacity-bounded
+  top-k routing with token dropping (GShard-style), every expert run over
+  its capacity buffer, so a step reads every expert's weights. The
+  routing, the dispatch, the expert GEMMs (``torch.bmm``) and the combine
+  are plain PyTorch, as they are XLA in the JAX package, outside any
+  Pallas kernel. They give the same bits on every call: the dispatch is a
+  plain indexed write (kept assignments have unique (expert, position)
+  pairs; dropped ones go to a spare row that nothing reads) and the
+  combine sums each token's k weighted expert outputs in one reduction of
+  fixed order, where ``repro`` scatter-adds both (atomics on a GPU).
+* ``moe_ffn_ep``, the expert-parallel lowering on a mesh: a local region
+  in which each rank routes its own tokens, dispatches them by the same
+  indexed write, sends each expert's buffer to its owner over the model
+  axis (``all_to_all_single``), runs its ``E / M`` experts and sends the
+  outputs back for the same fixed-order combine.
 
 Attention reuses the dense family's self block halves
 (``transformer._self_attn`` at prefill, ``transformer._decode_attn`` at
@@ -31,8 +38,11 @@ from typing import Any, Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
+from torch.distributed.tensor import Partial, Replicate, Shard
+from torch.distributed.tensor.experimental import local_map
 
 from repro_torch.configs.base import ArchConfig
+from repro_torch.distributed.parallel import activation_sharding_from
 from repro_torch.models import layers as L
 from repro_torch.models import transformer as T
 
@@ -146,25 +156,124 @@ def moe_ffn_dense(x: torch.Tensor, p: Params,
     same bits every call on the card too: the repeat is an expand, whose
     backward sums over k, and the gather an indexed read, whose backward
     accumulates sorted by index (``index_select`` and
-    ``repeat_interleave`` would add with atomics). This is the port's
-    only lowering: ``repro``'s expert-parallel ``moe_ffn_ep`` waits for
-    the distributed port."""
+    ``repeat_interleave`` would add with atomics)."""
     B, S, d = x.shape
-    n = B * S
+    x2 = x.reshape(B * S, d)
+    w, keep, flat, buf = _dispatch(x2, p["router"], cfg)
+    E, C = cfg.n_experts, buf.shape[0] // cfg.n_experts
+    out = _expert_gemm(buf.view(E, C, d), p["w_gate"], p["w_up"],
+                       p["w_down"]).reshape(E * C, d)
+    y = _combine(out, w, keep, flat, cfg, x.dtype).reshape(B, S, d)
+    if "shared" in p:
+        y = y + L.swiglu(x, p["shared"])
+    return y
+
+
+def _dispatch(x2: torch.Tensor, router: torch.Tensor, cfg: ArchConfig):
+    """Route the n rows of x2 (n, d) and write each kept assignment at
+    (expert, position) of an (E * C + 1, d) buffer, C from n; dropped ones
+    go to the spare last row. Returns (weights (n, k), keep (n, k), the
+    flat buffer rows (n * k,), the buffer's first E * C rows)."""
+    n, d = x2.shape
     k, E = cfg.top_k, cfg.n_experts
-    x2 = x.reshape(n, d)
-    w, idx = _route(x2, p["router"], cfg)
+    w, idx = _route(x2, router, cfg)
     C = _capacity(n, cfg)
     pos, keep = _dispatch_indices(idx, cfg, C)
     flat = (idx * C + pos).masked_fill(~keep, E * C).reshape(n * k)
-    buf = x.new_zeros((E * C + 1, d))
+    buf = x2.new_zeros((E * C + 1, d))
     buf.index_copy_(0, flat, x2[:, None].expand(n, k, d).reshape(n * k, d))
-    out = _expert_gemm(buf[:E * C].view(E, C, d), p["w_gate"], p["w_up"],
-                       p["w_down"]).reshape(E * C, d)
-    gathered = out[torch.clamp(flat, max=E * C - 1)]
-    w_f = (w * keep).to(x.dtype)
-    y = torch.sum(gathered.reshape(n, k, d) * w_f[..., None], dim=1)
-    y = y.reshape(B, S, d)
+    return w, keep, flat, buf[:E * C]
+
+
+def _combine(out: torch.Tensor, w, keep, flat, cfg: ArchConfig,
+             dtype) -> torch.Tensor:
+    """Each row's k expert outputs from ``out`` (E * C, d), weighted in
+    ``dtype`` (a dropped one's weight is 0) and summed over k in one
+    reduction: (n, d)."""
+    n, k = w.shape
+    gathered = out[torch.clamp(flat, max=out.shape[0] - 1)]
+    w_f = (w * keep).to(dtype)
+    return torch.sum(gathered.reshape(n, k, -1) * w_f[..., None], dim=1)
+
+
+def moe_ffn_ep(x: torch.Tensor, p: Params, cfg: ArchConfig,
+               parallel) -> torch.Tensor:
+    """Expert parallelism over the model axis with explicit all-to-alls
+    (``repro/models/moe.py:156-214``); x and the params are DTensors on
+    ``parallel.mesh``.
+
+    Tokens enter the local region sharded over the data axes (batch, where
+    they divide it) and over the model axis (sequence, when S > 1 and M
+    divides it; otherwise replicated over model), matching the
+    sequence-parallel residual stream; the expert weights enter sharded on
+    their expert dim over model, the router replicated. Each rank routes
+    its own T rows with capacity C from T, as the reference does (so where
+    local capacity drops a token the result differs from the dense
+    lowering's, as the reference's does), and dispatches them by
+    ``_dispatch``'s indexed write. Its (E * C, d) buffer is M blocks of
+    E / M experts, block j for model rank j: ``all_to_all_single`` sends
+    them, the rank runs its experts over the (E / M, M * C, d) rows it
+    received, and a second ``all_to_all_single`` returns each block to its
+    source for ``_combine``. Both are the autograd form, so a train step
+    takes gradients through them: a rank's router and expert gradients
+    sum over its own tokens and are partial over the mesh dims that split
+    the tokens. A gradient needs the sequence split over the model axis
+    (tokens replicated over it would count M times in each expert's
+    gradient), and is refused by name otherwise. The shared experts run
+    outside the region, as in the reference."""
+    # the autograd all-to-all lives in a private module: imported here so
+    # that the unsharded paths do not depend on it
+    import torch.distributed._functional_collectives as funcol
+    mesh = parallel.mesh
+    ctx = activation_sharding_from(parallel)
+    M = parallel.model_size
+    E = cfg.n_experts
+    if E % M:
+        raise ValueError(f"moe_ffn_ep: {E} experts do not divide the model "
+                         f"axis of size {M}")
+    e_local = E // M
+    group = (mesh, mesh.mesh_dim_names.index(parallel.model_axis))
+    B, S, d = x.shape
+    seq = parallel.model_axis if (S % M == 0 and S > 1) else None
+    if seq is None and M > 1 and torch.is_grad_enabled() and any(
+            t.requires_grad for t in (x, p["router"], p["w_gate"])):
+        # every model rank would route the same tokens, and each expert
+        # would add their gradients M times
+        raise ValueError(f"moe_ffn_ep: a gradient needs the sequence ({S}) "
+                         f"split over the model axis ({M})")
+    x_pl = L.activation_placements(ctx, (ctx.batch(B), seq, None))
+    rep = L.activation_placements(ctx, ())
+    w_pl = L.activation_placements(ctx, (parallel.model_axis,))
+    # gradients: a rank's router and expert grads sum over its own tokens,
+    # partial over every mesh dim that splits the tokens
+    split = [isinstance(pl, Shard) for pl in x_pl]
+    router_g = [Partial() if s else Replicate() for s in split]
+    w_g = [pl if isinstance(pl, Shard) else Partial() if s else Replicate()
+           for pl, s in zip(w_pl, split)]
+
+    def local_fn(x_l, router, wg, wu, wd):
+        Bl, Sl, _ = x_l.shape
+        x2 = x_l.reshape(Bl * Sl, d)
+        w, keep, flat, buf = _dispatch(x2, router, cfg)
+        C = buf.shape[0] // E
+        recv = funcol.all_to_all_single_autograd(buf.contiguous(), None,
+                                                 None, group)
+        recv = recv.view(M, e_local, C, d).transpose(0, 1) \
+            .reshape(e_local, M * C, d)
+        out = _expert_gemm(recv, wg, wu, wd)
+        out = out.view(e_local, M, C, d).transpose(0, 1) \
+            .reshape(E * C, d)
+        back = funcol.all_to_all_single_autograd(out.contiguous(), None,
+                                                 None, group)
+        return _combine(back, w, keep, flat, cfg, x_l.dtype) \
+            .reshape(Bl, Sl, d)
+
+    fn = local_map(local_fn, out_placements=x_pl,
+                   in_placements=(x_pl, rep, w_pl, w_pl, w_pl),
+                   in_grad_placements=(x_pl, router_g, w_g, w_g, w_g),
+                   device_mesh=mesh, redistribute_inputs=True)
+    y = fn(x, L.as_dtensor(p["router"], mesh), p["w_gate"], p["w_up"],
+           p["w_down"])
     if "shared" in p:
         y = y + L.swiglu(x, p["shared"])
     return y
@@ -174,23 +283,25 @@ def moe_ffn_dense(x: torch.Tensor, p: Params,
 # full model: forward / prefill / decode
 
 
-def _moe_residual(cfg: ArchConfig, x, o, blk):
+def _moe_residual(cfg: ArchConfig, x, o, blk, parallel=None):
     x = x + L.attn_out(o, blk["attn"])
-    return x + moe_ffn_dense(L.rmsnorm(x, blk["ln2"]), blk["moe"], cfg)
+    h = L.rmsnorm(x, blk["ln2"])
+    x = x + (moe_ffn_dense(h, blk["moe"], cfg) if parallel is None
+             else moe_ffn_ep(h, blk["moe"], cfg, parallel))
+    return L.constrain_residual(x)
 
 
-def forward_moe(cfg: ArchConfig, params: Params,
-                tokens: torch.Tensor) -> torch.Tensor:
-    """The causal forward of training (the dense dispatch; ``repro``'s
-    expert-parallel lowering waits for the distributed port): tokens (B,
-    S) -> logits (B, S, V) f32, each layer a remat body. Capacity comes
-    from all B * S tokens."""
+def forward_moe(cfg: ArchConfig, params: Params, tokens: torch.Tensor,
+                parallel=None) -> torch.Tensor:
+    """The causal forward of training: tokens (B, S) -> logits (B, S, V)
+    f32, each layer a remat body. Capacity comes from all B * S tokens
+    (from each rank's own tokens under ``moe_ffn_ep``)."""
     positions = T._positions(tokens)
     x = L.embed_tokens(tokens, params["embed"], T.DTYPES[cfg.dtype])
 
     def body(x, blk):
         o, _, _ = T._self_attn(cfg, x, blk, positions)
-        return _moe_residual(cfg, x, o, blk)
+        return _moe_residual(cfg, x, o, blk, parallel)
 
     for blk in T.unstack(params["layers"], cfg.n_layers):
         x = T.remat(cfg, body, x, blk)
@@ -198,7 +309,7 @@ def forward_moe(cfg: ArchConfig, params: Params,
 
 
 def prefill_moe(cfg: ArchConfig, params: Params, tokens: torch.Tensor,
-                length: Optional[torch.Tensor] = None):
+                parallel=None, length: Optional[torch.Tensor] = None):
     """tokens (B, S), right-padded; ``length`` (B,) valid prefix lengths.
 
     Expert capacity comes from the padded token count, as in ``repro``:
@@ -210,7 +321,7 @@ def prefill_moe(cfg: ArchConfig, params: Params, tokens: torch.Tensor,
     ks, vs = [], []
     for blk in T.unstack(params["layers"], cfg.n_layers):
         o, k, v = T._self_attn(cfg, x, blk, positions)
-        x = _moe_residual(cfg, x, o, blk)
+        x = _moe_residual(cfg, x, o, blk, parallel)
         ks.append(k)
         vs.append(v)
     return T._head(cfg, params, x, length), {"k": torch.stack(ks),
@@ -218,7 +329,7 @@ def prefill_moe(cfg: ArchConfig, params: Params, tokens: torch.Tensor,
 
 
 def decode_moe(cfg: ArchConfig, params: Params, cache, token: torch.Tensor,
-               pos: torch.Tensor) -> Tuple[torch.Tensor, Any]:
+               pos: torch.Tensor, parallel=None) -> Tuple[torch.Tensor, Any]:
     """One new token per slot: token (B, 1), pos (B,) int32; every row is
     routed. ``cache`` holds the pools ``"k"``/``"v"`` (L, n_phys, ps, K, D)
     and the block table ``"bt"``, or, without ``"bt"``, the contiguous
@@ -229,5 +340,5 @@ def decode_moe(cfg: ArchConfig, params: Params, cache, token: torch.Tensor,
     for i, blk in enumerate(T.unstack(params["layers"], cfg.n_layers)):
         o = T._decode_attn(cfg, x, blk, cache["k"][i], cache["v"][i], bt,
                            pos)
-        x = _moe_residual(cfg, x, o, blk)
+        x = _moe_residual(cfg, x, o, blk, parallel)
     return T._head(cfg, params, x), cache

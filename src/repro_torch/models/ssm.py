@@ -332,7 +332,7 @@ def forward_zamba(cfg: ArchConfig, params: Params,
     shared = params["shared"]
 
     def mamba(x, blk):
-        return x + mamba_block_full(x, blk, cfg)[0]
+        return L.constrain_residual(x + mamba_block_full(x, blk, cfg)[0])
 
     def group(x, blks):
         for blk in blks:
@@ -371,7 +371,7 @@ def prefill_zamba(cfg: ArchConfig, params: Params, tokens: torch.Tensor,
             out, state = mamba_block_full(x, blk, cfg, mask=mask)
             states.append(state)
             convs.append(mamba_conv_tail(x, blk, cfg, length))
-            x = x + out
+            x = L.constrain_residual(x + out)
         if grp is not None:
             x, k, v = _shared_block(cfg, x, params["shared"], positions)
             ks.append(k)

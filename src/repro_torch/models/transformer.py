@@ -130,6 +130,13 @@ def _ffn_residual(x, out_attn, blk, qi):
     return x + L.swiglu(L.rmsnorm(x, blk["ln2"]), blk["mlp"], qimpl=qi)
 
 
+def _constrained(x, out_attn, blk, qi):
+    """``_ffn_residual``, its output pinned by ``L.constrain_residual``
+    (a no-op off a mesh): the end of a full-sequence self or cross block,
+    where ``repro`` constrains the residual stream."""
+    return L.constrain_residual(_ffn_residual(x, out_attn, blk, qi))
+
+
 def _self_attn(cfg: ArchConfig, x, blk, positions, *, causal=True,
                kv_valid_len=None, impl: Optional[str] = None):
     """The attention half of a self block over the whole sequence: norm,
@@ -150,7 +157,7 @@ def _self_block(cfg: ArchConfig, x, blk, positions, *, causal=True,
     with the block's roped k/v (B, S, K, D)."""
     o, k, v = _self_attn(cfg, x, blk, positions, causal=causal,
                          kv_valid_len=kv_valid_len, impl=impl)
-    return _ffn_residual(x, o, blk, qimpl_for(cfg.quantize)), k, v
+    return _constrained(x, o, blk, qimpl_for(cfg.quantize)), k, v
 
 
 def _cross_kv(ctx, blk):
@@ -165,7 +172,7 @@ def _cross_block(x, blk, attend):
     context's k/v (no RoPE, no causality), then the SwiGLU MLP."""
     h = L.rmsnorm(x, blk["ln1"])
     q = torch.einsum("bsd,dkgh->bskgh", h, blk["attn"]["wq"])
-    return _ffn_residual(x, attend(q), blk, "torch")
+    return _constrained(x, attend(q), blk, "torch")
 
 
 def _decode_attn(cfg: ArchConfig, x, blk, kc, vc, bt, pos):

@@ -350,12 +350,13 @@ def forward_xlstm(cfg: ArchConfig, params: Params, tokens: torch.Tensor,
     slstms = T.unstack(params["slstm"], g)
 
     def mlstm(x, blk):
-        return x + mlstm_block(x, blk, cfg, mode=mode)[0]
+        return L.constrain_residual(x + mlstm_block(x, blk, cfg,
+                                                    mode=mode)[0])
 
     def group(x, m_blks, s_blk):
         for blk in m_blks:
             x = T.remat(cfg, mlstm, x, blk)
-        return x + slstm_block(x, s_blk, cfg)[0]
+        return L.constrain_residual(x + slstm_block(x, s_blk, cfg)[0])
 
     for grp in range(g):
         x = T.remat(cfg, group, x, mlstms[grp * m_per:(grp + 1) * m_per],
@@ -383,7 +384,7 @@ def prefill_xlstm(cfg: ArchConfig, params: Params, tokens: torch.Tensor,
     for grp, s_blk in enumerate(T.unstack(params["slstm"], g)):
         for blk in mlstms[grp * m_per:(grp + 1) * m_per]:
             y, st = mlstm_block(x, blk, cfg, mask=mask, mode=mode)
-            x = x + y
+            x = L.constrain_residual(x + y)
             m_states.append(st)
         y, st = slstm_block(x, s_blk, cfg, mask=mask)
         x = x + y

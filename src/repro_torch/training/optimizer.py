@@ -14,6 +14,13 @@ Leaves are visited in sorted key order, as ``jax.tree`` flattens a dict,
 so the global norm adds them in ``repro``'s order. Scalars of the
 schedule (the learning rate, the bias corrections) are f32, computed on
 the host from the step count, so nothing waits on the device.
+
+On a mesh the params are DTensors and the moments follow them
+(``adamw_init`` makes them with the params' placements, the
+``sharding.opt_state_specs`` rule). The global norm is then the norm of
+the whole tree, computed on the DTensors, and the elementwise update runs
+on each rank's local shards of the param, its gradient (redistributed to
+the param's placements) and both moments, which share one layout.
 """
 from __future__ import annotations
 
@@ -22,6 +29,7 @@ import math
 from typing import Any, Dict, Iterator, List, NamedTuple, Tuple
 
 import torch
+from torch.distributed.tensor import DTensor
 
 from repro_torch.tree import leaves, tree_map
 
@@ -66,9 +74,11 @@ def lr_schedule(cfg: AdamWConfig, step) -> torch.Tensor:
 
 def global_norm(tree: Params) -> torch.Tensor:
     """sqrt of the sum over leaves of each leaf's f32 sum of squares; a
-    0-d f32 tensor on the leaves' device."""
+    0-d f32 tensor on the leaves' device. Of DTensor leaves it is the norm
+    of the whole tree, the same plain tensor on every rank."""
     sq = [torch.linalg.vector_norm(x, dtype=torch.float32) ** 2
           for _, x in leaves(tree)]
+    sq = [x.full_tensor() if isinstance(x, DTensor) else x for x in sq]
     return torch.sqrt(torch.sum(torch.stack(sq)))
 
 
@@ -87,7 +97,9 @@ def clip_by_global_norm(tree: Params, max_norm: float
 
 def adamw_init(params: Params) -> AdamWState:
     def zeros(p):
-        return torch.zeros(p.shape, dtype=torch.float32, device=p.device)
+        # a DTensor param's moments take its placements
+        return torch.zeros_like(p, dtype=torch.float32,
+                                memory_format=torch.contiguous_format)
     return AdamWState(step=torch.zeros((), dtype=torch.int32),
                       mu=tree_map(zeros, params), nu=tree_map(zeros, params))
 
@@ -116,11 +128,15 @@ def adamw_update(cfg: AdamWConfig, grads: Params, state: AdamWState,
     mu, nu = dict(leaves(state.mu)), dict(leaves(state.nu))
     grads_ = dict(leaves(grads))
     for key, p in leaves(params):
+        g, m_, v_ = grads_[key], mu[key], nu[key]
+        if isinstance(p, DTensor):
+            g = g.redistribute(p.device_mesh, p.placements)
+            p, g, m_, v_ = (t.to_local() for t in (p, g, m_, v_))
         if not p.is_contiguous():
             raise ValueError(f"adamw_update: param {key!r} is not "
                              "contiguous; the update writes it in place")
-        g = grads_[key].contiguous()
-        for g_, m, v, p_ in _chunks(g, mu[key], nu[key], p):
+        g = g.contiguous()
+        for g_, m, v, p_ in _chunks(g, m_, v_, p):
             # clipped in f32 and rounded to g's dtype, as repro does; every
             # op below computes in f32 and a bf16 param is rounded once
             g32 = (g_ * scale).float()

@@ -7,6 +7,10 @@ default CUDA, which raises without it) on the plain impls: a model whose
 config asks for a kernel impl (``attention_impl="cuda"``,
 ``quantize="int8_cuda"``) is refused by ``make_train_step``, the kernels
 having no backward. This is the counterpart of ``repro`` training on XLA.
+On a mesh (``build_model(cfg, device, parallel=...)``, params placed by
+``sharding.param_specs``) the step is the same code on DTensors: the
+backward runs in the model's ``mesh_context``, and ``adamw_update`` takes
+the norm of the whole tree and updates each rank's shards.
 
 The train state is ``{"params", "opt": AdamWState, "gen"}``, ``gen`` a
 ``torch.Generator`` on the model's device that draws the compression
@@ -60,9 +64,11 @@ def loss_and_grads(model: Model, params: Dict[str, Any],
                    batch: Dict[str, torch.Tensor]):
     """(``model.loss`` at ``params`` as a detached 0-d tensor, its grads in
     ``params``' nested structure); a leaf the loss does not reach gets
-    zeros. The params are leaves that require grad only during the call."""
+    zeros. The params are leaves that require grad only during the call.
+    On a mesh the backward runs in the model's ``mesh_context`` as the
+    forward does."""
     keyed = list(leaves(params))
-    with torch.enable_grad():
+    with torch.enable_grad(), model.mesh_context():
         for _, p in keyed:
             p.requires_grad_(True)
         try:

@@ -9,6 +9,7 @@ Each test that needs a GPU carries the ``cuda`` marker and skips, with its
 reason, where ``torch.cuda.is_available()`` is false; the decision is made
 inside the test. TF32 is off for every f32 product compared.
 """
+import contextlib
 import dataclasses
 
 import numpy as np
@@ -1670,3 +1671,140 @@ def test_cuda_bf16_head_backward():
     for lo, hi in zip(*grads):
         err = float((lo.float() - hi).abs().max())
         assert err <= 2e-2 * float(hi.abs().max()), err
+
+
+# ---------------------------------------------------------------------------
+# the distributed layer on an NCCL world of one rank (chip_smoke.py phase
+# 13 at reduced width): NCCL puts one rank on a GPU, so the card holds a
+# 1x1 mesh
+
+
+@contextlib.contextmanager
+def _nccl_world(tmp_path):
+    import torch.distributed as dist
+    from repro_torch.launch.mesh import make_host_mesh
+    torch.cuda.set_device(0)
+    dist.init_process_group("nccl", rank=0, world_size=1,
+                            store=dist.FileStore(str(tmp_path / "store"), 1))
+    try:
+        mesh = make_host_mesh()
+        assert mesh.device_type == "cuda"
+        yield mesh
+    finally:
+        dist.destroy_process_group()
+
+
+def _bf16_reduced(arch):
+    return dataclasses.replace(ARCHS[arch].reduced(), dtype="bfloat16",
+                               param_dtype="bfloat16",
+                               attention_impl="torch_chunked")
+
+
+@pytest.mark.cuda
+def test_cuda_moe_ffn_ep_on_a_world_of_one_gives_dense_bits(tmp_path):
+    """At M = 1 the expert-parallel lowering has the dense one's capacity
+    and dispatch, and its all-to-alls are copies: the same bits."""
+    dev = _need_cuda()
+    from repro_torch.distributed import sharding as SH
+    from repro_torch.distributed.parallel import ParallelConfig
+    from repro_torch.models import moe as MOE
+    cfg = _bf16_reduced("moonshot-v1-16b-a3b")
+    with _nccl_world(tmp_path) as mesh:
+        par = ParallelConfig(mesh, ("data",))
+        params = build_model(cfg, device=dev).init(0)["layers"]["moe"]
+        layer = {k: v[0] if torch.is_tensor(v) else
+                 {kk: vv[0] for kk, vv in v.items()}
+                 for k, v in params.items()}
+        gen = torch.Generator(device=dev).manual_seed(3)
+        x = torch.randn((4, 16, cfg.d_model), generator=gen,
+                        device=dev).to(torch.bfloat16)
+        specs = {k: SH.P() if k != "shared" else
+                 {kk: SH.P() for kk in layer["shared"]} for k in layer}
+        specs.update({k: SH.P("model") for k in ("w_gate", "w_up",
+                                                 "w_down")})
+        sl = SH.shard_tree(mesh, layer, specs)
+        xd = SH.shard_tree(mesh, {"x": x}, {"x": SH.P()})["x"]
+        ep = MOE.moe_ffn_ep(xd, sl, cfg, par).full_tensor()
+        assert torch.equal(ep, MOE.moe_ffn_dense(x, layer, cfg))
+
+
+@pytest.mark.cuda
+def test_cuda_decode_attention_splitk_on_a_world_of_one(tmp_path):
+    """The split-K region at M = 1 against the plain ``attention_core``
+    on the same bf16 inputs, within 2 bf16 ulps of the output's scale."""
+    dev = _need_cuda()
+    from repro_torch.distributed import sharding as SH
+    from repro_torch.distributed.parallel import (ParallelConfig,
+                                                  activation_sharding_from)
+    from repro_torch.models import layers as L
+    gen = torch.Generator(device=dev).manual_seed(5)
+    q = torch.randn((2, 1, 8, 4, 128), generator=gen,
+                    device=dev).to(torch.bfloat16)
+    kc = torch.randn((2, 1024, 8, 128), generator=gen,
+                     device=dev).to(torch.bfloat16)
+    vc = torch.randn((2, 1024, 8, 128), generator=gen,
+                     device=dev).to(torch.bfloat16)
+    with _nccl_world(tmp_path) as mesh:
+        ctx = activation_sharding_from(ParallelConfig(mesh, ("data",)))
+        spec = SH.P(None, "model", None, None)
+        kv = SH.shard_tree(mesh, {"k": kc, "v": vc}, {"k": spec, "v": spec})
+        for vl in (1024, 700, 1):
+            got = L.decode_attention_splitk(q, kv["k"], kv["v"], vl,
+                                            ctx).full_tensor()
+            want = L.attention_core(q, kc, vc, causal=False,
+                                    kv_valid_len=vl)
+            tol = 2 * 2.0 ** -8 * float(want.float().abs().max())
+            assert float((got.float() - want.float()).abs().max()) <= tol
+
+
+@pytest.mark.cuda
+def test_cuda_sharded_decode_on_a_world_of_one_gives_the_same_tokens(
+        tmp_path):
+    """llama3.2-1b reduced, bf16: prefill and greedy decode on the 1x1
+    mesh give the unsharded tokens, and no kernel launches."""
+    dev = _need_cuda()
+    from repro_torch.distributed import sharding as SH
+    from repro_torch.distributed.parallel import ParallelConfig
+    cfg = _bf16_reduced("llama3.2-1b")
+    B, S, steps = 3, 12, 6
+    with _nccl_world(tmp_path) as mesh:
+        par = ParallelConfig(mesh, ("data",))
+        ax = SH.MeshAxes.from_mesh(mesh)
+        with pytest.raises(ValueError, match="plain impls"):
+            build_model(cfg.for_device("cuda"), device=dev, parallel=par)
+        m0 = build_model(cfg, device=dev)
+        m1 = build_model(cfg, device=dev, parallel=par)
+        params = m0.init(0)
+        sp = SH.shard_tree(mesh, params, SH.param_specs(cfg, ax))
+        gen = torch.Generator(device=dev).manual_seed(9)
+        tokens = torch.randint(0, cfg.vocab, (B, S), generator=gen,
+                               device=dev, dtype=torch.int32)
+        build.reset_launch_counts()
+        toks = []
+        for model, p, sharded in ((m0, params, False), (m1, sp, True)):
+            batch = {"tokens": tokens}
+            if sharded:
+                batch = SH.shard_tree(mesh, batch, SH.batch_specs(
+                    cfg, B, ax, with_targets=False))
+            logits, pc = model.prefill(p, batch)
+            cache = m0.empty_state(B, S + steps)
+            for name, leaf in pc.items():
+                leaf = leaf.full_tensor() if sharded else leaf
+                cache[name].narrow(2, 0, S).copy_(leaf)
+            if sharded:
+                cache = SH.shard_tree(mesh, cache,
+                                      SH.cache_specs(cfg, B, ax))
+                logits = logits.full_tensor()
+            tok = torch.argmax(logits[:, -1], -1).to(torch.int32)[:, None]
+            pos = torch.full((B,), S, dtype=torch.int32, device=dev)
+            out = []
+            for _ in range(steps):
+                logits, cache = model.decode(p, cache, tok, pos)
+                logits = logits.full_tensor() if sharded else logits
+                tok = torch.argmax(logits[:, -1], -1).to(
+                    torch.int32)[:, None]
+                pos = pos + 1
+                out.append(tok)
+            toks.append(torch.cat(out, 1))
+        assert torch.equal(toks[0], toks[1])
+        assert not any(build.launch_counts.values())
