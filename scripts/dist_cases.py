@@ -4,16 +4,18 @@ without JAX, under whatever torch is installed.
 
     python3 scripts/dist_cases.py [--log PATH]
 
-Runs the two worlds of ``tests/test_torch_distributed.py`` (the one that
-runs every case on the op-level matmul strategies, and the one that keeps
-DTensor's strategy table and runs the dense train step) one after the
-other on the CPU, and prints one line a case: ``ok`` with, for a family
-or train-step case, the worst error against the unsharded port as that
-file's tests scale it, or ``FAIL`` with the exception's last line and the
-port's innermost frames. The full tracebacks go to ``--log``. The
-reference's side (``moe_ffn_ep`` and the split-K decode under JAX) is not
-run: the EP and split-K cases print ``ok`` when they ran. Needs 4 CPU
-cores; about 40 s on torch 2.13, 60 s with the start of a machine.
+Runs the world of ``tests/test_torch_distributed.py`` (every case on
+DTensor's strategy table as it comes) on the CPU and prints one line a
+case: ``ok`` with, for a family or train-step case, the worst error
+against the unsharded port as that file's tests scale it, and for an
+``ops/`` case the number of ops that reached DTensor dispatch; or
+``FAIL`` with the exception's last line and the port's innermost frames,
+or, for an ``ops/`` case, the ops that torch 2.11 refuses. The
+``recorder`` line gives, for one op of each refused kind, what the
+recorder refused. The full
+tracebacks go to ``--log``. The reference's side (``moe_ffn_ep`` and the
+split-K decode under JAX) is not run: the EP and split-K cases print
+``ok`` when they ran. Needs 4 CPU cores; about 35 s on torch 2.13.
 """
 from __future__ import annotations
 
@@ -53,9 +55,25 @@ def _worst(T, key, value):
     return worst
 
 
+def _failed(value):
+    return isinstance(value, dict) and ("error" in value
+                                        or bool(value.get("refused")))
+
+
 def _report(T, results, log):
     for key in sorted(k for k in results if k != "seconds"):
         value = results[key]
+        if key.startswith("ops/"):
+            refused = sorted(set(value["refused"]))
+            print(("FAIL" if refused else "ok  ") + f" {key} "
+                  f"{value['count']} DTensor ops"
+                  + "".join(f" | {r}" for r in refused[:5]))
+            continue
+        if key == "recorder" and "error" not in value:
+            print("ok   recorder " + "; ".join(
+                f"{probe}: {', '.join(r) or 'none refused'}"
+                for probe, r in value.items()))
+            continue
         if isinstance(value, dict) and "error" in value:
             lines = value["error"].strip().splitlines()
             frames = [ln.strip() for ln in lines if "repro_torch" in ln]
@@ -77,22 +95,18 @@ def main() -> int:
     tmp = tempfile.mkdtemp()
     T._make_inputs(os.path.join(tmp, "inputs.npz"))
     os.makedirs(os.path.dirname(os.path.abspath(args.log)), exist_ok=True)
-    failed = False
     with open(args.log, "w") as log:
-        for table in ("op_level", "default"):
-            t0 = time.perf_counter()
-            try:
-                mp.spawn(T._rank_main, args=(tmp, table), nprocs=T.WORLD)
-            except Exception:                            # noqa: BLE001
-                print(f"world {table} raised:\n{traceback.format_exc()}")
-                failed = True
-                continue
-            print(f"world {table}: {time.perf_counter() - t0:.1f} s")
-            results = torch.load(os.path.join(tmp, f"results-{table}.pt"),
-                                 weights_only=False)
-            _report(T, results, log)
-            failed |= any(isinstance(v, dict) and "error" in v
-                          for v in results.values())
+        t0 = time.perf_counter()
+        try:
+            mp.spawn(T._rank_main, args=(tmp,), nprocs=T.WORLD)
+        except Exception:                                # noqa: BLE001
+            print(f"the world raised:\n{traceback.format_exc()}")
+            return 1
+        print(f"world: {time.perf_counter() - t0:.1f} s")
+        results = torch.load(os.path.join(tmp, "results.pt"),
+                             weights_only=False)
+        _report(T, results, log)
+        failed = any(_failed(v) for v in results.values())
     return 1 if failed else 0
 
 

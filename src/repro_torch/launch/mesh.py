@@ -17,8 +17,11 @@ from torch.distributed.device_mesh import DeviceMesh, init_device_mesh
 
 
 def _device_type() -> str:
+    """``cuda`` under NCCL and under the ``"fake"`` backend, whose world
+    stands for one of cards (DTensor then moves a shard to another dim by
+    an all-to-all, where a ``cpu`` mesh gathers it whole); else ``cpu``."""
     backend = dist.get_backend()
-    return "cuda" if backend == "nccl" else "cpu"
+    return "cuda" if backend in ("nccl", "fake") else "cpu"
 
 
 def _mesh(shape, names) -> DeviceMesh:

@@ -10,9 +10,13 @@ which raises without it), at full width unless ``--reduced``:
 The model runs on the plain impls (the kernels have no backward). This
 launcher trains on one device; training on a mesh is
 ``make_train_step`` over ``build_model(cfg, device, parallel=...)`` with
-params placed by ``distributed.sharding.param_specs``. ``repro``'s
-``--dryrun`` and ``--multi-pod`` (which lower on the production meshes)
-wait for the dry-run slice.
+params placed by ``distributed.sharding.param_specs``. ``--dryrun`` runs
+the full config's train step once on the 16x16 production mesh
+(``--multi-pod``: 2x16x16) in a fake world and prints its record
+(``launch.dryrun.run_cell`` at ``train_4k``):
+
+    PYTHONPATH=src python -m repro_torch.launch.train \
+        --arch qwen3-moe-235b-a22b --dryrun --multi-pod
 """
 from __future__ import annotations
 
@@ -31,7 +35,20 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
                     help="where the model trains (cuda raises without a GPU)")
     ap.add_argument("--reduced", action="store_true",
                     help="the architecture's reduced (CPU-sized) config")
+    ap.add_argument("--dryrun", action="store_true",
+                    help="run the FULL config's train step once on the "
+                         "production mesh in a fake world instead of "
+                         "training")
+    ap.add_argument("--multi-pod", action="store_true")
     args = ap.parse_args(argv)
+
+    if args.dryrun:
+        import json
+
+        from repro_torch.launch import dryrun as dr
+        rec = dr.run_cell(args.arch, "train_4k", args.multi_pod)
+        print(json.dumps(rec, indent=2))
+        return
 
     from repro_torch.configs.registry import ARCHS
     from repro_torch.models import build_model

@@ -55,7 +55,10 @@ def _sharded_update_layer_cache(k_cache, v_cache, k_new, v_new, pos):
     rows of its own slots that fall in its own span of the sequence, at
     the same clamped starts as the whole-tensor write. The new rows are
     redistributed to the cache's placements, replicated over a mesh dim
-    that shards the sequence; ``pos`` is the same on every rank."""
+    that shards the sequence; ``pos`` is the same on every rank. The
+    write takes one window row at a time, every slot at once: a slot whose
+    row falls outside the rank's span writes back the value it reads at
+    the clamped row, so no write depends on the data for its shape."""
     mesh = k_cache.device_mesh
     pl = tuple(k_cache.placements)
     row_pl = [Replicate() if isinstance(p, Shard) and p.dim == 1 else p
@@ -71,18 +74,18 @@ def _sharded_update_layer_cache(k_cache, v_cache, k_new, v_new, pos):
     start = torch.clamp(pos, 0, S_max - S_new)
     b0, t0 = offset[0], offset[1]
     b_local, t_local = local_shape[0], local_shape[1]
-    rows = (start[b0:b0 + b_local, None] - t0
-            + torch.arange(S_new, device=kl.device))
-    slots = torch.arange(b_local, device=kl.device)[:, None].expand(
-        b_local, S_new)
-    live = (rows >= 0) & (rows < t_local)
+    slots = torch.arange(b_local, device=kl.device)
     for cache, new in ((kl, k_new), (vl, v_new)):
         if not isinstance(new, DTensor):
             new = DTensor.from_local(new, mesh, [Replicate()] * mesh.ndim,
                                      run_check=False)
-        new = new.redistribute(mesh, row_pl).to_local()
-        cache.index_put_((slots[live], rows[live]),
-                         new[live].to(cache.dtype))
+        new = new.redistribute(mesh, row_pl).to_local().to(cache.dtype)
+        for s in range(S_new):
+            row = start[b0:b0 + b_local] - t0 + s
+            live = ((row >= 0) & (row < t_local))[:, None, None]
+            row = torch.clamp(row, 0, t_local - 1)
+            cache.index_put_((slots, row), torch.where(
+                live, new[:, s], cache[slots, row]))
     return k_cache, v_cache
 
 

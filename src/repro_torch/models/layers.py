@@ -16,11 +16,18 @@ would be silently wrong. ``"torch_chunked"`` takes long full-sequence
 attention block by block with a recomputing backward
 (``ChunkedAttention``), the counterpart of ``repro``'s ``_attention_chunked``.
 
-On a mesh (``build_model(..., parallel=...)``) the tensors are DTensors
-and their sharding propagates op by op, the counterpart of GSPMD:
-``constrain_residual`` pins the residual stream (``repro``'s
-``with_sharding_constraint``), and ``decode_attention_splitk`` is a local
-region with explicit collectives (``repro``'s ``shard_map``).
+On a mesh (``build_model(..., parallel=...)``) the tensors are DTensors.
+The elementwise work between the products propagates op by op, the
+counterpart of GSPMD: ``constrain_residual`` pins the residual stream
+(``repro``'s ``with_sharding_constraint``). Every product runs in a local
+region with stated placements (``local_region``), where DTensor's view
+rules would otherwise flatten a sharded dim behind another (torch 2.11
+refuses that; 2.13 takes it as a strided shard): each projection
+(``project``, Megatron's column- and row-parallel products, the sequence
+gathered first), attention over batch and heads (``attention_core``),
+and the split-K decode with its explicit collectives (``repro``'s
+``shard_map``). Outside a mesh the same code runs on plain tensors, the
+same ops on the same shapes.
 """
 from __future__ import annotations
 
@@ -28,7 +35,7 @@ from typing import Any, Dict, Optional, Tuple
 
 import torch
 import torch.distributed as dist
-from torch.distributed.tensor import DTensor, Replicate
+from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
 from torch.distributed.tensor.experimental import local_map
 
 from repro_torch.distributed.parallel import get_activation_sharding
@@ -108,6 +115,113 @@ def activation_placements(ctx, spec):
     """DTensor placements of an activation spec on the context's mesh."""
     from repro_torch.distributed.sharding import P, to_placements
     return to_placements(ctx.mesh, P(*spec))
+
+
+def on_mesh(*ts) -> bool:
+    """Whether a mesh context is set and any of ``ts`` is a DTensor: the
+    condition for a local region."""
+    ctx = get_activation_sharding()
+    return ctx is not None and ctx.mesh is not None and any(
+        isinstance(t, DTensor) for t in ts)
+
+
+def _grad_placements(in_pls):
+    """The placements of each region input's local gradient: its own
+    shard where it is sharded; partial over a mesh dim that shards another
+    input (its rank saw part of the work); else replicated (every rank on
+    that mesh dim did the same work). None for a non-tensor input."""
+    out = []
+    for j, pl in enumerate(in_pls):
+        if pl is None:
+            out.append(None)
+            continue
+        out.append([p if isinstance(p, Shard) else Partial() if any(
+            o is not None and k != j and isinstance(o[i], Shard)
+            for k, o in enumerate(in_pls)) else Replicate()
+            for i, p in enumerate(pl)])
+    return out
+
+
+def local_region(fn, out_placements, in_placements, *args):
+    """``fn`` on the local shards of ``args`` (a local_map region): each
+    tensor argument is redistributed to its placements (a plain tensor
+    counts as replicated), ``fn`` runs on the local tensors, and its
+    output (a list of placements) or outputs (a tuple of lists) come back
+    as DTensors. The backward takes ``_grad_placements``. ``None`` is the
+    placement of a non-tensor argument."""
+    mesh = get_activation_sharding().mesh
+    region = local_map(fn, out_placements=out_placements,
+                       in_placements=in_placements,
+                       in_grad_placements=_grad_placements(in_placements),
+                       device_mesh=mesh, redistribute_inputs=True)
+    return region(*(as_dtensor(a, mesh) if torch.is_tensor(a) else a
+                    for a in args))
+
+
+def pointwise(fn, x: torch.Tensor) -> torch.Tensor:
+    """``fn(x)`` for an elementwise ``fn``; on a mesh a local region that
+    keeps x's placements (a partial x summed first), for an op whose
+    backward DTensor has no rule for (``logsigmoid``)."""
+    if not on_mesh(x):
+        return fn(x)
+    pl = [Replicate() if p.is_partial() else p for p in x.placements]
+    return local_region(fn, pl, (pl,), x)
+
+
+def gather_seq(x: torch.Tensor) -> torch.Tensor:
+    """x (B, S, ...) with its sequence whole: where ``constrain_residual``
+    put S on the model axis, gather it (sequence parallelism's all-gather
+    before a column-parallel product). A no-op for a plain tensor."""
+    if not isinstance(x, DTensor):
+        return x
+    pl = [Replicate() if isinstance(p, Shard) and p.dim == 1 else p
+          for p in x.placements]
+    return x if pl == list(x.placements) else x.redistribute(
+        x.device_mesh, pl)
+
+
+def _expand_ellipsis(eq: str, ndim: int) -> str:
+    """``eq`` with a leading ``...`` of its first operand spelled out in
+    letters it does not use, for an operand of ``ndim`` dims."""
+    if "..." not in eq:
+        return eq
+    first = eq.split(",")[0]
+    free = [c for c in "ABCDEFGH" if c not in eq]
+    dots = "".join(free[:ndim - (len(first) - 3)])
+    return eq.replace("...", dots)
+
+
+def project(eq: str, x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """``torch.einsum(eq, x, w)`` of activations x (B, ...) and a weight w.
+
+    On a mesh, a local region in Megatron's form: the weight keeps its
+    shard over the model axis (the one dim ``param_specs`` put there) and
+    is gathered over the data axes (FSDP); x takes its batch on the data
+    axes where they divide it and its sequence whole (``gather_seq``).
+    A weight sharded on an output dim is column-parallel (the output keeps
+    that shard); one sharded on a contracted dim is row-parallel (x takes
+    the same shard and the output is partial over the model axis, summed
+    where the next op needs it, the residual's reduce-scatter)."""
+    if not on_mesh(x, w):
+        return torch.einsum(eq, x, w)
+    ctx = get_activation_sharding()
+    eq = _expand_ellipsis(eq, x.ndim)
+    (xs, ws), out = eq.split("->")[0].split(","), eq.split("->")[1]
+    m_dim = ctx.mesh.mesh_dim_names.index(ctx.model_axis)
+    pl = w.placements[m_dim] if isinstance(w, DTensor) else Replicate()
+    c = ws[pl.dim] if isinstance(pl, Shard) else None
+
+    def spec(letters):
+        return tuple(ctx.batch(x.shape[0]) if i == 0 and letters != ws
+                     else ctx.model_axis if l == c else None
+                     for i, l in enumerate(letters))
+
+    out_pl = activation_placements(ctx, spec(out))
+    if c is not None and c not in out:
+        out_pl[m_dim] = Partial()
+    return local_region(lambda a, b: torch.einsum(eq, a, b), out_pl,
+                        (activation_placements(ctx, spec(xs)),
+                         activation_placements(ctx, spec(ws))), x, w)
 
 
 def constrain_residual(x: torch.Tensor) -> torch.Tensor:
@@ -209,7 +323,9 @@ def attention_core(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     (no ``kv_valid_len``, S > 256, S % 256 == 0, T % 512 == 0) to
     ``attention_chunked`` and the rest to the plain path; under a mesh
     context a one-token query with one scalar length goes to
-    ``decode_attention_splitk`` where ``_splitk_ctx`` says so.
+    ``decode_attention_splitk`` where ``_splitk_ctx`` says so, and the
+    rest runs as one local region over batch and heads
+    (``_attention_region``).
     """
     vec_valid = torch.is_tensor(kv_valid_len) and kv_valid_len.ndim > 0
     if not vec_valid:
@@ -227,6 +343,49 @@ def attention_core(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
             kv_valid_len=kv_valid_len, impl="cuda")
     if impl not in PLAIN_IMPLS:
         raise ValueError(f"unknown attention impl {impl!r}")
+    if on_mesh(q, k, v, kv_valid_len):
+        return _attention_region(q, k, v, causal=causal, q_offset=q_offset,
+                                 kv_valid_len=kv_valid_len, impl=impl)
+    return _attention_local(q, k, v, causal=causal, q_offset=q_offset,
+                            kv_valid_len=kv_valid_len, impl=impl)
+
+
+def _attention_region(q, k, v, *, causal, q_offset, kv_valid_len, impl):
+    """``_attention_local`` as one local region: the batch on the data
+    axes where they divide it; the heads on the model axis by
+    ``sharding._attn_specs``' three cases (the KV heads where the axis
+    divides them, for q, k and v; else q's groups, k/v replicated over
+    the model axis; else no head split). S and T stay whole, so the masks
+    are the unsharded ones; per-slot lengths enter placed as the batch."""
+    ctx = get_activation_sharding()
+    B, S, K, G, D = q.shape
+    m = ctx.model_axis
+    dax = ctx.batch(B)
+    if K % ctx.model_size == 0:
+        qh, kh = (m, None), m
+    elif G % ctx.model_size == 0:
+        qh, kh = (None, m), None
+    else:
+        qh, kh = (None, None), None
+    q_pl = activation_placements(ctx, (dax, None) + qh)
+    kv_pl = activation_placements(ctx, (dax, None, kh))
+    if isinstance(kv_valid_len, DTensor) and kv_valid_len.ndim == 0:
+        kv_valid_len = kv_valid_len.full_tensor()
+    vec_valid = torch.is_tensor(kv_valid_len) and kv_valid_len.ndim > 0
+    extra = (kv_valid_len,) if vec_valid else ()
+    return local_region(
+        lambda q_, k_, v_, *n: _attention_local(
+            q_, k_, v_, causal=causal, q_offset=q_offset,
+            kv_valid_len=n[0] if n else kv_valid_len, impl=impl),
+        q_pl, (q_pl, kv_pl, kv_pl)
+        + ((activation_placements(ctx, (dax,)),) if extra else ()),
+        q, k, v, *extra)
+
+
+def _attention_local(q, k, v, *, causal, q_offset, kv_valid_len, impl):
+    """The plain impls on whole (or local) tensors: the chunked dispatch,
+    else the plain softmax attention."""
+    vec_valid = torch.is_tensor(kv_valid_len) and kv_valid_len.ndim > 0
     B, S, K, G, D = q.shape
     T = k.shape[1]
     if impl == "torch_chunked" and kv_valid_len is None and S > 256 \
@@ -468,16 +627,17 @@ def attn_qkv(x: torch.Tensor, p: Params, qimpl: str = "torch"):
         k = qeinsum(x, p["wk"], 1, impl=qimpl)
         v = qeinsum(x, p["wv"], 1, impl=qimpl)
         return q.to(x.dtype), k.to(x.dtype), v.to(x.dtype)
-    q = torch.einsum("bsd,dkgh->bskgh", x, p["wq"])
-    k = torch.einsum("bsd,dkh->bskh", x, p["wk"])
-    v = torch.einsum("bsd,dkh->bskh", x, p["wv"])
+    x = gather_seq(x)
+    q = project("bsd,dkgh->bskgh", x, p["wq"])
+    k = project("bsd,dkh->bskh", x, p["wk"])
+    v = project("bsd,dkh->bskh", x, p["wv"])
     return q, k, v
 
 
 def attn_out(o: torch.Tensor, p: Params, qimpl: str = "torch") -> torch.Tensor:
     if isinstance(p["wo"], QuantizedWeight):
         return qeinsum(o, p["wo"], 3, impl=qimpl).to(o.dtype)
-    return torch.einsum("bskgh,kghd->bsd", o, p["wo"])
+    return project("bskgh,kghd->bsd", o, p["wo"])
 
 
 # ---------------------------------------------------------------------------
@@ -490,10 +650,11 @@ def swiglu(x: torch.Tensor, p: Params, qimpl: str = "torch") -> torch.Tensor:
         u = qeinsum(x, p["w_up"], 1, impl=qimpl)
         h = torch.nn.functional.silu(g) * u
         return qeinsum(h, p["w_down"], 1, impl=qimpl).to(x.dtype)
-    g = torch.einsum("bsd,df->bsf", x, p["w_gate"])
-    u = torch.einsum("bsd,df->bsf", x, p["w_up"])
+    x = gather_seq(x)
+    g = project("bsd,df->bsf", x, p["w_gate"])
+    u = project("bsd,df->bsf", x, p["w_up"])
     h = torch.nn.functional.silu(g) * u
-    return torch.einsum("bsf,fd->bsd", h, p["w_down"])
+    return project("bsf,fd->bsd", h, p["w_down"])
 
 
 # ---------------------------------------------------------------------------
@@ -502,7 +663,42 @@ def swiglu(x: torch.Tensor, p: Params, qimpl: str = "torch") -> torch.Tensor:
 
 def embed_tokens(tokens: torch.Tensor, table: torch.Tensor,
                  dtype) -> torch.Tensor:
+    """The rows of ``table`` (V, d) at ``tokens`` in ``dtype``; on a mesh a
+    local region (``_embed_region``)."""
+    if on_mesh(tokens, table):
+        return _embed_region(tokens, table, dtype)
     return table[tokens.long()].to(dtype)
+
+
+def _vocab_axis(ctx, V: int):
+    """The model axis where it splits a vocab of ``V`` evenly, else None."""
+    return ctx.model_axis if ctx.model_size > 1 \
+        and V % ctx.model_size == 0 else None
+
+
+def _embed_region(tokens, table, dtype):
+    """The lookup on a mesh, GSPMD's vocab-sharded gather: a local region
+    with the tokens' batch on the data axes where they divide it and the
+    table's vocab on the model axis where it divides it; each rank reads
+    the rows its shard holds, zeros for the rest, so the output is partial
+    over the model axis. Its backward writes each rank's own rows."""
+    ctx = get_activation_sharding()
+    vax = _vocab_axis(ctx, table.shape[0])
+    rank = ctx.mesh.get_local_rank(vax) if vax else 0
+    rows = ctx.batch(tokens.shape[0])
+
+    def look(tok, tab):
+        ids = tok.long() - rank * tab.shape[0]
+        hit = (ids >= 0) & (ids < tab.shape[0])
+        out = tab[torch.where(hit, ids, 0)].masked_fill(~hit[..., None], 0)
+        return out.to(dtype)
+
+    out_pl = activation_placements(ctx, (rows, None, None))
+    if vax:
+        out_pl[ctx.mesh.mesh_dim_names.index(vax)] = Partial()
+    return local_region(look, out_pl, (
+        activation_placements(ctx, (rows, None)),
+        activation_placements(ctx, (vax, None))), tokens, table)
 
 
 def select_last(x: torch.Tensor, length: Optional[torch.Tensor]) -> torch.Tensor:
@@ -539,12 +735,14 @@ def lm_logits(x: torch.Tensor, head: torch.Tensor) -> torch.Tensor:
     ``_head_bf16_region``); elsewhere the operands are widened first.
     """
     B, S, d = x.shape
-    x2 = x.reshape(B * S, d)
+    x2 = gather_seq(x).reshape(B * S, d)
     if x.is_cuda and x.dtype == torch.bfloat16:
         if isinstance(x2, DTensor):
             out = _head_bf16_region(x2, head)
         else:
             out = _HeadBf16.apply(x2, head)
+    elif on_mesh(x2, head):
+        out = project("nd,vd->nv", x2.float(), head.float())
     else:
         out = x2.float() @ head.float().t()
     return out.reshape(B, S, -1)
@@ -575,14 +773,59 @@ def cross_entropy(logits: torch.Tensor, targets: torch.Tensor) -> torch.Tensor:
     is gathered: each row reads one element, so its backward writes one
     element a row and gives the same bits every call on the card (``repro``
     takes it by a mask-reduce, for a vocab-sharded layout; the value is the
-    same). On a mesh (DTensor logits, the vocab sharded) it is the
-    reference's mask-reduce, which stays sharded: a partial sum and a
-    small all-reduce, where a gather would need the whole row."""
+    same). On a mesh (DTensor logits) each token's loss is a local region
+    (``_token_losses_region``) that never gathers a row."""
+    if on_mesh(logits, targets):
+        return torch.mean(_token_losses_region(logits, targets))
     logz = torch.logsumexp(logits, dim=-1)
-    if isinstance(logits, DTensor):
-        vocab = torch.arange(logits.shape[-1], device=logits.device)
-        mask = vocab == targets.long()[..., None]
-        gold = torch.sum(logits.masked_fill(~mask, 0.0), dim=-1)
-    else:
-        gold = torch.gather(logits, -1, targets.long()[..., None])[..., 0]
+    gold = torch.gather(logits, -1, targets.long()[..., None])[..., 0]
     return torch.mean(logz - gold)
+
+
+class _SumOverGroup(torch.autograd.Function):
+    """A sum over a process group that every rank holds and uses alike:
+    the gradient of each rank's term is the sum's gradient."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        x = x.clone()
+        dist.all_reduce(x, group=group)
+        return x
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+def _token_losses_region(logits, targets):
+    """Each token's loss on a mesh, the reference's vocab-sharded form: a
+    local region with the rows on the data axes where they divide the
+    batch and the vocab on the model axis where it divides it. Each rank
+    takes its shard's max (all-reduced, a constant of the gradient), its
+    sum of exponentials and its mask-reduced gold logit, summed over the
+    model axis; the (B, S) losses are whole over the model axis."""
+    ctx = get_activation_sharding()
+    B, S, V = logits.shape
+    vax = _vocab_axis(ctx, V)
+    rows = ctx.batch(B)
+    group = ctx.mesh.get_group(ctx.model_axis)
+    rank = ctx.mesh.get_local_rank(vax) if vax else 0
+
+    def losses(lg, tg):
+        v0 = rank * lg.shape[-1]
+        m = torch.amax(lg, dim=-1, keepdim=True).detach()
+        if vax:
+            dist.all_reduce(m, op=dist.ReduceOp.MAX, group=group)
+        sumexp = torch.sum(torch.exp(lg - m), dim=-1)
+        ids = v0 + torch.arange(lg.shape[-1], device=lg.device)
+        gold = torch.sum(lg.masked_fill(ids != tg.long()[..., None], 0.0),
+                         dim=-1)
+        if vax:
+            sumexp = _SumOverGroup.apply(sumexp, group)
+            gold = _SumOverGroup.apply(gold, group)
+        return m[..., 0] + torch.log(sumexp) - gold
+
+    tok_pl = activation_placements(ctx, (rows, None))
+    return local_region(losses, tok_pl,
+                        (activation_placements(ctx, (rows, None, vax)),
+                         tok_pl), logits, targets)

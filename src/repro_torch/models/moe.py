@@ -42,7 +42,9 @@ from torch.distributed.tensor import Partial, Replicate, Shard
 from torch.distributed.tensor.experimental import local_map
 
 from repro_torch.configs.base import ArchConfig
-from repro_torch.distributed.parallel import activation_sharding_from
+from repro_torch.distributed.parallel import (activation_sharding_from,
+                                              get_activation_sharding,
+                                              using_activation_sharding)
 from repro_torch.models import layers as L
 from repro_torch.models import transformer as T
 
@@ -275,7 +277,9 @@ def moe_ffn_ep(x: torch.Tensor, p: Params, cfg: ArchConfig,
     y = fn(x, L.as_dtensor(p["router"], mesh), p["w_gate"], p["w_up"],
            p["w_down"])
     if "shared" in p:
-        y = y + L.swiglu(x, p["shared"])
+        # the shared experts' products are local regions of this mesh
+        with using_activation_sharding(get_activation_sharding() or ctx):
+            y = y + L.swiglu(x, p["shared"])
     return y
 
 

@@ -25,8 +25,10 @@ from __future__ import annotations
 from typing import Any, Dict, Optional, Tuple
 
 import torch
+from torch.distributed.tensor import DTensor, Shard
 
 from repro_torch.configs.base import ArchConfig
+from repro_torch.distributed.parallel import get_activation_sharding
 from repro_torch.models import layers as L
 from repro_torch.models import transformer as T
 
@@ -153,6 +155,30 @@ def ssd_chunked(xdt: torch.Tensor, dA: torch.Tensor, B_: torch.Tensor,
     return y, state
 
 
+def ssd_scan(xdt: torch.Tensor, dA: torch.Tensor, B_: torch.Tensor,
+             C_: torch.Tensor, chunk: int,
+             h0: Optional[torch.Tensor] = None):
+    """``ssd_chunked``; on a mesh, a local region over the batch (on the
+    data axes where they divide it) and the heads (on the model axis where
+    it divides them), the sequence whole: each head's scan is independent,
+    and B, C, shared by the heads, are whole on every rank."""
+    extra = () if h0 is None else (h0,)
+    if not L.on_mesh(xdt, dA, B_, C_, *extra):
+        return ssd_chunked(xdt, dA, B_, C_, chunk, h0)
+    ctx = get_activation_sharding()
+    hm = ctx.model_axis if xdt.shape[2] % ctx.model_size == 0 else None
+
+    def pl(*rest):
+        return L.activation_placements(ctx, (ctx.batch(xdt.shape[0]),)
+                                       + rest)
+    x_pl, st_pl, bc_pl = pl(None, hm), pl(hm), pl()
+    return L.local_region(
+        lambda x_, a_, b_, c_, *h: ssd_chunked(x_, a_, b_, c_, chunk,
+                                               h[0] if h else None),
+        (x_pl, st_pl), (x_pl, pl(None, hm), bc_pl, bc_pl)
+        + ((st_pl,) if extra else ()), xdt, dA, B_, C_, *extra)
+
+
 def ssd_step(x1: torch.Tensor, dA1: torch.Tensor, B1: torch.Tensor,
              C1: torch.Tensor, state: torch.Tensor):
     """One-token recurrence. x1: (b, h, p) pre-scaled by dt; dA1: (b, h);
@@ -180,7 +206,25 @@ def _gated_rmsnorm(y: torch.Tensor, z: torch.Tensor,
 
 def _causal_conv_full(x: torch.Tensor, w: torch.Tensor,
                       b: torch.Tensor) -> torch.Tensor:
-    """Depthwise causal conv. x: (B, L, C); w: (W, C)."""
+    """Depthwise causal conv. x: (B, L, C); w: (W, C). On a mesh, a local
+    region over the batch (on the data axes where they divide it) and the
+    channels as ``param_specs`` places the weight (on the model axis or
+    whole), the sequence whole."""
+    if L.on_mesh(x, w, b):
+        ctx = get_activation_sharding()
+        m_dim = ctx.mesh.mesh_dim_names.index(ctx.model_axis)
+        ch = ctx.model_axis if isinstance(w, DTensor) and isinstance(
+            w.placements[m_dim], Shard) else None
+        x_pl = L.activation_placements(ctx, (ctx.batch(x.shape[0]), None,
+                                             ch))
+        return L.local_region(_causal_conv_local, x_pl, (
+            x_pl, L.activation_placements(ctx, (None, ch)),
+            L.activation_placements(ctx, (ch,))), x, w, b)
+    return _causal_conv_local(x, w, b)
+
+
+def _causal_conv_local(x: torch.Tensor, w: torch.Tensor,
+                       b: torch.Tensor) -> torch.Tensor:
     W = w.shape[0]
     pad = torch.nn.functional.pad(x, (0, 0, W - 1, 0))
     out = 0
@@ -198,7 +242,7 @@ def _conv_step(x1: torch.Tensor, conv_state: torch.Tensor, w: torch.Tensor,
 
 
 def _proj(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
-    return torch.einsum("...d,dz->...z", x, w)
+    return L.project("...d,dz->...z", x, w)
 
 
 def mamba_block_full(x: torch.Tensor, p: Params, cfg: ArchConfig,
@@ -214,6 +258,7 @@ def mamba_block_full(x: torch.Tensor, p: Params, cfg: ArchConfig,
     B, Lseq, _ = x.shape
     di, h, pdim, _ = mamba_dims(cfg)
     n = cfg.ssm_state
+    x = L.gather_seq(x)
     z = _proj(x, p["w_z"])
     xs = _proj(x, p["w_x"])
     bc = _proj(x, p["w_bc"])
@@ -228,7 +273,7 @@ def mamba_block_full(x: torch.Tensor, p: Params, cfg: ArchConfig,
     dA = dt * A
     xh = xs.reshape(B, Lseq, h, pdim)
     xdt = xh * dt[..., None].to(x.dtype)
-    y, state = ssd_chunked(xdt, dA, Bm, Cm, min(cfg.ssm_chunk, Lseq), h0)
+    y, state = ssd_scan(xdt, dA, Bm, Cm, min(cfg.ssm_chunk, Lseq), h0)
     y = y + xh * p["D"][None, None, :, None].to(x.dtype)
     y = _gated_rmsnorm(y.reshape(B, Lseq, di), z, p["norm"])
     return _proj(y, p["out_proj"]), state
@@ -273,6 +318,7 @@ def mamba_conv_tail(x: torch.Tensor, p: Params, cfg: ArchConfig,
     length-(W-1)..length-1, zero rows where that underflows (the causal
     conv's implicit zero padding)."""
     W1 = CONV_WIDTH - 1
+    x = L.gather_seq(x)
     if length is None:
         tail = x[:, -W1:, :]
         valid = None

@@ -162,8 +162,9 @@ def _self_block(cfg: ArchConfig, x, blk, positions, *, causal=True,
 
 def _cross_kv(ctx, blk):
     """Cross-attention k/v (B, T, K, D) of a context (no RoPE)."""
-    k = torch.einsum("btd,dkh->btkh", ctx, blk["attn"]["wk"])
-    v = torch.einsum("btd,dkh->btkh", ctx, blk["attn"]["wv"])
+    ctx = L.gather_seq(ctx)
+    k = L.project("btd,dkh->btkh", ctx, blk["attn"]["wk"])
+    v = L.project("btd,dkh->btkh", ctx, blk["attn"]["wv"])
     return k, v
 
 
@@ -171,7 +172,7 @@ def _cross_block(x, blk, attend):
     """Cross-attention block: queries from x, ``attend(q)`` against the
     context's k/v (no RoPE, no causality), then the SwiGLU MLP."""
     h = L.rmsnorm(x, blk["ln1"])
-    q = torch.einsum("bsd,dkgh->bskgh", h, blk["attn"]["wq"])
+    q = L.project("bsd,dkgh->bskgh", h, blk["attn"]["wq"])
     return _constrained(x, attend(q), blk, "torch")
 
 

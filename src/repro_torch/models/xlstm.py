@@ -30,6 +30,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ArchConfig
+from repro_torch.distributed.parallel import get_activation_sharding
 from repro_torch.models import layers as L
 from repro_torch.models import transformer as T
 
@@ -222,11 +223,46 @@ def mlstm_recurrent(q, k, v, log_i, log_f, state=None):
     return torch.stack(hs, dim=1).to(q.dtype), (C, n, m)
 
 
+def _mlstm_cell(q, k, v, log_i, log_f, chunk: int, state, mode: str):
+    """The mLSTM cell over heads: q, k, v (B, S, H * D), log_i, log_f (B,
+    S, H); returns (h (B, S, H * D), state) by ``mlstm_chunked`` or
+    ``mlstm_recurrent``. On a mesh, a local region over the batch (on the
+    data axes where they divide it) and the heads (on the model axis where
+    it divides them: q, k, v shard their columns a head at a time), each
+    rank running its heads' chunk loop or recurrence whole; the state
+    takes the same placements."""
+    def cell(q, k, v, log_i, log_f, *st):
+        B, S, HD = q.shape
+        heads = (B, S, log_i.shape[-1], HD // log_i.shape[-1])
+        fn = mlstm_chunked if mode == "chunked" else mlstm_recurrent
+        args = (q.reshape(heads), k.reshape(heads), v.reshape(heads),
+                log_i, log_f) + ((chunk,) if mode == "chunked" else ())
+        h, new = fn(*args, st or None)
+        return (h.reshape(B, S, HD),) + tuple(new)
+
+    state = tuple(state) if state is not None else ()
+    if not L.on_mesh(q, k, v, log_i, log_f, *state):
+        h, *new = cell(q, k, v, log_i, log_f, *state)
+        return h, tuple(new)
+    ctx = get_activation_sharding()
+    dax = ctx.batch(q.shape[0])
+    hm = ctx.model_axis if log_i.shape[-1] % ctx.model_size == 0 else None
+
+    def pl(*rest):
+        return L.activation_placements(ctx, (dax,) + rest)
+    seq = pl(None, hm)              # q, k, v, the gates and h
+    st_pl = (pl(hm), pl(hm), pl(hm))
+    h, *new = L.local_region(
+        cell, (seq,) + st_pl, (seq,) * 5 + (st_pl if state else ()),
+        q, k, v, log_i, log_f, *state)
+    return h, tuple(new)
+
+
 def _mlstm_gates(xm, blk):
     H = blk["gate_bias"].shape[-1] // 2
-    raw = torch.einsum("bsd,dg->bsg", xm.float(), blk["w_gate"])
+    raw = L.project("bsd,dg->bsg", xm.float(), blk["w_gate"])
     raw = raw + blk["gate_bias"][None, None, :]
-    return raw[..., :H], F.logsigmoid(raw[..., H:])
+    return raw[..., :H], L.pointwise(F.logsigmoid, raw[..., H:])
 
 
 def mlstm_block(x, blk, cfg: ArchConfig, state=None, mode: str = "chunked",
@@ -238,25 +274,21 @@ def mlstm_block(x, blk, cfg: ArchConfig, state=None, mode: str = "chunked",
     identity on the (C, n, m) state once a valid token has been seen,
     which right padding guarantees."""
     B, S, d = x.shape
-    H, hd = cfg.n_heads, cfg.head_dim
-    h_in = L.rmsnorm(x, blk["ln"])
-    up = torch.einsum("bsd,dz->bsz", h_in, blk["w_up"])
+    h_in = L.gather_seq(L.rmsnorm(x, blk["ln"]))
+    up = L.project("bsd,dz->bsz", h_in, blk["w_up"])
     xm, z = up[..., :d], up[..., d:]
-    q = torch.einsum("bsd,de->bse", xm, blk["wq"]).reshape(B, S, H, hd)
-    k = torch.einsum("bsd,de->bse", xm, blk["wk"]).reshape(B, S, H, hd)
-    v = torch.einsum("bsd,de->bse", xm, blk["wv"]).reshape(B, S, H, hd)
+    q = L.project("bsd,de->bse", xm, blk["wq"])
+    k = L.project("bsd,de->bse", xm, blk["wk"])
+    v = L.project("bsd,de->bse", xm, blk["wv"])
     log_i, log_f = _mlstm_gates(xm, blk)
     if mask is not None:
         keep = mask[..., None]
         log_i = log_i.masked_fill(~keep, NEG)
         log_f = log_f.masked_fill(~keep, 0.0)
-    if mode == "chunked":
-        h, new_state = mlstm_chunked(q, k, v, log_i, log_f,
-                                     min(cfg.ssm_chunk, S), state)
-    else:
-        h, new_state = mlstm_recurrent(q, k, v, log_i, log_f, state)
-    h = h.reshape(B, S, d) * F.silu(z.float()).to(x.dtype)
-    return torch.einsum("bsd,de->bse", h, blk["w_down"]), new_state
+    h, new_state = _mlstm_cell(q, k, v, log_i, log_f,
+                               min(cfg.ssm_chunk, S), state, mode)
+    h = h * F.silu(z.float()).to(x.dtype)
+    return L.project("bsd,de->bse", h, blk["w_down"]), new_state
 
 
 # ---------------------------------------------------------------------------
@@ -273,6 +305,35 @@ def slstm_state0(B: int, d: int, device):
 
 
 def slstm_scan(x_gates, r, bias, H: int, state=None, mask=None):
+    """``_slstm_scan_local``; on a mesh, a local region over the batch (on
+    the data axes where they divide it) with the heads whole on every
+    rank: the gate-major columns interleave the heads, so no shard of the
+    4d columns holds whole heads."""
+    state = tuple(state) if state is not None else ()
+    extra = () if mask is None else (mask,)
+    if not L.on_mesh(x_gates, r, bias, *state, *extra):
+        return _slstm_scan_local(x_gates, r, bias, H, state or None, mask)
+    ctx = get_activation_sharding()
+
+    def pl(n):
+        return L.activation_placements(
+            ctx, (ctx.batch(x_gates.shape[0]),) + (None,) * (n - 1))
+    rep = L.activation_placements(ctx, ())
+
+    def scan(xg, r_, b_, *rest):
+        m_ = rest[-1] if mask is not None else None
+        st = rest[:-1] if mask is not None else rest
+        h, new = _slstm_scan_local(xg, r_, b_, H, st or None, m_)
+        return (h,) + tuple(new)
+
+    h, *new = L.local_region(
+        scan, (pl(3),) + (pl(2),) * 4,
+        (pl(3), rep, rep) + (pl(2),) * len(state) + (pl(2),) * len(extra),
+        x_gates, r, bias, *state, *extra)
+    return h, tuple(new)
+
+
+def _slstm_scan_local(x_gates, r, bias, H: int, state=None, mask=None):
     """x_gates: (B, S, 4d) pre-activations (z, i, f, o, each d wide); r:
     (4, H, hd, hd) recurrent block-diagonal weights. Returns (h (B, S, d)
     f32, state (h, c, n, m)).
@@ -326,7 +387,7 @@ def slstm_block(x, blk, cfg: ArchConfig, state=None, mask=None):
     """x: (B, S, d). Returns (y, new_state); the caller adds the
     residual (``y`` is the block's output less ``x``, as in ``repro``)."""
     h_in = L.rmsnorm(x, blk["ln"])
-    gates = torch.einsum("bsd,dg->bsg", h_in, blk["w_in"])
+    gates = L.project("bsd,dg->bsg", h_in, blk["w_in"])
     h, new_state = slstm_scan(gates, blk["r"], blk["bias"], cfg.n_heads,
                               state, mask)
     y = x + h.to(x.dtype)

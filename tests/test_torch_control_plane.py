@@ -13,7 +13,7 @@ import time
 import numpy as np
 import pytest
 import torch
-from hypothesis import given, settings, strategies as st
+from hypothesis import HealthCheck, given, settings, strategies as st
 
 from repro_torch.configs.registry import ARCHS
 from repro_torch.core import profiler as prof
@@ -1128,6 +1128,7 @@ def test_full_system_lifecycle():
 # Property-based tests (hypothesis) on control-plane invariants.
 
 
+@settings(deadline=None, suppress_health_check=[HealthCheck.too_slow])
 @given(st.lists(st.floats(0, 100), min_size=1, max_size=50),
        st.integers(0, 2**31 - 1))
 def test_eventloop_fires_in_time_order(delays, seed):
@@ -1141,6 +1142,7 @@ def test_eventloop_fires_in_time_order(delays, seed):
     assert len(fired) == len(delays)
 
 
+@settings(deadline=None, suppress_health_check=[HealthCheck.too_slow])
 @given(st.floats(1e-6, 10), st.floats(0, 10))
 def test_fit_linear_recovers_exact_line(m, c):
     batches = [1, 4, 8]
@@ -1150,6 +1152,7 @@ def test_fit_linear_recovers_exact_line(m, c):
                                rtol=1e-6, atol=1e-6)
 
 
+@settings(deadline=None, suppress_health_check=[HealthCheck.too_slow])
 @given(st.integers(2, 40), st.floats(0.5, 2.0))
 def test_zipf_weights_normalized_and_monotone(n, alpha):
     w = zipf_weights(n, alpha)
@@ -1157,6 +1160,7 @@ def test_zipf_weights_normalized_and_monotone(n, alpha):
     assert all(w[i] >= w[i + 1] for i in range(n - 1))
 
 
+@settings(deadline=None, suppress_health_check=[HealthCheck.too_slow])
 @given(st.integers(2, 10))
 def test_popularity_split_80_20(n):
     archs = [f"arch{i}" for i in range(n)]
@@ -1168,7 +1172,8 @@ def test_popularity_split_80_20(n):
         assert abs(pop_mass - 0.8) < 1e-9
 
 
-@settings(max_examples=20, deadline=None)
+@settings(max_examples=20, deadline=None,
+          suppress_health_check=[HealthCheck.too_slow])
 @given(st.integers(1, 64), st.one_of(st.none(), st.floats(1e-3, 10.0)))
 def test_selection_respects_batch_and_slo(batch, slo):
     store = MetadataStore()
@@ -1184,7 +1189,8 @@ def test_selection_respects_batch_and_slo(batch, slo):
             assert r.variant.profile.latency(batch) <= slo + 1e-9
 
 
-@settings(max_examples=5, deadline=None)
+@settings(max_examples=5, deadline=None,
+          suppress_health_check=[HealthCheck.too_slow])
 @given(st.integers(0, 2**31 - 1), st.floats(20.0, 300.0))
 def test_sim_invariants_under_random_load(seed, rate):
     """Random Poisson load: memory accounting, replica caps, and query

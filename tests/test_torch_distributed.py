@@ -8,11 +8,11 @@ meshes under the ``"fake"`` backend.
 
 One world of 4 rank processes per module (``mp.spawn``, a ``FileStore``
 under the module's temp dir, so no port is shared between xdist workers)
-runs every case and writes its results (a second runs one case, below);
-the reference runs once, beside them, in a subprocess with 4 host devices
-(``XLA_FLAGS``) that writes an ``.npz``; the tests read them. Rank
-processes import no JAX and take one torch thread. Every wait is bounded
-(120 s).
+runs every case on DTensor's strategy table as a user of
+``build_model(parallel=)`` gets it and writes its results; the reference
+runs once, beside it, in a subprocess with 4 host devices (``XLA_FLAGS``)
+that writes an ``.npz``; the tests read them. Rank processes import no
+JAX and take one torch thread. Every wait is bounded (120 s).
 
 Tolerances: ``moe_ffn_ep`` within 1e-5 of the reference's,
 ``decode_attention_splitk`` within 1e-6; each family's logits, loss and
@@ -26,16 +26,23 @@ tokens, as the reference computes it, the expert-parallel lowering differs
 from the dense one wherever a token is dropped (the ``drop`` case holds
 that to the reference's expert-parallel lowering instead).
 
-The world that runs every case takes DTensor's op-level sharding
-strategies for the matmuls, which register both kinds (mm, bmm, addmm,
-baddbmm): torch 2.13's default expands a matmul's single-mesh-dim
-strategies over every combination of a 2-D mesh's dims, about 0.6 s per
-new bmm schema on a CPU host, ten times the op-level strategies' cost;
-both give valid shardings of the same math. Every case run on the default
-table passes too, but takes 124 s where the bound is 120. So a second
-world of 4, started beside the first, keeps the table as a user of
-``build_model(parallel=)`` gets it and runs the dense train step on
-(2, 2): the forward, the loss, the backward and AdamW.
+Which ops reach DTensor's sharding propagation depends on nothing but the
+model code, so one check holds the layer to the op kinds that torch 2.11
+was seen to refuse on the port's code: a dispatch mode records each op
+with a DTensor operand during each family's forward, prefill and decode
+and the two train steps, and no op may be ``cummax`` (no sharding rule),
+``log_sigmoid_forward``/``_backward`` (no rule for the backward),
+``constant_pad_nd`` (an ``IndexError`` in propagation), an
+``index``/``index_put`` by a DTensor index (no rule for the embedding's
+backward, nor for a batch index sharded over two mesh dims), or a view
+that flattens a sharded dim behind the first dim of its group (torch
+2.13 takes that as a strided shard; 2.11 refuses it, so such a model
+fails on the card machine's torch on any mesh dim larger than 1). An op
+of another kind that 2.11 refuses shows only under 2.11
+(``scripts/dist_cases.py``). ``_recorder_cases`` runs one op of each
+refused kind under the recorder. The products, the lookup, attention,
+the losses and the recurrent cells run in local regions for that reason
+(``layers.local_region``).
 """
 import dataclasses
 import json
@@ -44,12 +51,16 @@ import subprocess
 import sys
 import time
 import traceback
+import types
 
 import numpy as np
 import pytest
 import torch
 import torch.distributed as dist
 import torch.multiprocessing as mp
+from torch.distributed.tensor import DTensor, Replicate, Shard
+from torch.utils._python_dispatch import TorchDispatchMode
+from torch.utils._pytree import tree_leaves
 
 # six xdist workers share the cores with XLA's threads: one torch thread
 # each keeps them from oversubscribing
@@ -172,17 +183,114 @@ def _oracle_env():
 # the rank processes
 
 
-def _prefer_op_strategies():
-    """Take the op-level sharding strategies of the matmuls, which register
-    one beside their single-mesh-dim strategy (the module docstring)."""
-    from torch.distributed.tensor import DTensor
-    aten = torch.ops.aten
-    prop = DTensor._op_dispatcher.sharding_propagator
-    single = getattr(prop, "op_single_dim_strategy_funcs", {})
-    for op in (aten.mm.default, aten.bmm.default, aten.addmm.default,
-               aten.baddbmm.default):
-        if op in single and op in prop.op_strategy_funcs:
-            del single[op]
+def _flattening_groups(src, dst):
+    """The groups of ``src``'s dims that a view to ``dst`` merges into one
+    dim, size-1 dims left out (a size-1 dim moves no data)."""
+    groups, i, j = [], 0, 0
+    while i < len(src) and j < len(dst):
+        start, a, b = i, src[i], dst[j]
+        i, j = i + 1, j + 1
+        while a != b:
+            if a < b:
+                a, i = a * src[i], i + 1
+            else:
+                b, j = b * dst[j], j + 1
+        group = [d for d in range(start, i) if src[d] != 1]
+        if len(group) > 1:
+            groups.append(group)
+    return groups
+
+
+def _refused_view(t, size):
+    """Whether viewing DTensor ``t`` as ``size`` flattens a sharded dim
+    behind the first dim of its group."""
+    size = list(size)
+    if -1 in size:
+        known = int(np.prod([n for n in size if n != -1]))
+        size[size.index(-1)] = int(np.prod(t.shape)) // max(known, 1)
+    sharded = {p.dim for p in t.placements if isinstance(p, Shard)}
+    return any(d in sharded for g in _flattening_groups(tuple(t.shape), size)
+               for d in g[1:])
+
+
+class _DTensorOps(TorchDispatchMode):
+    """A dispatch mode that records each op with a DTensor operand: their
+    count and the ones no torch release propagates alike (the module
+    docstring), as strings naming the op."""
+
+    def __init__(self):
+        super().__init__()
+        self.count, self.refused = 0, []
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        if any(isinstance(a, DTensor) for a in tree_leaves(args)):
+            self.count += 1
+            name = func.name()
+            if "cummax" in name or "log_sigmoid" in name \
+                    or name == "aten::constant_pad_nd":
+                self.refused.append(name)
+            elif name.startswith("aten::index") and any(
+                    isinstance(i, DTensor) for i in tree_leaves(args[1:2])):
+                self.refused.append(f"{name} by a DTensor index")
+            elif name in ("aten::view", "aten::_unsafe_view") \
+                    and isinstance(args[0], DTensor) \
+                    and isinstance(args[1], (list, tuple)) \
+                    and _refused_view(args[0], args[1]):
+                self.refused.append(f"{name} {tuple(args[0].shape)}->"
+                                    f"{list(args[1])} {args[0].placements}")
+        return func(*args, **(kwargs or {}))
+
+
+def _recorder_cases(mesh):
+    """Each op kind that ``_DTensorOps`` refuses, run on DTensors under
+    it, beside an op it takes: the ops each one recorded as refused. An
+    op that raises (torch 2.11 refuses some of them) is recorded first."""
+    import torch.nn.functional as F
+    from torch.distributed.tensor import distribute_tensor
+
+    def dt(shape, pls, grad=False):
+        t = torch.arange(float(np.prod(shape))).reshape(shape) / 7 - 2
+        return distribute_tensor(t, mesh, pls).requires_grad_(grad)
+
+    def log_sigmoid():
+        x = dt((4, 8), [Shard(0), Shard(1)], grad=True)
+        y = F.logsigmoid(x)
+        torch.autograd.grad(y, x, grad_outputs=torch.ones_like(y))
+
+    def index():
+        i = distribute_tensor(torch.tensor([2, 0, 3, 1]), mesh,
+                              [Shard(0), Replicate()])
+        return dt((4, 8), [Replicate(), Replicate()])[i]
+    probes = {
+        "cummax": lambda: torch.cummax(dt((4, 8), [Shard(0), Replicate()]),
+                                       1),
+        "log_sigmoid": log_sigmoid,
+        "constant_pad_nd": lambda: F.pad(dt((4, 8), [Shard(0), Shard(1)]),
+                                         (1, 0)),
+        "index": index,
+        "view": lambda: dt((4, 2, 8), [Shard(0), Shard(1)]).view(8, 8),
+        "add": lambda: dt((4, 8), [Shard(0), Shard(1)]) + 1}
+    out = {}
+    for name, fn in probes.items():
+        with _DTensorOps() as mode:
+            try:
+                fn()
+            except Exception:                            # noqa: BLE001
+                pass
+        out[name] = list(mode.refused)
+    return out
+
+
+def _recorded(results, key, fn):
+    """``fn()`` under ``_DTensorOps``; adds the ops it recorded to
+    ``results[key]``."""
+    rec = results.setdefault(key, {"count": 0, "refused": []})
+    with _DTensorOps() as mode:
+        try:
+            return fn()
+        finally:
+            rec["count"] += mode.count
+            rec["refused"] += mode.refused
 
 
 def _guard(results, key, fn):
@@ -193,7 +301,6 @@ def _guard(results, key, fn):
 
 
 def _full(t):
-    from torch.distributed.tensor import DTensor
     return t.full_tensor() if isinstance(t, DTensor) else t
 
 
@@ -396,7 +503,8 @@ def _family_cases(results, mesh):
                     out[f"decode_cache/{name}"] = (_full(leaf),
                                                    ref_dcache[name])
                 return out
-            _guard(results, key, run)
+            _guard(results, key, lambda: _recorded(
+                results, f"ops/{family}", run))
 
 
 def _train_cases(results, mesh, families=("dense", "moe")):
@@ -451,7 +559,8 @@ def _train_cases(results, mesh, families=("dense", "moe")):
                 for k, v in leaves(a):
                     out[f"{tree}/{k}"] = (_full(v), fb[k])
             return {"pairs": out, "moments_placed": placed}
-        _guard(results, f"train/{family}", run)
+        _guard(results, f"train/{family}", lambda: _recorded(
+            results, f"ops/train_{family}", run))
 
 
 def _mesh_cases(results):
@@ -469,13 +578,11 @@ def _mesh_cases(results):
         "host": raised(make_host_mesh)}
 
 
-def _rank_main(rank, tmp, table):
-    """One rank of a world. ``table`` "op_level" runs every case on the
-    op-level matmul strategies; "default" runs the dense train step on
-    (2, 2) on DTensor's strategy table as a user of
-    ``build_model(parallel=)`` gets it."""
+def _rank_main(rank, tmp):
+    """One rank of the world: every case, on DTensor's strategy table as
+    it comes."""
     torch.set_num_threads(1)
-    store = dist.FileStore(os.path.join(tmp, f"store-{table}"), WORLD)
+    store = dist.FileStore(os.path.join(tmp, "store"), WORLD)
     dist.init_process_group("gloo", store=store, rank=rank,
                             world_size=WORLD)
     from torch.distributed.device_mesh import init_device_mesh
@@ -483,24 +590,21 @@ def _rank_main(rank, tmp, table):
                                      mesh_dim_names=("data", "model"))
               for name, shape in MESHES.items()}
     results = {"seconds": {}}
-    if table == "op_level":
-        _prefer_op_strategies()
-        arrs = dict(np.load(os.path.join(tmp, "inputs.npz")))
-        sections = [
-            ("ep", lambda: _ep_cases(results, arrs, meshes)),
-            ("splitk", lambda: _splitk_cases(results, arrs, meshes["1x4"])),
-            ("families", lambda: _family_cases(results, meshes["2x2"])),
-            ("train", lambda: _train_cases(results, meshes["2x2"])),
-            ("mesh", lambda: _mesh_cases(results))]
-    else:
-        sections = [("train", lambda: _train_cases(results, meshes["2x2"],
-                                                   ("dense",)))]
+    arrs = dict(np.load(os.path.join(tmp, "inputs.npz")))
+    sections = [
+        ("ep", lambda: _ep_cases(results, arrs, meshes)),
+        ("splitk", lambda: _splitk_cases(results, arrs, meshes["1x4"])),
+        ("families", lambda: _family_cases(results, meshes["2x2"])),
+        ("train", lambda: _train_cases(results, meshes["2x2"])),
+        ("recorder", lambda: _guard(
+            results, "recorder", lambda: _recorder_cases(meshes["2x2"]))),
+        ("mesh", lambda: _mesh_cases(results))]
     for name, run in sections:
         t0 = time.perf_counter()
         run()
         results["seconds"][name] = time.perf_counter() - t0
     if rank == 0:
-        torch.save(results, os.path.join(tmp, f"results-{table}.pt"))
+        torch.save(results, os.path.join(tmp, "results.pt"))
     dist.barrier()
     dist.destroy_process_group()
 
@@ -537,21 +641,15 @@ def world(tmp_path_factory):
                                  env=env, stdout=subprocess.PIPE,
                                  stderr=subprocess.STDOUT)
              for n in (256, 512)}
-    worlds = {table: mp.spawn(_rank_main, args=(tmp, table), nprocs=WORLD,
-                              join=False)
-              for table in ("op_level", "default")}
+    ctx = mp.spawn(_rank_main, args=(tmp,), nprocs=WORLD, join=False)
     try:
-        for table, ctx in worlds.items():
-            while not ctx.join(
-                    timeout=max(deadline - time.monotonic(), 0.1)):
-                if time.monotonic() > deadline:
-                    raise TimeoutError(
-                        f"the {table} gloo world ran past {WAIT_S} s")
+        while not ctx.join(timeout=max(deadline - time.monotonic(), 0.1)):
+            if time.monotonic() > deadline:
+                raise TimeoutError(f"the gloo world ran past {WAIT_S} s")
     finally:
-        for ctx in worlds.values():
-            for p in ctx.processes:
-                if p.is_alive():
-                    p.terminate()
+        for p in ctx.processes:
+            if p.is_alive():
+                p.terminate()
     out = {}
     for name, proc in [("oracle", oracle)] + [(f"fake/{n}", p)
                                                for n, p in fakes.items()]:
@@ -559,10 +657,7 @@ def world(tmp_path_factory):
             timeout=max(deadline - time.monotonic(), 1.0))
         out[name] = (proc.returncode, stdout.decode())
     assert out["oracle"][0] == 0, out["oracle"][1]
-    results = torch.load(os.path.join(tmp, "results-op_level.pt"),
-                         weights_only=False)
-    results["default"] = torch.load(os.path.join(tmp, "results-default.pt"),
-                                    weights_only=False)
+    results = torch.load(os.path.join(tmp, "results.pt"), weights_only=False)
     results["oracle"] = dict(np.load(os.path.join(tmp, "oracle.npz")))
     for n in fakes:
         code, text = out[f"fake/{n}"]
@@ -664,9 +759,56 @@ def test_train_step_on_mesh_matches_unsharded(world, family):
 
 
 def test_train_step_on_default_strategy_table_matches_unsharded(world):
-    """The dense train step (forward, loss, backward, AdamW) in the world
-    whose ranks keep DTensor's strategy table as it is."""
-    _check_train(_ok(world["default"], "train/dense"))
+    """The dense train step (forward, loss, backward, AdamW) on DTensor's
+    strategy table as it comes, which every case of the world takes."""
+    _check_train(_ok(world, "train/dense"))
+
+
+@pytest.mark.parametrize("case", sorted(FAMILIES) + ["train_dense",
+                                                     "train_moe"])
+def test_mesh_ops_propagate_on_every_torch(world, case):
+    """No op that reaches DTensor dispatch is one that torch 2.11 refuses
+    (the module docstring): each family's forward, prefill and decode
+    without and with FSDP, and the dense and moe train steps, on (2, 2)."""
+    rec = world[f"ops/{case}"]
+    assert rec["count"] > 0
+    assert rec["refused"] == [], sorted(set(rec["refused"]))[:10]
+
+
+@pytest.mark.parametrize("probe,refused", [
+    ("cummax", ["aten::cummax"]),
+    ("log_sigmoid", ["aten::log_sigmoid_forward",
+                     "aten::log_sigmoid_backward"]),
+    ("constant_pad_nd", ["aten::constant_pad_nd"]),
+    ("index", ["aten::index.Tensor by a DTensor index"]),
+    ("view", ["aten::view (4, 2, 8)->[8, 8]"]),
+    ("add", []),
+])
+def test_recorder_refuses_each_kind(world, probe, refused):
+    """``_DTensorOps`` on one op of each refused kind, run on DTensors on
+    (2, 2) in the rank processes (``_recorder_cases``), and on an op it
+    takes: each refused op is recorded under its name."""
+    got = _ok(world, "recorder")[probe]
+    assert [r for r in got if not any(r.startswith(w) for w in refused)] \
+        == [], got
+    assert all(any(r.startswith(w) for r in got) for w in refused), got
+
+
+@pytest.mark.parametrize("src,dst,placements,refused", [
+    ((4, 2, 8), (8, 8), ("S0", "S1"), True),      # K behind B
+    ((4, 2, 8), (8, 8), ("R", "S1"), True),       # K behind a whole B
+    ((4, 2, 8), (8, 8), ("S0", "R"), False),      # the first dim sharded
+    ((4, 2, 8), (4, 16), ("S0", "S1"), False),    # (2, 8): 2 is first
+    ((4, 2, 8), (4, 16), ("R", "S2"), True),      # 8 behind 2
+    ((4, 1, 8), (4, 8), ("R", "S2"), False),      # a size-1 dim moves nothing
+    ((4, 16), (4, 2, 8), ("R", "S1"), False),     # a split
+])
+def test_refused_view_rule(src, dst, placements, refused):
+    """``_refused_view`` on the shapes of the attention and projection
+    einsums, without a world (placements are read, not applied)."""
+    t = types.SimpleNamespace(shape=src, placements=[
+        Replicate() if p == "R" else Shard(int(p[1])) for p in placements])
+    assert _refused_view(t, dst) == refused
 
 
 # ---------------------------------------------------------------------------

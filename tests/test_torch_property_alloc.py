@@ -11,7 +11,8 @@ import torch
 torch.set_num_threads(1)
 
 pytest.importorskip("hypothesis")
-from hypothesis import given, settings, strategies as st  # noqa: E402
+from hypothesis import (HealthCheck, given, settings,  # noqa: E402
+                        strategies as st)
 
 from test_torch_alloc import _Pair, _invariants  # noqa: E402
 
@@ -22,7 +23,8 @@ STAGE_OPS = st.lists(
     min_size=1, max_size=80)
 
 
-@settings(max_examples=150, deadline=None)
+@settings(max_examples=150, deadline=None,
+          suppress_health_check=[HealthCheck.too_slow])
 @given(STAGE_OPS, st.integers(1, 48), st.integers(1, 16), st.integers(1, 8))
 def test_staged_reservations_invariants(ops, n_pages, page_size, max_slots):
     """The staging discipline: tickets hold worst-case reservations (first
@@ -82,7 +84,8 @@ PREEMPT_OPS = st.lists(
     min_size=1, max_size=100)
 
 
-@settings(max_examples=150, deadline=None)
+@settings(max_examples=150, deadline=None,
+          suppress_health_check=[HealthCheck.too_slow])
 @given(PREEMPT_OPS, st.integers(1, 48), st.integers(1, 16),
        st.integers(1, 8))
 def test_optimistic_preempt_readmit_invariants(ops, n_pages, page_size,
@@ -144,7 +147,8 @@ from test_torch_swap import run_swap_ops  # noqa: E402
 from repro.serving.engine import PageAllocator as JAllocator  # noqa: E402
 
 
-@settings(max_examples=150, deadline=None)
+@settings(max_examples=150, deadline=None,
+          suppress_health_check=[HealthCheck.too_slow])
 @given(SHARE_OPS, st.integers(1, 48), st.integers(1, 16), st.integers(1, 8))
 def test_refcount_sharing_invariants(ops, n_pages, page_size, max_slots):
     """Refcounts, the cached pool and copy-on-write: free + cached +
@@ -155,7 +159,8 @@ def test_refcount_sharing_invariants(ops, n_pages, page_size, max_slots):
                                 JAllocator)
 
 
-@settings(max_examples=100, deadline=None)
+@settings(max_examples=100, deadline=None,
+          suppress_health_check=[HealthCheck.too_slow])
 @given(SHARE_OPS, st.integers(1, 8), st.integers(1, 4))
 def test_sharing_under_pressure_evicts_only_cached(ops, n_pages,
                                                    page_size):
@@ -172,7 +177,8 @@ SWAP_OPS = st.lists(
     min_size=1, max_size=100)
 
 
-@settings(max_examples=150, deadline=None)
+@settings(max_examples=150, deadline=None,
+          suppress_health_check=[HealthCheck.too_slow])
 @given(SWAP_OPS, st.integers(1, 48), st.integers(1, 16), st.integers(1, 8))
 def test_swap_parking_invariants(ops, n_pages, page_size, max_slots):
     """Host-swap parking rides the optimistic preempt / re-admit cycle: a

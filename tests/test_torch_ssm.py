@@ -16,7 +16,8 @@ import pytest
 import torch
 
 pytest.importorskip("hypothesis")
-from hypothesis import given, settings, strategies as st  # noqa: E402
+from hypothesis import (HealthCheck, given, settings,  # noqa: E402
+                        strategies as st)
 
 from repro.models import ssm as JS  # noqa: E402
 from repro_torch.models import ssm as SSM  # noqa: E402
@@ -43,7 +44,8 @@ def _inputs(rng, b, L, h, n, p):
             rng.normal(size=(b, L, n)).astype(np.float32))
 
 
-@settings(max_examples=12, deadline=None)
+@settings(max_examples=12, deadline=None,
+          suppress_health_check=[HealthCheck.too_slow])
 @given(st.integers(0, 2**31 - 1),
        st.sampled_from([(16, 4), (32, 8), (64, 16), (64, 64)]),
        st.integers(1, 3), st.integers(1, 3))
@@ -64,7 +66,8 @@ def test_ssd_chunked_matches_recurrence(seed, l_chunk, b, h):
     np.testing.assert_allclose(state_chunk.numpy(), state.numpy(), **TOL)
 
 
-@settings(max_examples=8, deadline=None)
+@settings(max_examples=8, deadline=None,
+          suppress_health_check=[HealthCheck.too_slow])
 @given(st.integers(0, 2**31 - 1))
 def test_ssd_state_carry_across_calls(seed):
     b, L, h, n, p, chunk = 1, 32, 2, 4, 4, 8

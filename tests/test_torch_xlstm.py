@@ -29,7 +29,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
-from hypothesis import given, settings, strategies as st
+from hypothesis import HealthCheck, given, settings, strategies as st
 
 from repro.configs.registry import ARCHS as J_ARCHS
 from repro.models import xlstm as JX
@@ -75,7 +75,8 @@ def _cell_inputs(rng, b, S, h, d):
 # the cells
 
 
-@settings(max_examples=12, deadline=None)
+@settings(max_examples=12, deadline=None,
+          suppress_health_check=[HealthCheck.too_slow])
 @given(st.integers(0, 2**31 - 1),
        st.sampled_from([(16, 4), (32, 8), (64, 16), (32, 32)]),
        st.integers(1, 2), st.integers(1, 2))
@@ -92,7 +93,8 @@ def test_mlstm_chunked_matches_recurrent(seed, s_chunk, b, h):
         (C2 * torch.exp(m2)[..., None, None]).numpy(), rtol=2e-3, atol=2e-3)
 
 
-@settings(max_examples=8, deadline=None)
+@settings(max_examples=8, deadline=None,
+          suppress_health_check=[HealthCheck.too_slow])
 @given(st.integers(0, 2**31 - 1))
 def test_mlstm_state_carry_across_calls(seed):
     """Splitting a sequence across two chunked calls == one call."""
