@@ -35,8 +35,11 @@ fails:
    < T and 0, and per-slot device lengths over T = 512 at G = 4 and at
    whisper-base's G = 1 (0, 1, a 64-row tile edge, T, mixed, and
    whisper's prompt-bucket encoder lengths), which must also give the
-   fused paged kernel's bits on the same rows; the int8 GEMM at M in {1,
-   8, 8 x bucket} and N not a multiple of the tile). zamba2-1.2b's shared
+   fused paged kernel's bits on the same rows, and the scalar form as the
+   run-to-completion ``WaveEngine`` calls it, at llama's G = 4, D = 64 over
+   a ragged T = 331 at valid_len 300 and T; the int8 GEMM at M in {1, 8,
+   8 x bucket, 8 x 297} (the last a wave's ragged prefill) and N not a
+   multiple of the tile). zamba2-1.2b's shared
    block adds K = 32 KV heads at G = 1, D = 64 to flash (a grouped and a
    ragged causal prefill, timed), the fused paged decode and the
    contiguous kernel's per-slot form, with the same checks and timings;
@@ -61,16 +64,19 @@ fails:
    llama3.2-1b at full width as the bf16 and the int8 variant;
    whisper-base at its published size; llama-3.2-vision-90b at full width
    with its depth cut from 100 to 10 layers (one group of 9 self layers
-   and 1 cross layer); zamba2-1.2b at its published size (38 Mamba2
-   layers and the shared block after every 6, nothing cut), whose
+   and 1 cross layer); zamba2-1.2b at full width with its depth cut from
+   38 to 20 layers (``HYBRID_LAYERS``: 20 Mamba2 layers and the shared
+   block after every 6), whose
    contiguous serve must give its paged tokens bit for bit. The engine
    feeds the audio and vlm families all-zero stub encoder inputs, as the
-   JAX engine does; xlstm-1.3b at its published size (48 layers: 36
-   mLSTM and 12 sLSTM, nothing cut; no attention, so no kernel runs, its
+   JAX engine does; xlstm-1.3b at full width with its depth cut from 48
+   to 24 layers (``SSM_LAYERS``: 18 mLSTM and 6 sLSTM; no attention, so
+   no kernel runs, its
    page size must be inert and its profile shows no wrapper launch); and,
-   first, with nothing else on the card, moonshot-v1-16b-a3b at its
-   published size (``phase_moe``: 48 layers, 64 routed experts top-6 and
-   2 shared, 57.8 GB of bf16 weights) with 4 slots (``MOE_GEOMETRY``: at
+   first, with nothing else on the card, moonshot-v1-16b-a3b at full
+   width with its depth cut from 48 to 24 layers (``phase_moe``,
+   ``MOE_LAYERS``: 64 routed experts top-6 and 2 shared, 29.6 GB of bf16
+   weights) with 4 slots (``MOE_GEOMETRY``: at
    4 rows no decode token is dropped, so idle rows cannot change live
    ones), one prefill dispatch of ``nbatch`` 1 a request, the shares of
    attention, GEMM and routing kernels in its profile, its contiguous
@@ -273,6 +279,30 @@ fails:
    sequence), bf16, at three valid lengths, against the plain
    ``attention_core`` on the same inputs within ``SPLITK_TOL_ULPS`` bf16
    ulps of the output's largest magnitude.
+14. **The baselines and the ``examples/`` twins** (``phase_baselines``).
+   (a) ``WaveEngine``, the run-to-completion baseline, llama3.2-1b at full
+   width (rebuilt from ``SEED``), bf16 and the int8 variant, on phase 3's
+   stream with ``max_batch`` 8 (2 waves), served twice each: every request
+   to its budget, the two serves equal bit for bit, no CUDA graph
+   captured, no fused or attend-only paged decode launched, the launches
+   those the waves' shapes predict (flash n_layers a wave, the contiguous
+   decode's scalar form n_layers a decode step, each wave decoding its
+   largest ``max_new`` times, the int8 GEMM 7 a layer a dispatch) and
+   ``prefill_traces``/``decode_traces`` the waves' distinct shapes; prints
+   the wave's tok/s (median of the serves, quartiles) and host ms a decode
+   step beside phase 3's continuous tok/s. (b) llama3.2-1b at full width
+   cut to 2 layers, f32: the kernel-impl wave against the plain-impl one
+   on the same params; a request whose tokens differ must first differ at
+   a near tie of the plain run (its margin within ``WAVE_TIE_TOL``, twice
+   phase 4's logit tolerance), printed. (c) ``TorchExecutor`` on
+   llama3.2-1b at full width bf16 with phase 3's geometry, ``execute`` at
+   (batch, prompt_len) (1, 8), (8, 8) and (8, 64): exactly those keys
+   measured, every time > 0, decode as replays of the engine's one
+   captured graph; the times printed. (d) ``examples/torch_serve_e2e.py``
+   and ``examples/torch_train_e2e.py`` in process on the card: 20
+   requests each to its budget through flash prefill and the fused paged
+   decode, a finite t(b) fit with c > 0; the loss falling over 60 steps
+   and the restart resuming from the last checkpoint.
 
 The last lines are the card's ``name, power.limit``, one JSON line with
 every kernel's numbers, and the result line
@@ -280,9 +310,11 @@ every kernel's numbers, and the result line
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import itertools
 import json
+import math
 import re
 import shutil
 import statistics
@@ -332,10 +364,18 @@ GEOMETRY = dict(max_batch=8, max_len=512, decode_block=16, page_size=16)
 # whisper 9 -> 3, vision 5 -> 3, chunked 3 -> 2, phase 6 3 -> 2, phase
 # 7's prefix 3 -> 2, swap 3 -> 2, contiguous 5 -> 2), and the vision
 # path's depth 20 -> 10 layers; with phase 11 and the moe and ssm paths
-# added, llama 5 -> 3, whisper 3 -> 2 and vision 3 -> 2.
+# added, llama 5 -> 3, whisper 3 -> 2 and vision 3 -> 2; with phase 14
+# added (the run took 1146.9 s of its 1200 s on a slow host, its
+# uncaptured oracle serves host-bound), the depth of the three largest
+# paths, in phase 3 and in phases 10 and 11, which serve the same models:
+# moonshot-v1-16b-a3b 48 -> 24 layers, xlstm-1.3b 48 -> 24, zamba2-1.2b
+# 38 -> 20.
 SERVE_REPEATS = {"llama3.2-1b": 3, "whisper-base": 2,
                  "llama-3.2-vision-90b": 2, "zamba2-1.2b": 2,
                  "xlstm-1.3b": 2, "moonshot-v1-16b-a3b": 2}
+MOE_LAYERS = 24             # serve depth of moonshot-v1-16b-a3b (of 48)
+SSM_LAYERS = 24             # serve depth of xlstm-1.3b (of 48)
+HYBRID_LAYERS = 20          # serve depth of zamba2-1.2b (of 38)
 CHUNK_THRESHOLD = 64        # the chunked llama serve's threshold
 CHUNKED_REPEATS = 2
 # phase 6: the pressure serve's pool (a quarter of the default 8 x 512 / 16
@@ -348,6 +388,14 @@ VISION_TF_LAYERS = 10       # its f32 teacher-forced depth: one group
 # (Kd, N) of llama3.2-1b's int8 projections: q and o, k and v, gate and up,
 # down
 INT8_SHAPES = [(2048, 2048), (2048, 512), (2048, 8192), (8192, 2048)]
+# the wave path's geometries in phase 2: the WaveEngine's decode takes the
+# contiguous kernel's scalar form at llama3.2-1b's G = 4, D = 64 over a
+# cache of T = plen + max_new rows (a 300-token prompt, 31 new tokens),
+# here at a mid-wave length and the last step's; its int8 prefill GEMM
+# runs at M = 8 x a ragged prompt length
+WAVE_DECODE_T = 331
+WAVE_DECODE_VALID = (300, 331)
+WAVE_INT8_M = 8 * 297
 
 
 def card_line() -> str:
@@ -965,7 +1013,9 @@ def phase_decode(torch, dev, gen, B=8, K=8, G=8, D=128, T=1601):
                 phase_decode_per_slot(torch, dev, gen, K=32, G=1),
                 # moonshot-v1-16b-a3b's contiguous layout: K = 16, G = 1,
                 # D = 128
-                phase_decode_per_slot(torch, dev, gen, K=16, G=1, D=128)]
+                phase_decode_per_slot(torch, dev, gen, K=16, G=1, D=128),
+                # the WaveEngine's scalar form at llama's G = 4, D = 64
+                phase_decode_wave(torch, dev, gen)]
     worst = max([worst] + [p.pop("max_abs_err") for p in per_slot])
     return dict(name="decode_attention", route="cuda",
                 source="src/repro_torch/csrc/decode_attention.cu",
@@ -1070,6 +1120,58 @@ def phase_decode_per_slot(torch, dev, gen, B=8, K=8, G=4, D=64, ps=16,
                 host_us=h_us, max_abs_err=worst)
 
 
+def phase_decode_wave(torch, dev, gen, B=8, K=8, G=4, D=64,
+                      T=WAVE_DECODE_T):
+    """The contiguous kernel's scalar form as the WaveEngine calls it:
+    llama3.2-1b's G = 4, D = 64 over a ragged T = plen + max_new, every
+    slot at one host length ``valid_len`` <= T (``WAVE_DECODE_VALID``):
+    against its plain version in bf16 and the f32 ulp rule, two calls the
+    same bits; timed at the first length beside its bound (the rows it
+    attends) and SDPA with a mask."""
+    from repro_torch.kernels.decode_attention import (
+        contiguous_plan, decode_attention, decode_attention_plain)
+    tol = 3e-2
+    q = torch.randn((B, K, G, D), generator=gen, device=dev).bfloat16()
+    k = torch.randn((B, T, K, D), generator=gen, device=dev).bfloat16()
+    v = torch.randn((B, T, K, D), generator=gen, device=dev).bfloat16()
+    worst = 0.0
+    for vlen in WAVE_DECODE_VALID:
+        out = decode_attention(q, k, v, vlen)
+        again = decode_attention(q, k, v, vlen)
+        want = decode_attention_plain(q, k, v, vlen)
+        want32 = decode_attention_plain(q.float(), k.float(), v.float(), vlen)
+        torch.cuda.synchronize()
+        err = (out.float() - want.float()).abs().max().item()
+        _, _, n_split, split = contiguous_plan(q, T, vlen, "mma")
+        what = f"decode_attention wave G={G} D={D} T={T} valid_len {vlen}"
+        print(f"  {what}: {n_split} spans of {split} rows, max_abs_err "
+              f"{err:.3e} (tol {tol})")
+        check(err <= tol, f"{what}: err {err}")
+        check(torch.equal(out, again), f"{what}: two calls differ")
+        check_f32_ulps(torch, out, want32, what)
+        worst = max(worst, err)
+    vlen = WAVE_DECODE_VALID[0]
+    ms = cuda_ms(lambda: decode_attention(q, k, v, vlen))
+    h_us = host_us(lambda: decode_attention(q, k, v, vlen))
+    plain_ms = cuda_ms(lambda: decode_attention_plain(q, k, v, vlen))
+    mask = (torch.arange(T, device=dev) < vlen)[None, None, None, :]
+    qh = q.reshape(B, K * G, 1, D)
+    kh, vh = k.transpose(1, 2).contiguous(), v.transpose(1, 2).contiguous()
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    lib_ms = cuda_ms(lambda: sdpa(qh, kh, vh, attn_mask=mask,
+                                  enable_gqa=True))
+    n_bytes = 2 * (2 * B * vlen * K * D + 2 * q.numel())
+    n_flops = 4 * B * K * G * D * vlen
+    b_ms, b_by = bound(n_bytes, n_flops, BF16_FLOPS)
+    shape = f"B={B} K={K} G={G} D={D} T={T}, valid_len {vlen} (wave)"
+    print(f"  decode_attention {shape} bf16: {ms:.4f} ms (plain "
+          f"{plain_ms:.4f}, SDPA with a mask {lib_ms:.4f}, bound {b_ms:.5f} "
+          f"by {b_by}); host {h_us:.1f} us a call")
+    return dict(shape=shape, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+                bound_by=b_by, library_ms=lib_ms, host_us=h_us,
+                max_abs_err=worst)
+
+
 def time_int8(torch, x, w_q, s):
     """Kernel, plain version and ``torch.mm`` on the dequantised weight in
     x's dtype (TF32 off for f32) at one shape, beside the bound, under two
@@ -1153,11 +1255,12 @@ def phase_int8(torch, dev, gen):
     rtol = atol = 2e-3
     shapes = INT8_SHAPES
     cases = [(m, kd, n, torch.bfloat16) for kd, n in shapes
-             for m in (1, 8, 8 * 256)]
+             for m in (1, 8, 8 * 256, WAVE_INT8_M)]
     cases += [(5, 2048, 1000, torch.bfloat16),     # N not a tile multiple
               (77, 300, 130, torch.bfloat16)]
     # the down projection's x is f32 (silu(g) * u of two f32 products)
-    cases += [(m, 8192, 2048, torch.float32) for m in (8, 8 * 256)]
+    cases += [(m, 8192, 2048, torch.float32)
+              for m in (8, 8 * 256, WAVE_INT8_M)]
     worst = 0.0
     timed = {}
     for M, Kd, N, dt in cases:
@@ -1174,7 +1277,8 @@ def phase_int8(torch, dev, gen):
         worst = max(worst, err)
         if dt == torch.float32:
             check_f32_x(torch, x, w_q, s, got, want)
-        if (Kd, N) in shapes and M in (8, 8 * 256):
+        if (Kd, N) in shapes and M in (8, 8 * 256) or (
+                M, Kd, N, dt) == (WAVE_INT8_M, 2048, 8192, torch.bfloat16):
             timed[(M, Kd, N, dt)] = time_int8(torch, x, w_q, s)
             print(f"    max_abs_err {err:.2e}")
     print(f"  int8_matmul: {len(cases)} shapes within atol {atol} + rtol "
@@ -1767,6 +1871,13 @@ def phase_family(torch, dev, arch, card, n_layers=None):
 # phase 4: teacher-forced logits, kernel impls vs plain impls, f32
 
 
+# phase 4's logit tolerance. f32 everywhere, TF32 off: kernel and plain
+# differ only in the order of f32 sums (and, in the split decode kernels,
+# of the span combine), compounded over the layers; logits are of order
+# 1-10
+TF_TOL = 5e-3
+
+
 def teacher_forced(torch, dev, model, params, prompts, lengths, forced,
                    stub, ps=16, max_len=512, contiguous=False):
     """Logits at each request's last prompt position and at every forced
@@ -1872,10 +1983,7 @@ def phase_teacher_forced(torch, dev):
     from repro_torch.configs.registry import ARCHS
     from repro_torch.models import build_model
     from repro_torch.models.quantize import quantize_params_dense
-    # f32 everywhere, TF32 off: kernel and plain differ only in the order
-    # of f32 sums (and, in the split decode kernels, of the span combine),
-    # compounded over the layers; logits are of order 1-10
-    tol = 5e-3
+    tol = TF_TOL
     f32 = dict(dtype="float32", param_dtype="float32")
     rng = np.random.default_rng(2)
     diffs = {}
@@ -2930,9 +3038,9 @@ HYBRID_ARCH = "zamba2-1.2b"
 
 
 def phase_hybrid(torch, dev, card):
-    """zamba2-1.2b at its published size (38 layers, nothing cut) on phase
-    3's stream: graphed serves against the uncaptured oracle, graphed
-    prefill against its eager body (the ssm and conv state leaves
+    """zamba2-1.2b at full width, depth cut from 38 to ``HYBRID_LAYERS``,
+    on phase 3's stream: graphed serves against the uncaptured oracle,
+    graphed prefill against its eager body (the ssm and conv state leaves
     included), a profiled serve, and a contiguous serve whose tokens must
     equal the paged serve's bit for bit (B5 per slot runs on B1's span
     plan). Returns the path's result with its model, params and stream for
@@ -2941,7 +3049,7 @@ def phase_hybrid(torch, dev, card):
     from repro_torch.kernels import build
     from repro_torch.models import build_model
     from repro_torch.serving.engine import Request, ServingEngine
-    base = ARCHS[HYBRID_ARCH]
+    base = dataclasses.replace(ARCHS[HYBRID_ARCH], n_layers=HYBRID_LAYERS)
     cfg = base.for_device(dev)
     check(cfg.attention_impl == "cuda", "config did not select the kernels")
     model = build_model(cfg, dev)
@@ -3433,7 +3541,7 @@ def phase_hybrid_spec(torch, dev, card):
 
 # ---------------------------------------------------------------------------
 # phase 3's ssm path (xlstm-1.3b) and moe path (moonshot-v1-16b-a3b), both
-# at their published sizes
+# at full width, depth cut (SSM_LAYERS, MOE_LAYERS)
 
 SSM_ARCH = "xlstm-1.3b"
 MOE_ARCH = "moonshot-v1-16b-a3b"
@@ -3449,8 +3557,8 @@ MOE_TF_LAYERS = 4           # phase 4's f32 depth of moonshot (of 48)
 
 
 def phase_ssm(torch, dev, card):
-    """xlstm-1.3b at its published size (48 layers: 36 mLSTM, 12 sLSTM;
-    nothing cut) on phase 3's stream and geometry. Its page size must be
+    """xlstm-1.3b at full width, depth cut from 48 to ``SSM_LAYERS`` (18
+    mLSTM, 6 sLSTM), on phase 3's stream and geometry. Its page size must be
     inert (no leaf has a sequence axis: the engine serves contiguously
     with no allocator). Graphed serves against the uncaptured oracle,
     graphed prefill against its eager body (all seven f32 state leaves),
@@ -3460,7 +3568,7 @@ def phase_ssm(torch, dev, card):
     from repro_torch.configs.registry import ARCHS
     from repro_torch.models import build_model
     from repro_torch.serving.engine import ServingEngine
-    base = ARCHS[SSM_ARCH]
+    base = dataclasses.replace(ARCHS[SSM_ARCH], n_layers=SSM_LAYERS)
     model = build_model(base.for_device(dev), dev)
     t0 = time.perf_counter()
     params = model.init(SEED)
@@ -3522,24 +3630,24 @@ def moe_shares(by_name):
 
 
 def phase_moe(torch, dev, card):
-    """moonshot-v1-16b-a3b at its published size (48 layers, 64 routed
-    experts top-6 + 2 shared, d 2048, 16/16 heads of 128; 57.8 GB of bf16
-    weights), run first in phase 3, with nothing else on the card. On
-    phase 3's stream with 4 slots (``MOE_GEOMETRY``), paged and
-    contiguous: graphed serves against the uncaptured oracle, graphed
-    prefill against its eager body, one prefill dispatch (of ``nbatch``
-    1) per request, a profiled serve (flash's tensor-core body and the
-    fused decode's, with the shares of device time of attention, GEMMs and
-    routing), and a contiguous serve whose tokens must equal the paged
-    serve's bit for bit. The expert FFN is the reference's single-device
-    lowering: every expert runs over its capacity buffer, so a step reads
-    every expert's weights."""
+    """moonshot-v1-16b-a3b at full width, depth cut from 48 to
+    ``MOE_LAYERS`` (64 routed experts top-6 + 2 shared, d 2048, 16/16
+    heads of 128; 29.6 GB of bf16 weights at 24 layers), run first in
+    phase 3, with nothing else on the card. On phase 3's stream with 4
+    slots (``MOE_GEOMETRY``), paged and contiguous: graphed serves
+    against the uncaptured oracle, graphed prefill against its eager body,
+    one prefill dispatch (of ``nbatch`` 1) per request, a profiled serve
+    (flash's tensor-core body and the fused decode's, with the shares of
+    device time of attention, GEMMs and routing), and a contiguous serve
+    whose tokens must equal the paged serve's bit for bit. The expert FFN
+    is the reference's single-device lowering: every expert runs over its
+    capacity buffer, so a step reads every expert's weights."""
     from repro_torch.configs.registry import ARCHS
     from repro_torch.kernels import build
     from repro_torch.launch.serve import check_weights_fit
     from repro_torch.models import build_model
     from repro_torch.serving.engine import Request, ServingEngine
-    base = ARCHS[MOE_ARCH]
+    base = dataclasses.replace(ARCHS[MOE_ARCH], n_layers=MOE_LAYERS)
     cfg = base.for_device(dev)
     check(cfg.attention_impl == "cuda", "config did not select the kernels")
     check_weights_fit(cfg, torch.cuda.get_device_properties(dev).total_memory,
@@ -4364,6 +4472,303 @@ def phase_distributed(torch, dev, card):
     out["launches"] = dict(build.launch_counts)
     return out
 
+# ---------------------------------------------------------------------------
+# phase 14: the run-to-completion baseline (WaveEngine), the measuring
+# executor (TorchExecutor) and the examples/ twins
+
+WAVE_ARCH = "llama3.2-1b"
+WAVE_REPEATS = 2            # serves of phase 3's stream a variant
+# (b): the kernel-impl wave against the plain-impl one, llama3.2-1b at full
+# width cut to this depth, f32. Where a request's tokens differ, the plain
+# run's margin between its own top token and the kernel run's at the first
+# difference must be at most twice phase 4's logit tolerance: each of the
+# two logits lies within TF_TOL of the other impl's
+WAVE_F32_LAYERS = 2
+WAVE_TIE_TOL = 2 * TF_TOL
+# (c): the executor's (batch, prompt_len) measurements
+EXECUTOR_RUNS = ((1, 8), (8, 8), (8, 64))
+# int8 GEMMs a layer: q, k, v, o, gate, up, down
+INT8_PER_LAYER = 7
+
+
+@contextlib.contextmanager
+def counting_captures(torch):
+    """Count CUDA graph captures begun inside the block."""
+    n = [0]
+    begin = torch.cuda.CUDAGraph.capture_begin
+
+    def counted(self, *args, **kwargs):
+        n[0] += 1
+        return begin(self, *args, **kwargs)
+
+    torch.cuda.CUDAGraph.capture_begin = counted
+    try:
+        yield n
+    finally:
+        torch.cuda.CUDAGraph.capture_begin = begin
+
+
+def logged_model(model, log, keep_logits=False):
+    """``model`` whose prefill and decode append ``(kind, host time of the
+    call's start, next-token logits (B, V) or None)`` to ``log``."""
+    def run(kind, fn):
+        def call(*args):
+            t0 = time.perf_counter()
+            logits, cache = fn(*args)
+            log.append((kind, t0, logits[:, -1] if keep_logits else None))
+            return logits, cache
+        return call
+
+    return dataclasses.replace(model, prefill=run("prefill", model.prefill),
+                               decode=run("decode", model.decode))
+
+
+def by_wave(log):
+    """The log cut at each prefill: one list of entries a wave."""
+    waves = []
+    for entry in log:
+        if entry[0] == "prefill":
+            waves.append([])
+        waves[-1].append(entry)
+    return waves
+
+
+def wave_plan(stream, max_batch):
+    """(B, plen, max_new) of each wave the WaveEngine makes of ``stream``."""
+    waves = [stream[i:i + max_batch]
+             for i in range(0, len(stream), max_batch)]
+    return [(len(w), max(len(p) for p, _ in w), max(m for _, m in w))
+            for w in waves]
+
+
+def wave_serves(torch, dev, model, params, stream, label, card, int8):
+    """Serve the stream ``WAVE_REPEATS`` times on one WaveEngine (phase 3's
+    ``max_batch``): every request to its budget, the serves equal bit for
+    bit, no graph captured, no paged kernel launched, the launches and the
+    trace counts those the code predicts from the waves' shapes. Returns
+    the median tok/s and the launches."""
+    from repro_torch.kernels import build
+    from repro_torch.serving import Request, WaveEngine
+    mb = GEOMETRY["max_batch"]
+    log = []
+    eng = WaveEngine(logged_model(model, log), params, max_batch=mb)
+    plan = wave_plan(stream, mb)
+    L = model.cfg.n_layers
+    steps = sum(mn for _, _, mn in plan)
+    want = {"flash_attention": L * len(plan),
+            "decode_attention": L * steps,
+            "int8_matmul": (INT8_PER_LAYER * L * (len(plan) + steps)
+                            if int8 else 0)}
+    want = {k: WAVE_REPEATS * v for k, v in want.items()}
+    rates, served = [], []
+    build.reset_launch_counts()
+    with counting_captures(torch) as captures:
+        for _ in range(WAVE_REPEATS):
+            reqs = [Request(rid=i, prompt=p, max_new_tokens=m)
+                    for i, (p, m) in enumerate(stream)]
+            t0 = time.perf_counter()
+            eng.serve(reqs)
+            wall = time.perf_counter() - t0
+            for r, (_p, m) in zip(reqs, stream):
+                check(r.tokens is not None and len(r.tokens) == m,
+                      f"{label}: request {r.rid} returned {r.tokens}")
+                check(bool(((r.tokens >= 0)
+                            & (r.tokens < model.cfg.vocab)).all()),
+                      f"{label}: request {r.rid} token out of vocab")
+            rates.append(sum(m for _, m in stream) / wall)
+            served.append([r.tokens for r in reqs])
+    launches = dict(build.launch_counts)
+    check(captures[0] == 0, f"{label}: {captures[0]} graphs captured")
+    check(all(np.array_equal(a, b) for a, b in zip(*served)),
+          f"{label}: the two serves' tokens differ")
+    for name in ("fused_paged_decode_attention", "paged_decode_attention"):
+        check(launches[name] == 0, f"{label}: {name} launched "
+              f"{launches[name]} times")
+    for name, n in want.items():
+        check(launches[name] == n, f"{label}: {name} launched "
+              f"{launches[name]} times, predicted {n}")
+    traces = {"prefill_traces": len({(b, pl) for b, pl, _ in plan}),
+              "decode_traces": len({(b, pl + mn) for b, pl, mn in plan})}
+    check(eng.stats == traces, f"{label}: stats {eng.stats}, the waves' "
+          f"distinct shapes {traces}")
+    gaps = [b[1] - a[1] for w in by_wave(log) for a, b in zip(w[1:], w[2:])]
+    step_ms = statistics.median(gaps) * 1e3
+    q1, med, q3 = statistics.quantiles(rates, n=4)
+    print(f"  wave {label}: {len(plan)} waves (B, plen, max_new) {plan}, "
+          f"{WAVE_REPEATS} serves equal bit for bit, no graph captured; "
+          f"launches {want} as predicted, none of B1 or B4; stats "
+          f"{eng.stats}")
+    print(f"  wave {label}: median {med:.1f} tok/s (quartiles {q1:.1f}-"
+          f"{q3:.1f}; each {', '.join(f'{x:.1f}' for x in rates)}), "
+          f"{step_ms:.3f} ms a decode step (host, median of {len(gaps)}) "
+          f"on {card}")
+    return dict(tok_s=med, launches=launches)
+
+
+def phase_wave_f32(torch, dev, stream):
+    """(b): the stream through a kernel-impl and a plain-impl WaveEngine,
+    llama3.2-1b at full width cut to ``WAVE_F32_LAYERS`` layers, f32, on
+    the same params. A request whose tokens differ must differ first at a
+    near tie of the plain run (``WAVE_TIE_TOL``)."""
+    from repro_torch.configs.registry import ARCHS
+    from repro_torch.kernels import build
+    from repro_torch.models import build_model
+    from repro_torch.serving import Request, WaveEngine
+    mb = GEOMETRY["max_batch"]
+    cfg = dataclasses.replace(ARCHS[WAVE_ARCH], dtype="float32",
+                              param_dtype="float32",
+                              n_layers=WAVE_F32_LAYERS)
+    params = build_model(cfg, dev).init(SEED)
+    runs = {}
+    for impl, c in (("plain", cfg), ("kernel", cfg.for_device(dev))):
+        log = []
+        eng = WaveEngine(logged_model(build_model(c, dev), log,
+                                      keep_logits=impl == "plain"),
+                         params, max_batch=mb)
+        reqs = [Request(rid=i, prompt=p, max_new_tokens=m)
+                for i, (p, m) in enumerate(stream)]
+        build.reset_launch_counts()
+        eng.serve(reqs)
+        runs[impl] = ([r.tokens for r in reqs], by_wave(log),
+                      dict(build.launch_counts))
+    (plain, waves, plain_l), (kern, _, kern_l) = runs["plain"], runs["kernel"]
+    check(not any(plain_l.values()), f"f32 wave: the plain impls launched "
+          f"{plain_l}")
+    check(kern_l["flash_attention"] > 0 and kern_l["decode_attention"] > 0,
+          f"f32 wave: the kernel impls launched {kern_l}")
+    equal, ties = 0, []
+    for i, (a, b) in enumerate(zip(plain, kern)):
+        if np.array_equal(a, b):
+            equal += 1
+            continue
+        j = int(np.flatnonzero(a != b)[0])
+        logits = waves[i // mb][j][2][i % mb]
+        margin = (logits[int(a[j])] - logits[int(b[j])]).item()
+        ties.append((i, j, margin))
+        check(margin <= WAVE_TIE_TOL, f"f32 wave: request {i} differs at "
+              f"{j} with a plain margin {margin:.4g} > {WAVE_TIE_TOL}")
+    print(f"  wave f32 ({WAVE_F32_LAYERS} layers, full width): kernel tokens "
+          f"equal to plain in {equal} of {len(stream)} requests; first "
+          f"differences (request, position, plain margin) "
+          f"{[(i, j, round(m, 6)) for i, j, m in ties]} (tie tolerance "
+          f"{WAVE_TIE_TOL}: twice phase 4's logit tolerance)")
+
+
+def phase_executor(torch, dev, card):
+    """(c): ``TorchExecutor`` on llama3.2-1b at full width bf16 with phase
+    3's geometry: one measurement a (batch, prompt_len) of
+    ``EXECUTOR_RUNS``, each key its own, every time > 0, decode served as
+    replays of the engine's one captured graph. Returns the launches."""
+    from repro_torch.configs.registry import ARCHS
+    from repro_torch.kernels import build
+    from repro_torch.serving import TorchExecutor
+    build.reset_launch_counts()
+    ex = TorchExecutor({WAVE_ARCH: ARCHS[WAVE_ARCH]}, seed=SEED, device=dev,
+                       **GEOMETRY)
+    for b, pl in EXECUTOR_RUNS:
+        ex.execute(WAVE_ARCH, batch=b, prompt_len=pl)
+    launches = dict(build.launch_counts)
+    check(set(ex.measured) == {(WAVE_ARCH, b, pl) for b, pl in EXECUTOR_RUNS},
+          f"executor: measured keys {sorted(ex.measured)}")
+    check(all(t > 0 for t in ex.measured.values()),
+          f"executor: times {ex.measured}")
+    st = ex.engines[WAVE_ARCH].stats
+    check(st["decode_traces"] == 1
+          and st["graph_replays"] == st["decode_steps"] > 0,
+          f"executor: {st['decode_traces']} captured graphs, "
+          f"{st['graph_replays']} replays for {st['decode_steps']} steps")
+    check(launches["flash_attention"] > 0
+          and launches["fused_paged_decode_attention"] > 0,
+          f"executor: launches {launches}")
+    print(f"  TorchExecutor {WAVE_ARCH} bf16: measured "
+          + ", ".join(f"(batch {b}, prompt {pl}) {t * 1e3:.2f} ms"
+                      for (_, b, pl), t in ex.measured.items())
+          + f"; {st['graph_replays']} replays of 1 captured graph on {card}")
+    del ex
+    torch.cuda.empty_cache()
+    return dict(launches=launches)
+
+
+def example_twin(name):
+    """The module ``examples/<name>.py``."""
+    import importlib.util
+    spec = importlib.util.spec_from_file_location(
+        name, ROOT / "examples" / f"{name}.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def phase_twins(torch, dev, card):
+    """(d): the two device twins of ``examples/`` on the card, in process:
+    the serve twin's 20 requests each to its budget through flash prefill
+    and the fused paged decode, its t(b) fit finite with c > 0; the train
+    twin's loss falling over 60 steps and its restart resuming from the
+    last checkpoint. Returns the serve twin's launches."""
+    from repro_torch.kernels import build
+    build.reset_launch_counts()
+    out = example_twin("torch_serve_e2e").main(["--device", "cuda"])
+    launches = dict(build.launch_counts)
+    check(out["served"] == out["at_budget"] == 20,
+          f"serve twin: {out['at_budget']} of {out['served']} requests at "
+          f"their budget")
+    check(launches["flash_attention"] > 0
+          and launches["fused_paged_decode_attention"] > 0,
+          f"serve twin: launches {launches}")
+    check(math.isfinite(out["m"]) and math.isfinite(out["c"])
+          and out["c"] > 0, f"serve twin: fit m {out['m']}, c {out['c']}")
+    steps = 60
+    tr = example_twin("torch_train_e2e").main(["--device", "cuda", "--steps",
+                                                str(steps)])
+    check(tr["steps"] == steps and tr["final_loss"] < tr["first_loss"],
+          f"train twin: loss {tr['first_loss']} -> {tr['final_loss']} over "
+          f"{tr['steps']} steps")
+    check(tr["resumed_from"] == steps and tr["steps_after_restart"] == 0,
+          f"train twin: resumed from {tr['resumed_from']}")
+    print(f"  twins on {card}: serve e2e 20 requests at budget, fit t(b) = "
+          f"{out['m'] * 1e3:.3f} ms * b + {out['c'] * 1e3:.3f} ms, launches "
+          f"{ {k: v for k, v in launches.items() if v} }; train e2e loss "
+          f"{tr['first_loss']:.4f} -> {tr['final_loss']:.4f} in {steps} "
+          f"steps, resumed from step {tr['resumed_from']}")
+    return dict(launches=launches)
+
+
+def phase_baselines(torch, dev, card, continuous):
+    """Phase 14. ``continuous`` holds phase 3's median tok/s of the bf16
+    and int8 variants on the same stream and params, printed beside the
+    wave's. Returns the launches of (a), (c) and (d), the runs through a
+    user's entry points ((b) compares the kernels with their plain
+    versions)."""
+    from repro_torch.configs.registry import ARCHS
+    from repro_torch.models import build_model
+    from repro_torch.models.quantize import quantize_params_dense
+    base = ARCHS[WAVE_ARCH]
+    model = build_model(base.for_device(dev), dev)
+    params = model.init(SEED)
+    stream = make_stream(base.vocab)
+    bf16 = wave_serves(torch, dev, model, params, stream, "bf16", card,
+                       int8=False)
+    qcfg = dataclasses.replace(base, quantize="int8").for_device(dev)
+    qparams = quantize_params_dense(params)
+    del params
+    int8 = wave_serves(torch, dev, build_model(qcfg, dev), qparams, stream,
+                       "int8", card, int8=True)
+    del qparams
+    torch.cuda.empty_cache()
+    for label, w in (("bf16", bf16), ("int8", int8)):
+        print(f"  {WAVE_ARCH} {label}: wave {w['tok_s']:.1f} tok/s against "
+              f"continuous {continuous[label]:.1f} (phase 3, same stream and "
+              f"params; {continuous[label] / w['tok_s']:.2f}x) on {card}")
+    phase_wave_f32(torch, dev, stream)
+    torch.cuda.empty_cache()
+    ex = phase_executor(torch, dev, card)
+    tw = phase_twins(torch, dev, card)
+    launches = {}
+    for part in (bf16, int8, ex, tw):
+        for k, v in part["launches"].items():
+            launches[k] = launches.get(k, 0) + v
+    return dict(launches=launches)
+
 
 def main() -> int:
     if not (SRC / "repro_torch").is_dir():
@@ -4430,8 +4835,8 @@ def main() -> int:
 
     t0 = time.perf_counter()
     print("phase 3: main paths (ServingEngine.serve, full width)")
-    # moonshot first, with nothing else on the card: its 57.8 GB of
-    # weights, freed before the next path
+    # moonshot first, with nothing else on the card: its 29.6 GB of
+    # weights at 24 layers, freed before the next path
     path_s = {}
 
     def timed(label, fn, *args):
@@ -4558,6 +4963,17 @@ def main() -> int:
     phase_distributed(torch, dev, card)
     torch.cuda.empty_cache()
     print(f"  phase 13 took {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    print(f"phase 14: the run-to-completion baseline (WaveEngine, "
+          f"{WAVE_ARCH} full width bf16 and int8; f32 at {WAVE_F32_LAYERS} "
+          f"layers, kernels against plain), the measuring executor "
+          f"(TorchExecutor) and the examples/ twins")
+    base = phase_baselines(torch, dev, card, {"bf16": bf16["tok_s"],
+                                              "int8": int8["tok_s"]})
+    torch.cuda.empty_cache()
+    for k in kernels:
+        k["launches"] += base["launches"].get(k["name"], 0)
+    print(f"  phase 14 took {time.perf_counter() - t0:.1f} s")
     print(f"all phases passed in {time.perf_counter() - t_start:.1f} s")
     for k in kernels:
         print(f"kernel {k['name']}: {k['launches']} main-path launches, "

@@ -31,14 +31,21 @@ def update_layer_cache(k_cache: torch.Tensor, v_cache: torch.Tensor,
     positions; as ``lax.dynamic_update_slice`` does, a start is clamped so
     that the rows fit.
 
-    One ``index_put_`` over (slot, row) index tensors: no mask, no read
-    back to the host, so a CUDA graph captures it. DTensor caches (on a
-    mesh) take ``_sharded_update_layer_cache``."""
+    A tensor ``pos`` takes one ``index_put_`` over (slot, row) index
+    tensors: no mask, no read back to the host, so a CUDA graph captures
+    it. An int ``pos`` takes a slice write, with no index tensor made from
+    a host value. DTensor caches (on a mesh) take
+    ``_sharded_update_layer_cache``."""
     if isinstance(k_cache, DTensor):
         return _sharded_update_layer_cache(k_cache, v_cache, k_new, v_new,
                                            pos)
     B, S_max = k_cache.shape[:2]
     S_new = k_new.shape[1]
+    if isinstance(pos, int):
+        start = min(max(pos, 0), S_max - S_new)
+        k_cache[:, start:start + S_new] = k_new.to(k_cache.dtype)
+        v_cache[:, start:start + S_new] = v_new.to(v_cache.dtype)
+        return k_cache, v_cache
     pos = torch.as_tensor(pos, device=k_cache.device).long()
     pos = pos.expand(B) if pos.ndim == 0 else pos
     start = torch.clamp(pos, 0, S_max - S_new)

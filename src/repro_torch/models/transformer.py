@@ -176,15 +176,26 @@ def _cross_block(x, blk, attend):
     return _constrained(x, attend(q), blk, "torch")
 
 
+def decode_positions(pos, batch: int, device) -> torch.Tensor:
+    """(B, 1) RoPE positions of a decode step from per-slot positions (B,)
+    or from one int shared by every slot (``repro``'s ``decode_positions``);
+    the int becomes a device fill, with no copy from the host."""
+    if isinstance(pos, int):
+        return torch.full((batch, 1), pos, dtype=torch.int32, device=device)
+    return pos.reshape(-1, 1)
+
+
 def _decode_attn(cfg: ArchConfig, x, blk, kc, vc, bt, pos):
     """The attention half of one decode step through a self block, writing
     its k/v into the cache in place; returns o (B, 1, K, G, D). x: (B, 1,
     d). With a (B, P) block table ``bt``, kc/vc are the shared (n_phys,
     ps, K, D) pools (the fused paged kernel under ``impl="cuda"``); with
     ``bt`` None they are the contiguous (B, S_max, K, D) slot rows, written
-    at ``pos`` and attended up to ``pos + 1``, per slot (the contiguous
-    kernel's per-slot form)."""
-    positions = pos.reshape(-1, 1)
+    at ``pos`` and attended up to ``pos + 1``: per slot for a (B,) ``pos``
+    (the contiguous kernel's per-slot form), or, for one int shared by
+    every slot (the run-to-completion ``WaveEngine``'s), at one length (its
+    scalar form, which takes the length as a launch argument)."""
+    positions = decode_positions(pos, x.shape[0], x.device)
     h = L.rmsnorm(x, blk["ln1"])
     q, k, v = L.attn_qkv(h, blk["attn"], qimpl=qimpl_for(cfg.quantize))
     q = L.apply_rope(q, positions, cfg.rope_theta)

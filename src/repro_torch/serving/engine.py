@@ -219,9 +219,10 @@ from typing import (Any, Dict, Iterator, List, NamedTuple, Optional,
 import numpy as np
 import torch
 
+from repro_torch import resolve_device
 from repro_torch.kernels import build
 from repro_torch.models import kvcache as KV
-from repro_torch.models.model import Model
+from repro_torch.models.model import Model, build_model
 from repro_torch.models.transformer import DTYPES
 
 
@@ -2455,3 +2456,155 @@ class ServingEngine:
         mine = {id(r) for r in reqs}
         self._completed = [r for r in self._completed if id(r) not in mine]
         return list(reqs)
+
+
+# The continuous engine is the default data plane (``repro``'s alias).
+ContinuousEngine = ServingEngine
+
+
+class WaveEngine:
+    """Run-to-completion wave engine, the benchmark baseline
+    (``repro.serving.engine.WaveEngine``).
+
+    A wave of at most ``max_batch`` requests is left-padded to its longest
+    prompt and prefilled in one dispatch; then ``max(max_new)``
+    single-token decode steps run on a contiguous cache, each an argmax
+    read back to the host: a host sync every step, no CUDA graph, no
+    paging, no bucketing. The baseline costs what the seed's engine cost.
+    Left padding is attended (zeros at positions 0..pad-1, no mask), as in
+    the reference, so its tokens are the reference's.
+
+    The decode position is one int shared by every row. The contiguous
+    decode kernel's scalar form takes it as a launch argument, so a step
+    reads nothing back but its tokens (a 0-d device tensor would cost a
+    host read a layer: the scalar form cuts its spans from the length on
+    the host). ``stats["prefill_traces"]`` and ``["decode_traces"]``
+    count what ``jax.jit`` traces in the reference: each new signature of
+    the prefill inputs (the wave's (B, plen) and its stub encoder input)
+    and of the padded decode cache; the position is a traced argument
+    there, so it never retraces. ``r.latency`` is the wave's wall time,
+    the device synchronised at its end.
+    """
+
+    def __init__(self, model: Model, params: Any, max_batch: int = 8,
+                 pad_to: int = 32):
+        self.model = model
+        self.params = params
+        self.max_batch = max_batch
+        self.pad_to = pad_to
+        self.stats: Dict[str, int] = {"prefill_traces": 0,
+                                      "decode_traces": 0}
+        self._signatures: Dict[str, set] = {k: set() for k in self.stats}
+
+    def _trace(self, kind: str, tree: Dict[str, torch.Tensor]) -> None:
+        sig = tuple((n, tuple(t.shape), t.dtype) for n, t in sorted(
+            tree.items()))
+        if sig not in self._signatures[kind]:
+            self._signatures[kind].add(sig)
+            self.stats[kind] += 1
+
+    def _pad_cache(self, cache: Dict[str, torch.Tensor], batch: int,
+                   max_len: int) -> Dict[str, torch.Tensor]:
+        """Every leaf of the prefill cache zero-padded to its shape in
+        ``model.cache_shapes(batch, max_len, enc_len=pad_to)``."""
+        shapes = self.model.cache_shapes(batch, max_len, enc_len=self.pad_to)
+        out = {}
+        for name, c in cache.items():
+            dims, dtype = shapes[name]
+            if tuple(c.shape) == tuple(dims):
+                out[name] = c.to(dtype)
+                continue
+            if any(s > t for s, t in zip(c.shape, dims)):
+                raise ValueError(f"WaveEngine: cache leaf {name!r} of shape "
+                                 f"{tuple(c.shape)} does not pad to {dims}")
+            leaf = torch.zeros(dims, dtype=dtype, device=c.device)
+            leaf[tuple(slice(0, s) for s in c.shape)] = c
+            out[name] = leaf
+        return out
+
+    def run_wave(self, reqs: Sequence[Request]) -> List[Request]:
+        """Serve one batch of requests to completion (greedy decoding)."""
+        t0 = time.perf_counter()
+        dev = self.model.device
+        cfg = self.model.cfg
+        B = len(reqs)
+        plen = max(len(r.prompt) for r in reqs)
+        prompts = np.zeros((B, plen), np.int32)
+        for i, r in enumerate(reqs):
+            prompts[i, plen - len(r.prompt):] = r.prompt    # left-pad
+        batch = {"tokens": torch.from_numpy(prompts).to(dev)}
+        dtype = DTYPES[cfg.dtype]
+        if cfg.family == "audio":
+            batch["frames"] = torch.zeros((B, plen, cfg.d_model), dtype=dtype,
+                                          device=dev)
+        if cfg.family == "vlm":
+            batch["image_embeds"] = torch.zeros(
+                (B, cfg.n_image_tokens, cfg.d_model), dtype=dtype, device=dev)
+        max_new = max(r.max_new_tokens for r in reqs)
+        out = np.zeros((B, max_new), np.int32)
+        with torch.no_grad():
+            self._trace("prefill_traces", batch)
+            logits, cache = self.model.prefill(self.params, batch)
+            cache = self._pad_cache(cache, B, plen + max_new)
+            self._trace("decode_traces", cache)
+            tok = logits[:, -1].argmax(-1).to(torch.int32)[:, None]
+            for t in range(max_new):
+                out[:, t] = tok[:, 0].cpu().numpy()
+                logits, cache = self.model.decode(self.params, cache, tok,
+                                                  plen + t)
+                tok = logits[:, -1].argmax(-1).to(torch.int32)[:, None]
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+        dt = time.perf_counter() - t0
+        for i, r in enumerate(reqs):
+            r.tokens = out[i, : r.max_new_tokens]
+            r.latency = dt
+        return list(reqs)
+
+    def serve(self, reqs: Sequence[Request]) -> List[Request]:
+        """Adaptive batching across waves of at most max_batch requests."""
+        done: List[Request] = []
+        pending = list(reqs)
+        while pending:
+            wave, pending = pending[: self.max_batch], \
+                pending[self.max_batch:]
+            done.extend(self.run_wave(wave))
+        return done
+
+
+class TorchExecutor:
+    """Measuring executor: arch -> a continuous engine and its measured
+    service times (``repro.serving.engine.JaxExecutor``, renamed: the port
+    never imports JAX).
+
+    Builds one ``ServingEngine`` per arch on ``device`` (default CUDA;
+    raises without it, no fall back to the CPU) from
+    ``build_model(cfg.for_device(device))`` and ``init(seed)``.
+    ``execute`` warms the engine for the request's prompt length first, so
+    graph captures stay out of the timed window, then times one ``serve``
+    and keeps it under ``(arch, batch, prompt_len)``: mixed-length
+    calibration runs are distinct measurements.
+    """
+
+    def __init__(self, arch_cfgs: Dict[str, Any], seed: int = 0,
+                 device="cuda", **engine_kwargs):
+        dev = resolve_device(device)
+        self.engines: Dict[str, ServingEngine] = {}
+        self.measured: Dict[Tuple[str, int, int], float] = {}
+        for name, cfg in arch_cfgs.items():
+            model = build_model(cfg.for_device(dev), dev)
+            self.engines[name] = ServingEngine(model, model.init(seed),
+                                               **engine_kwargs)
+
+    def execute(self, arch: str, batch: int, prompt_len: int = 8,
+                max_new: int = 4) -> float:
+        eng = self.engines[arch]
+        eng.warmup(prompt_lens=[prompt_len])
+        prompt = (np.arange(prompt_len) % 7).astype(np.int32)
+        reqs = [Request(rid=i, prompt=prompt, max_new_tokens=max_new)
+                for i in range(batch)]
+        t0 = time.perf_counter()
+        eng.serve(reqs)
+        dt = time.perf_counter() - t0
+        self.measured[(arch, batch, prompt_len)] = dt
+        return dt
