@@ -9,12 +9,13 @@ fails:
 1. **Build** every CUDA kernel from ``src/repro_torch/csrc`` (one ``nvcc``
    per source, all started together) and print each kernel's ``-Xptxas -v``
    registers, shared memory and spills; for flash's tensor-core body also
-   its dynamic shared memory and the ``HGMMA`` (wgmma) and ``UTMALDG`` (TMA
-   load) instruction counts of its library's SASS, both of which must be
-   above 0, and no spills; for the decode kernels' tensor-core body
-   (contiguous, fused paged and attend-only paged, at D = 64 and 128) its
-   registers, dynamic shared memory and spills (none allowed) and the
-   ``HMMA`` count of the three libraries (each above 0).
+   its dynamic shared memory (D = 64, 96, 128) and the ``HGMMA`` (wgmma)
+   and ``UTMALDG`` (TMA load) instruction counts of its library's SASS,
+   both of which must be above 0, and no spills; for the decode kernels'
+   tensor-core body (contiguous, fused paged and attend-only paged, at D =
+   64, 96 and 128, each with 8 and 16 fragment rows) its registers,
+   dynamic shared memory and spills (none allowed) and the ``HMMA`` count
+   of the three libraries (each above 0).
 2. **Per-kernel**: each of the five kernels against its plain PyTorch
    version on the card, in bf16, at the main paths' full-width shapes plus
    edge cases (flash: ragged S, valid_len < T, q_offset > 0, whisper's
@@ -47,6 +48,15 @@ fails:
    grouped and a ragged causal flash prefill, flash timed at its one
    prompt a dispatch of bucket 512; the fused decode with the write row
    on span edges; the per-slot form, which must give B1's bits).
+   phi3-mini-3.8b's K = 32, G = 1, D = 96 and qwen3-moe-235b-a22b's K = 4,
+   G = 16, D = 64 (``WIDE_GEOMETRIES``) add the same rows to all four
+   attention kernels (flash causal, ragged, with q_offset and non-causal,
+   timed at their prefill shapes; the fused decode with the write row on
+   span edges; the attend-only paged decode at 300 and 1500 rows; the
+   contiguous per-slot form, with B1's bits, and its scalar form), and
+   each of them in f32 against its plain version within 1e-4
+   (``phase_geometry_f32``); the int8 GEMM adds phi3-mini's three
+   projection shapes at M 8 and 2048 (and f32 x for its down projection).
    Each attention kernel is held twice: to the plain version on the bf16
    inputs, and, tightly, to the plain version on the same inputs widened
    to f32 (probabilities in f32, as the kernels and the Pallas bodies keep
@@ -81,7 +91,16 @@ fails:
    ones), one prefill dispatch of ``nbatch`` 1 a request, the shares of
    attention, GEMM and routing kernels in its profile, its contiguous
    serve equal to its paged one bit for bit, its peak memory, and, not
-   gated, the two layouts at 8 slots. Each
+   gated, the two layouts at 8 slots; after it, alone on the card too,
+   qwen3-moe-235b-a22b at full width (d 4096, 64/4 heads of 64, 128
+   experts top-8) with its depth cut from 94 to 4 layers
+   (``QWEN_LAYERS``, 22 GB), through the same checks and 4 slots, its
+   profile holding the 16-row decode body; then phi3-mini-3.8b at its
+   published size (32 layers, 32 heads of 96), bf16 and int8, on the
+   stream's first 8 requests (``phase_dense_arch``), the int8 variant's
+   profile holding flash's and the fused decode's D = 96 bodies and the
+   int8 GEMM.
+   Each
    path serves the stream several times on one
    warm engine; tokens/s is the median,
    with its quartiles as the spread. A profiled serve of each path fails
@@ -115,7 +134,8 @@ fails:
 4. **Teacher-forced check**: llama3.2-1b, whisper-base, the vision
    model at 10 layers (one group), zamba2-1.2b at full size and
    moonshot-v1-16b-a3b at full width cut to 4 of 48 layers (its 48 layers
-   take 115 GB in f32) in f32, one seeded token stream (and,
+   take 115 GB in f32) and phi3-mini-3.8b at full width cut to 2 layers
+   (its D = 96 through the SIMT bodies) in f32, one seeded token stream (and,
    for whisper and vision, seeded non-zero frames / image embeddings)
    forced through prefill and paged decode with the kernel impls and with
    the plain impls; the logits must agree at every prefill and decode
@@ -303,6 +323,17 @@ fails:
    requests each to its budget through flash prefill and the fused paged
    decode, a finite t(b) fit with c > 0; the loss falling over 60 steps
    and the restart resuming from the last checkpoint.
+15. **The model-less API over the dense variants** (``phase_model_less``):
+   a one-worker cluster over llama3.2-1b, phi3-mini-3.8b, minitron-8b
+   and yi-9b at their published sizes (``ML_ARCHS``): a use-case query
+   (text generation at accuracy 0.65, an SLO that rules out every
+   cpu-host variant) that must select ``ML_USECASE_VARIANT``, the variant
+   its CPU rehearsal on the sim backend selects, then one ``ArchTarget``
+   query each for phi3-mini-3.8b, minitron-8b and yi-9b, which builds
+   its selected variant on the card. Every result ok on h100-1 with the
+   tokens of a fresh engine on the served variant's params; flash and
+   the fused decode launched for each, the int8 GEMM for an int8
+   variant; every executor engine's decode steps replays of its graph.
 
 The last lines are the card's ``name, power.limit``, one JSON line with
 every kernel's numbers, and the result line
@@ -312,6 +343,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import gc
 import itertools
 import json
 import math
@@ -369,11 +401,23 @@ GEOMETRY = dict(max_batch=8, max_len=512, decode_block=16, page_size=16)
 # uncaptured oracle serves host-bound), the depth of the three largest
 # paths, in phase 3 and in phases 10 and 11, which serve the same models:
 # moonshot-v1-16b-a3b 48 -> 24 layers, xlstm-1.3b 48 -> 24, zamba2-1.2b
-# 38 -> 20.
+# 38 -> 20. The two paths added with head_dim 96 and G = 16 serve twice
+# each (the fewest the median takes): phi3-mini-3.8b at its published
+# size, bf16 and int8, on the stream's first 8 requests
+# (``PHI3_REQUESTS``: its uncaptured oracle serve of all 16 took 6.9 s in
+# bf16 and 8.9 s in int8 on an NVIDIA H100 80GB HBM3 at 700 W);
+# qwen3-moe-235b-a22b at full width with its depth
+# cut from 94 to 4 layers (``QWEN_LAYERS``: its 463.5 GB fit no card, 4.9
+# GB a layer; 22 GB at 4). phase 4 holds phi3-mini at full width cut to 2
+# layers in f32 (``PHI3_TF_LAYERS``).
 SERVE_REPEATS = {"llama3.2-1b": 3, "whisper-base": 2,
                  "llama-3.2-vision-90b": 2, "zamba2-1.2b": 2,
-                 "xlstm-1.3b": 2, "moonshot-v1-16b-a3b": 2}
+                 "xlstm-1.3b": 2, "moonshot-v1-16b-a3b": 2,
+                 "phi3-mini-3.8b": 2, "qwen3-moe-235b-a22b": 2}
 MOE_LAYERS = 24             # serve depth of moonshot-v1-16b-a3b (of 48)
+QWEN_LAYERS = 4             # serve depth of qwen3-moe-235b-a22b (of 94)
+PHI3_TF_LAYERS = 2          # phase 4's f32 depth of phi3-mini-3.8b (of 32)
+PHI3_REQUESTS = 8           # phi3-mini-3.8b's serves: the stream's first 8
 SSM_LAYERS = 24             # serve depth of xlstm-1.3b (of 48)
 HYBRID_LAYERS = 20          # serve depth of zamba2-1.2b (of 38)
 CHUNK_THRESHOLD = 64        # the chunked llama serve's threshold
@@ -396,6 +440,14 @@ INT8_SHAPES = [(2048, 2048), (2048, 512), (2048, 8192), (8192, 2048)]
 WAVE_DECODE_T = 331
 WAVE_DECODE_VALID = (300, 331)
 WAVE_INT8_M = 8 * 297
+# the two configurations whose attention geometry no other one has, each
+# as (K, G, D): phi3-mini-3.8b's 32 heads of 96 (G 1) and
+# qwen3-moe-235b-a22b's 64 query heads over 4 KV heads of 64 (G 16)
+PHI3_ARCH = "phi3-mini-3.8b"
+QWEN_ARCH = "qwen3-moe-235b-a22b"
+WIDE_GEOMETRIES = {PHI3_ARCH: (32, 1, 96), QWEN_ARCH: (4, 16, 64)}
+# (Kd, N) of phi3-mini's int8 projections: q, k, v and o; gate and up; down
+PHI3_INT8_SHAPES = [(3072, 3072), (3072, 8192), (8192, 3072)]
 
 
 def card_line() -> str:
@@ -507,7 +559,7 @@ def flash_build_report(log: str) -> dict:
               f"{spill[0]}/{spill[1]} bytes")
         check(spill == (0, 0), f"flash wgmma body D={D} spills {spill}")
         bodies[D] = dict(registers=regs, smem_bytes=smem)
-    check(sorted(bodies) == [64, 128],
+    check(sorted(bodies) == [64, 96, 128],
           f"flash wgmma bodies built: {sorted(bodies)}")
     lib = build._lib_path(build.KERNELS["flash_attention"][0])
     cuobjdump = Path(build.nvcc_path()).with_name("cuobjdump")
@@ -529,17 +581,18 @@ DECODE_LIBS = ("decode_attention", "fused_paged_decode_attention",
 
 def decode_build_report(reports: dict) -> dict:
     """The tensor-core body of the three decode kernels (contiguous, fused
-    paged, attend-only paged): its ptxas registers and spills per kernel
-    and head dim, its dynamic shared memory, and the count of ``HMMA``
-    (mma.sync) instructions in each library's SASS. Fails if a body is
-    missing or spills, or a count is 0."""
+    paged, attend-only paged): its ptxas registers and spills per kernel,
+    head dim (64, 96, 128) and fragment rows (8 for G <= 8, 16 for G
+    9-16), its dynamic shared memory, and the count of ``HMMA`` (mma.sync)
+    instructions in each library's SASS. Fails if a body is missing or
+    spills, or a count is 0."""
     from repro_torch.kernels import build
     bodies = {}
     for name in DECODE_LIBS:
         lines = reports[name].splitlines()
         for i, line in enumerate(lines):
             hit = re.search(r"((?:fused_|paged_)?decode_mma_kernel)"
-                            r"ILi(\d+)E", line)
+                            r"ILi(\d+)ELi(\d+)E", line)
             if "Compiling entry" not in line or hit is None:
                 continue
             rest = lines[i + 1:i + 6]
@@ -550,12 +603,12 @@ def decode_build_report(reports: dict) -> dict:
                           r"loads", x) for x in rest) if m)
             D = int(hit.group(2))
             smem = build.helper_fn("decode_mma_smem_bytes")(D)
-            key = f"{hit.group(1)} D={D}"
+            key = f"{hit.group(1)} D={D} R={hit.group(3)}"
             print(f"  {key}: {regs} registers, {smem} bytes dynamic smem per "
                   f"block, spill stores/loads {spill[0]}/{spill[1]} bytes")
             check(spill == (0, 0), f"{key} spills {spill}")
             bodies[key] = dict(registers=regs, smem_bytes=smem)
-    check(len(bodies) == 6,
+    check(len(bodies) == 18,
           f"decode tensor-core bodies built: {sorted(bodies)}")
     cuobjdump = Path(build.nvcc_path()).with_name("cuobjdump")
     hmma = {}
@@ -604,10 +657,12 @@ def int8_build_report(log: str) -> dict:
           f"int8 bodies built: {sorted(built)}")
     main = {}
     for M in (8, 2048):
-        for (Kd, N), dt in ((s, torch.bfloat16) for s in INT8_SHAPES):
+        for (Kd, N), dt in ((s, torch.bfloat16)
+                            for s in INT8_SHAPES + PHI3_INT8_SHAPES):
             main[(M, Kd, N, dt)] = int8_plan(M, N, Kd, dt)
-        main[(M, 8192, 2048, torch.float32)] = int8_plan(M, 2048, 8192,
-                                                         torch.float32)
+        for N in (2048, 3072):
+            main[(M, 8192, N, torch.float32)] = int8_plan(M, N, 8192,
+                                                          torch.float32)
     runs = {}
     for (M, Kd, N, dt), plan in main.items():
         d = "f32" if dt == torch.float32 else "bf16"
@@ -689,6 +744,20 @@ def phase_flash(torch, dev, gen):
          True, 0, None),
         ("moonshot K=16 G=1 D=128 ragged S=T=300", 1, 300, 300, 16, 1, 128,
          True, 0, None),
+        # phi3-mini-3.8b: K = 32, G = 1, D = 96 (two 64-column boxes, the
+        # second zero-filled past column 96)
+        ("phi3 K=32 G=1 D=96 bucket 256", 2, 256, 256, 32, 1, 96, True, 0,
+         None),
+        ("phi3 D=96 ragged S=300 valid_len 250 < T 320", 1, 300, 320, 32, 1,
+         96, True, 0, 250),
+        ("phi3 D=96 q_offset 448 > 0", 1, 64, 512, 32, 1, 96, True, 448,
+         None),
+        ("phi3 D=96 non-causal T=333", 1, 200, 333, 32, 1, 96, False, 0,
+         None),
+        # qwen3-moe-235b-a22b: K = 4, G = 16, D = 64, one prompt a dispatch
+        ("qwen3 K=4 G=16 D=64 bucket 512", 1, 512, 512, 4, 16, 64, True, 0,
+         None),
+        ("qwen3 G=16 ragged S=T=300", 1, 300, 300, 4, 16, 64, True, 0, None),
     ]
     worst = 0.0
     for label, B, S, T, K, G, D, causal, q_off, vlen in cases:
@@ -713,7 +782,10 @@ def phase_flash(torch, dev, gen):
              time_flash(torch, gen, dev, 8, 256, 1601, 8, 8, 128, False),
              time_flash(torch, gen, dev, 8, 256, 256, 32, 1, 64, True),
              # moonshot's prefill: one prompt a dispatch, bucket 512
-             time_flash(torch, gen, dev, 1, 512, 512, 16, 1, 128, True)]
+             time_flash(torch, gen, dev, 1, 512, 512, 16, 1, 128, True),
+             # phi3-mini's grouped prefill; qwen3's, one prompt a dispatch
+             time_flash(torch, gen, dev, 8, 256, 256, 32, 1, 96, True),
+             time_flash(torch, gen, dev, 1, 512, 512, 4, 16, 64, True)]
     return dict(name="flash_attention", route="cuda",
                 source="src/repro_torch/csrc/flash_attention.cu",
                 replaces="src/repro/kernels/flash_attention.py:106",
@@ -1016,6 +1088,11 @@ def phase_decode(torch, dev, gen, B=8, K=8, G=8, D=128, T=1601):
                 phase_decode_per_slot(torch, dev, gen, K=16, G=1, D=128),
                 # the WaveEngine's scalar form at llama's G = 4, D = 64
                 phase_decode_wave(torch, dev, gen)]
+    # phi3-mini's and qwen3-moe's geometries: the per-slot form (with B1's
+    # bits on the same rows) and the scalar form
+    for K, G, D in WIDE_GEOMETRIES.values():
+        per_slot += [phase_decode_per_slot(torch, dev, gen, K=K, G=G, D=D),
+                     phase_decode_wave(torch, dev, gen, K=K, G=G, D=D)]
     worst = max([worst] + [p.pop("max_abs_err") for p in per_slot])
     return dict(name="decode_attention", route="cuda",
                 source="src/repro_torch/csrc/decode_attention.cu",
@@ -1172,6 +1249,74 @@ def phase_decode_wave(torch, dev, gen, B=8, K=8, G=4, D=64,
                 max_abs_err=worst)
 
 
+def phase_geometry_f32(torch, dev, gen, label, K, G, D):
+    """The SIMT bodies (f32) at one of ``WIDE_GEOMETRIES``: flash causal
+    over a ragged S, with q_offset > 0, and non-causal with valid_len < T;
+    the fused paged decode with the write row on span edges (its written
+    rows bit-equal to the new rows); the contiguous kernel's per-slot form,
+    which must give the fused kernel's bits on the same rows, and its
+    scalar form; the attend-only paged decode. Each against its plain
+    version within 1e-4 (``tests/test_torch_cuda.py``'s f32 rule: the
+    same f32 products summed in another order). Returns the worst
+    error."""
+    from repro_torch.kernels.decode_attention import (
+        decode_attention, decode_attention_plain,
+        fused_paged_decode_attention, paged_decode_attention)
+    from repro_torch.kernels.flash_attention import (flash_attention,
+                                                     flash_attention_plain)
+    tol = 1e-4
+    errs = {}
+    for S, T, kw in ((300, 300, dict(causal=True)),
+                     (64, 512, dict(causal=True, q_offset=448)),
+                     (200, 333, dict(causal=False, valid_len=250))):
+        q = torch.randn((1, S, K, G, D), generator=gen, device=dev)
+        k = torch.randn((1, T, K, D), generator=gen, device=dev)
+        v = torch.randn((1, T, K, D), generator=gen, device=dev)
+        err = (flash_attention(q, k, v, **kw)
+               - flash_attention_plain(q, k, v, **kw)).abs().max().item()
+        errs["flash_attention"] = max(errs.get("flash_attention", 0), err)
+    B, ps, P = 8, 16, 32
+    T = P * ps
+    q = torch.randn((B, K, G, D), generator=gen, device=dev)
+    k = torch.randn((B, T, K, D), generator=gen, device=dev)
+    v = torch.randn((B, T, K, D), generator=gen, device=dev)
+    pos = torch.tensor(FUSED_SPAN_POS, dtype=torch.int32, device=dev)
+    kp = torch.zeros((B * P + 1, ps, K, D), device=dev)
+    vp = torch.zeros_like(kp)
+    kp[:B * P] = k.reshape(B * P, ps, K, D)
+    vp[:B * P] = v.reshape(B * P, ps, K, D)
+    bt = torch.arange(B * P, dtype=torch.int32, device=dev).reshape(B, P)
+    rows = torch.arange(B, device=dev)
+    kn = torch.randn((B, K, D), generator=gen, device=dev)
+    vn = torch.randn((B, K, D), generator=gen, device=dev)
+    k2, v2 = k.clone(), v.clone()
+    k2[rows, pos.long()], v2[rows, pos.long()] = kn, vn
+    fused, kp2, vp2 = fused_paged_decode_attention(q, kn, vn, kp.clone(),
+                                                   vp.clone(), bt, pos)
+    want = decode_attention_plain(q, k2, v2, pos + 1)
+    check(torch.equal(kp2[:B * P].reshape(B, T, K, D), k2)
+          and torch.equal(vp2[:B * P].reshape(B, T, K, D), v2),
+          f"{label} f32 fused decode: written rows not the new rows")
+    per_slot = decode_attention(q, k2, v2, pos + 1)
+    check(torch.equal(per_slot, fused), f"{label} f32: the per-slot form's "
+          f"bits differ from the fused paged kernel's on the same rows")
+    errs["fused_paged_decode_attention"] = (fused - want).abs().max().item()
+    errs["decode_attention"] = max(
+        (per_slot - want).abs().max().item(),
+        (decode_attention(q, k, v, 300)
+         - decode_attention_plain(q, k, v, 300)).abs().max().item())
+    errs["paged_decode_attention"] = (
+        paged_decode_attention(q, kp2, vp2, bt, pos + 1)
+        - want).abs().max().item()
+    torch.cuda.synchronize()
+    print(f"  f32 (SIMT bodies) at {label}'s K={K} G={G} D={D}: max_abs_err "
+          + ", ".join(f"{n} {e:.2e}" for n, e in errs.items())
+          + f" (tol {tol}); the per-slot form gives the fused kernel's bits")
+    for name, err in errs.items():
+        check(err <= tol, f"{label} f32 {name}: err {err}")
+    return errs
+
+
 def time_int8(torch, x, w_q, s):
     """Kernel, plain version and ``torch.mm`` on the dequantised weight in
     x's dtype (TF32 off for f32) at one shape, beside the bound, under two
@@ -1261,6 +1406,11 @@ def phase_int8(torch, dev, gen):
     # the down projection's x is f32 (silu(g) * u of two f32 products)
     cases += [(m, 8192, 2048, torch.float32)
               for m in (8, 8 * 256, WAVE_INT8_M)]
+    # phi3-mini-3.8b's projections at decode and at a prefill M, bf16 x,
+    # and its down projection's f32 x
+    cases += [(m, kd, n, torch.bfloat16) for kd, n in PHI3_INT8_SHAPES
+              for m in (8, 8 * 256)]
+    cases += [(m, 8192, 3072, torch.float32) for m in (8, 8 * 256)]
     worst = 0.0
     timed = {}
     for M, Kd, N, dt in cases:
@@ -1277,7 +1427,8 @@ def phase_int8(torch, dev, gen):
         worst = max(worst, err)
         if dt == torch.float32:
             check_f32_x(torch, x, w_q, s, got, want)
-        if (Kd, N) in shapes and M in (8, 8 * 256) or (
+        if M in (8, 8 * 256) and ((Kd, N) in shapes or (
+                (Kd, N) in PHI3_INT8_SHAPES and dt == torch.bfloat16)) or (
                 M, Kd, N, dt) == (WAVE_INT8_M, 2048, 8192, torch.bfloat16):
             timed[(M, Kd, N, dt)] = time_int8(torch, x, w_q, s)
             print(f"    max_abs_err {err:.2e}")
@@ -1689,7 +1840,8 @@ def profile_serve(torch, dev, eng, stream, label):
 
 def profile_variant(torch, dev, model, params, stream, label,
                     contiguous_decode=False, paged_decode=False,
-                    kernels=True, geometry=None, eng=None, n_reqs=8):
+                    kernels=True, geometry=None, eng=None, n_reqs=8,
+                    bodies=()):
     """Where the time goes: ``torch.profiler`` over a short serve of the
     stream's first 8 requests (``profile_serve``). Prints the device's
     busy share (summed device kernel time over host wall time, profiler
@@ -1697,8 +1849,10 @@ def profile_variant(torch, dev, model, params, stream, label,
     the kernels ran: the decode lines must show the fused kernel's
     tensor-core body (and, with ``contiguous_decode``, the contiguous
     kernel's; with ``paged_decode``, the attend-only paged kernel's) and
-    no old bf16 decode body. With ``kernels`` false (a path that runs no
-    kernel: xlstm) only the busy share and the top kernels are printed.
+    no old bf16 decode body; every pattern of ``bodies`` (a kernel's name
+    with its template arguments, e.g. its head dim) must match a profiled
+    kernel. With ``kernels`` false (a path that runs no kernel: xlstm)
+    only the busy share and the top kernels are printed.
     Returns the device and wall times and the profile's device time by
     kernel name. ``eng`` is a warm graphed engine to profile on, else one
     is built; the serve is of the stream's first ``n_reqs`` requests."""
@@ -1759,6 +1913,11 @@ def profile_variant(torch, dev, model, params, stream, label,
           and (not paged_decode
                or any("paged_decode_mma_kernel" in name for name in dec)),
           f"{label}: decode bodies in the profile: {sorted(dec)}")
+    for pattern in bodies:
+        check(any(re.search(pattern, name) for name in by_name),
+              f"{label}: no profiled kernel matches {pattern!r}")
+    if bodies:
+        print(f"  {label}: the profile holds the bodies {list(bodies)}")
     return dict(out, int8_ms=sum(us for us, _ in int8.values()) / 1e3,
                 decode_ms=sum(us for us, _ in dec.values()) / 1e3)
 
@@ -1865,6 +2024,76 @@ def phase_family(torch, dev, arch, card, n_layers=None):
         check(res["launches"][name] > 0,
               f"{name} was not launched on the {arch} path")
     return res
+
+
+def wide_bodies(G, D):
+    """Profiled kernel names of flash's tensor-core body and the fused
+    decode's at head dim D with G query heads per KV head (fragment rows 8
+    at G <= 8, else 16)."""
+    return (rf"flash_fwd_wgmma<{D}>",
+            rf"fused_decode_mma_kernel<{D},\s*{8 if G <= 8 else 16}>")
+
+
+def phase_dense_arch(torch, dev, arch, card):
+    """A dense arch at its published size, nothing cut, as the bf16 and the
+    int8 variant, on the stream's first ``PHI3_REQUESTS`` requests, through
+    phase 3's engine checks (prefill graphs against the eager body, graphed
+    serves against the uncaptured oracle, a profiled serve of the int8
+    variant that must hold flash's and the fused decode's bodies at the
+    arch's geometry and the int8 GEMM's): phi3-mini-3.8b's head_dim 96.
+    Returns both variants' results."""
+    from repro_torch.configs.registry import ARCHS
+    from repro_torch.models import build_model
+    from repro_torch.models.quantize import quantize_params_dense
+    base = ARCHS[arch]
+    G, D = base.q_per_kv, base.head_dim
+    out = {}
+    params = None
+    for variant in ("bf16", "int8"):
+        cfg = (base if variant == "bf16" else dataclasses.replace(
+            base, quantize="int8")).for_device(dev)
+        check(cfg.attention_impl == "cuda" and (
+            variant == "bf16" or cfg.quantize == "int8_cuda"),
+            f"{arch} {variant}: config did not select the kernels")
+        model = build_model(cfg, dev)
+        if params is None:
+            t0 = time.perf_counter()
+            params = model.init(SEED)
+            torch.cuda.synchronize(dev)
+            print(f"  {arch}: {cfg.n_layers} layers, d {cfg.d_model}, "
+                  f"{cfg.n_heads}/{cfg.n_kv_heads} heads of {D}, "
+                  f"{base.param_count() / 1e9:.3f} B params, bf16, init "
+                  f"{time.perf_counter() - t0:.1f} s")
+            served = params
+        else:
+            served = quantize_params_dense(params)
+        label = f"{arch} {variant} variant"
+        stream = make_stream(cfg.vocab)[:PHI3_REQUESTS]
+        pf = check_prefill_graphs(torch, dev, model, served, stream, label,
+                                  card)
+        eng = pf.pop("engine")
+        res = serve_variant(torch, dev, model, served, stream, label,
+                            SERVE_REPEATS[arch], eng=eng)
+        res["prefill"] = pf
+        names = ["flash_attention", "fused_paged_decode_attention"]
+        if variant == "int8":
+            # the int8 variant's profile runs every kernel of both (its
+            # 160,900 device events take seconds to read)
+            names.append("int8_matmul")
+            res["profile"] = profile_variant(
+                torch, dev, model, served, stream, label, eng=eng, n_reqs=4,
+                bodies=wide_bodies(G, D))
+            check(all(res["profile"]["launches"][n] > 0 for n in names),
+                  f"{label}: profiled launches {res['profile']['launches']}")
+        del eng, served
+        torch.cuda.empty_cache()
+        for name in names:
+            check(res["launches"][name] > 0,
+                  f"{name} was not launched on the {label} path")
+        out[variant] = res
+    del params
+    torch.cuda.empty_cache()
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -2002,7 +2231,9 @@ def phase_teacher_forced(torch, dev):
     for arch, n_layers in (("whisper-base", None),
                            ("llama-3.2-vision-90b", VISION_TF_LAYERS),
                            (HYBRID_ARCH, None),
-                           (MOE_ARCH, MOE_TF_LAYERS)):
+                           (MOE_ARCH, MOE_TF_LAYERS),
+                           # head_dim 96 through the f32 SIMT bodies
+                           (PHI3_ARCH, PHI3_TF_LAYERS)):
         cfg = dataclasses.replace(ARCHS[arch], **f32)
         if n_layers is not None:
             cfg = dataclasses.replace(cfg, n_layers=n_layers)
@@ -2012,7 +2243,7 @@ def phase_teacher_forced(torch, dev):
                                       forced_inputs(torch, dev, cfg, rng),
                                       tol, contiguous=arch in (
                                           "whisper-base", HYBRID_ARCH,
-                                          MOE_ARCH))
+                                          MOE_ARCH, PHI3_ARCH))
         del params
         torch.cuda.empty_cache()
     return diffs
@@ -2027,18 +2258,22 @@ CP_MAX_NEW = 32            # one budget per payload query
 CP_CALIBRATION = (1, 8, 1, 8)   # synthetic query sizes, per variant
 
 
-def served_tokens(torch, ex, variant, prompts, max_new):
+def engine_geometry(eng) -> dict:
+    """The geometry knobs of a serving engine, to build another like it."""
+    return {k: getattr(eng, k) for k in ("max_batch", "max_len",
+                                         "decode_block", "min_bucket",
+                                         "page_size", "n_pages")}
+
+
+def served_tokens(torch, ex, variant, prompts, max_new, geometry=None):
     """Tokens of a fresh engine on the served variant's own params, with
-    the executor engine's geometry: the oracle of a payload query."""
+    the executor engine's geometry (``geometry``, else read off the
+    executor's engine): the oracle of a payload query."""
     from repro_torch.serving.engine import Request, ServingEngine
-    exec_eng = ex.engines[variant.name]
+    if geometry is None:
+        geometry = engine_geometry(ex.engines[variant.name])
     model, params = ex.served_model(variant)
-    eng = ServingEngine(model, params, max_batch=exec_eng.max_batch,
-                        max_len=exec_eng.max_len,
-                        decode_block=exec_eng.decode_block,
-                        min_bucket=exec_eng.min_bucket,
-                        page_size=exec_eng.page_size,
-                        n_pages=exec_eng.n_pages)
+    eng = ServingEngine(model, params, **geometry)
     reqs = [Request(rid=i, prompt=np.asarray(p, np.int32),
                     max_new_tokens=max_new) for i, p in enumerate(prompts)]
     eng.serve(reqs)
@@ -2160,6 +2395,163 @@ def phase_control_plane(torch, dev, card):
     return dict(launches=launches, wall_s=wall,
                 c_ms={d: variants[n].profile.c * 1e3
                       for d, n in names.items()})
+
+
+# ---------------------------------------------------------------------------
+# phase 15: the model-less API choosing among the dense variants on one card
+
+# the registry's dense text-generation archs, which fit one card together
+# (bf16 weights about 3.0 + 7.6 + 19.8 + 17.7 GB)
+ML_ARCHS = ("llama3.2-1b", "phi3-mini-3.8b", "minitron-8b", "yi-9b")
+# one ArchTarget query each, so that each is built at its published size
+ML_ARCH_QUERIES = ("phi3-mini-3.8b", "minitron-8b", "yi-9b")
+# the use case's accuracy bar: above llama3.2-1b's 0.62 and below
+# phi3-mini-3.8b's 0.69 (``core/profiler.py`` ``ARCH_META``). With the SLO
+# of ``model_less_specs`` the selection loads the variant below on a fresh
+# cluster: the one the sim backend's Master selects for the same query
+# (``tests/test_torch_control_plane.py::
+# test_usecase_over_the_dense_archs_selects_phi3_mini``)
+ML_MIN_ACCURACY = 0.65
+ML_USECASE_VARIANT = "phi3-mini-3.8b/h100-1/bf16-b16"
+
+
+def model_less_specs(variants, prompts, max_new):
+    """The payload queries of phase 15, in order: the use case (text
+    generation at ``ML_MIN_ACCURACY``, an SLO of 10x the best h100-1
+    analytic t(n) of phi3-mini-3.8b, which rules out every cpu-host
+    variant), then one ``ArchTarget`` query per arch of
+    ``ML_ARCH_QUERIES``. Returns (label, spec) pairs and the SLO."""
+    from repro_torch.core.api import QueryPayload, QuerySpec
+    n = len(prompts)
+    payload = QueryPayload.of(prompts, max_new_tokens=max_new)
+    slo = 10 * min(v.profile.latency(n) for v in variants.values()
+                   if v.arch == "phi3-mini-3.8b" and v.hardware == "h100-1"
+                   and v.profile.max_batch >= n)
+    specs = [("use case", QuerySpec.usecase(
+        "text-generation", "openwebtext", min_accuracy=ML_MIN_ACCURACY,
+        slo=slo, payload=payload))]
+    specs += [(f"arch {a}", QuerySpec.arch(a, latency_ms=600_000,
+                                           payload=payload))
+              for a in ML_ARCH_QUERIES]
+    return specs, slo
+
+
+def phase_model_less(torch, dev, card):
+    """The model-less API over ``ML_ARCHS`` on one H100 at their published
+    sizes (``make_cluster(backend="real")``, phase 5's engine geometry):
+    a use-case query that must select ``ML_USECASE_VARIANT`` (phi3-mini's
+    head_dim 96 on the kernels), then one ArchTarget query per arch of
+    ``ML_ARCH_QUERIES``, each building its selected variant on the card.
+    Every result must be ok, served on h100-1, with the tokens of a fresh
+    engine on the served variant's params; flash prefill and the fused
+    decode must have launched for each, the int8 GEMM for an int8
+    variant."""
+    from repro_torch.configs.registry import ARCHS
+    from repro_torch.core.master import MasterConfig
+    from repro_torch.kernels import build
+    from repro_torch.serving.executor import EngineExecutorConfig
+    from repro_torch.sim.cluster import make_cluster
+    ecfg = EngineExecutorConfig(max_batch=8, max_len=512, decode_block=16,
+                                min_bucket=8, page_size=16)
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    c = make_cluster(n_accel=1, archs=[ARCHS[a] for a in ML_ARCHS],
+                     autoscale=False,
+                     cfg=MasterConfig(worker_autoscale=False),
+                     backend="real", device=dev, engine_cfg=ecfg)
+    (ex,) = c.executors
+    variants = c.store.registry.variants
+    # prompts in every arch's vocabulary (the smallest is phi3-mini's)
+    vocab = min(ARCHS[a].vocab for a in ML_ARCHS)
+    prompts = [p.tolist() for p, _ in make_stream(vocab)[:8]]
+    specs, slo = model_less_specs(variants, prompts, CP_MAX_NEW)
+    print(f"  cluster: 1 accel worker, {len(variants)} variants of "
+          f"{', '.join(ML_ARCHS)}; use case at min_accuracy "
+          f"{ML_MIN_ACCURACY}, SLO {slo * 1e3:.3f} ms")
+    # the worker fails a query whose batch raised without saying why: keep
+    # the executor's exception for the check's message
+    errors = []
+    run = ex.run
+
+    def logged_run(*args, **kwargs):
+        try:
+            return run(*args, **kwargs)
+        except Exception as e:
+            errors.append(repr(e))
+            raise
+
+    ex.run = logged_run
+    build.reset_launch_counts()
+    results = []
+    for label, spec in specs:
+        before = dict(build.launch_counts)
+        t1 = time.perf_counter()
+        res = c.api.submit(spec).result(timeout=3600.0)
+        check(res.ok, f"model-less {label}: failed={res.failed} "
+              f"variant={res.variant!r}: {errors}")
+        got = {k: build.launch_counts[k] - before[k] for k in before}
+        results.append((label, res, got, time.perf_counter() - t1))
+        print(f"  {label}: {res.variant} served; device memory "
+              f"{torch.cuda.memory_allocated(dev) / 1e9:.2f} GB allocated, "
+              f"{torch.cuda.memory_reserved(dev) / 1e9:.2f} GB reserved")
+    launches = dict(build.launch_counts)
+    torch.cuda.synchronize(dev)
+    check(results[0][1].variant == ML_USECASE_VARIANT,
+          f"use case selected {results[0][1].variant}, the CPU rehearsal "
+          f"{ML_USECASE_VARIANT}")
+    for vname, eng in ex.engines.items():
+        st = eng.stats
+        check(st["decode_traces"] == 1
+              and st["graph_replays"] == st["decode_steps"] > 0,
+              f"{vname}: {st['decode_traces']} captured graphs, "
+              f"{st['graph_replays']} replays for {st['decode_steps']} "
+              "steps")
+    engines = sorted(ex.engines)
+    geometry = {n: engine_geometry(e) for n, e in ex.engines.items()}
+    peak = torch.cuda.max_memory_allocated(dev) / 1e9
+    # the oracles' engines do not fit beside the executor's (their pools
+    # and graphs held 12.9 GB beside 63.8 GB of weights on an NVIDIA H100
+    # 80GB HBM3):
+    # the executor's engines go first, its weights stay
+    ex.engines.clear()
+    gc.collect()
+    torch.cuda.empty_cache()
+    for (label, res, got, wall), arch in zip(
+            results, (ML_USECASE_VARIANT.split("/")[0],) + ML_ARCH_QUERIES):
+        v = variants[res.variant]
+        check(v.arch == arch and v.hardware == "h100-1"
+              and res.worker == "worker-accel-0",
+              f"{label}: {res.variant} on {v.hardware} by {res.worker}")
+        want = served_tokens(torch, ex, v, prompts, CP_MAX_NEW,
+                             geometry[res.variant])
+        check(len(res.outputs) == len(prompts) and all(
+            np.array_equal(a, b) for a, b in zip(want, res.outputs)),
+            f"{label}: tokens differ from a direct engine on the served "
+            f"variant's params")
+        names = ["flash_attention", "fused_paged_decode_attention"]
+        if v.framework == "torch-int8":
+            names.append("int8_matmul")
+        for k in names:
+            check(got[k] > 0, f"{label}: {k} was not launched")
+        model, _ = ex.served_model(v)
+        toks = sum(len(o) for o in res.outputs)
+        print(f"  {label}: {res.variant} ({model.cfg.n_layers} layers, d "
+              f"{model.cfg.d_model}, {model.cfg.n_heads}/"
+              f"{model.cfg.n_kv_heads} heads of {model.cfg.head_dim}) on "
+              f"{res.worker}; latency {res.latency:.4f} s = queue "
+              f"{res.queue:.4f} + load {res.load:.4f} + compute "
+              f"{res.compute:.4f} s (virtual clock; compute measured), "
+              f"{wall:.1f} s of wall time with the build; {toks} tokens; "
+              f"launches {got}; tokens equal to a direct engine on the "
+              f"served params")
+    wall = time.perf_counter() - t0
+    print(f"  {len(engines)} executor engines on the card ({engines}), each "
+          f"decoding as replays of its one captured graph; peak memory "
+          f"{peak:.2f} GB with all of them; phase launches {launches} on "
+          f"{card}")
+    del c, ex
+    gc.collect()
+    return dict(launches=launches, wall_s=wall)
 
 
 # ---------------------------------------------------------------------------
@@ -3551,7 +3943,11 @@ MOE_ARCH = "moonshot-v1-16b-a3b"
 # as the reference routes it) cannot change a live row's output. At 8
 # slots it can, and an idle row attends to the trash page in the paged
 # layout but to its slot's stale rows in the contiguous one, so the two
-# layouts need not agree there.
+# layouts need not agree there. qwen3-moe-235b-a22b (128 experts top-8)
+# has the same bound: its capacity is max(4, ceil(B * 8 * 1.25 / 128)
+# rounded up to 4) = 4 rows an expert for B < 52, and a row routes to an
+# expert at most once, so no decode row drops at B <= 4, and one can at
+# 5 <= B < 52. It serves with the same 4 slots.
 MOE_GEOMETRY = dict(max_batch=4)
 MOE_TF_LAYERS = 4           # phase 4's f32 depth of moonshot (of 48)
 
@@ -3629,7 +4025,7 @@ def moe_shares(by_name):
     return {k: v / max(busy, 1e-9) for k, v in tot.items()}, busy
 
 
-def phase_moe(torch, dev, card):
+def phase_moe(torch, dev, card, arch=MOE_ARCH, n_layers=MOE_LAYERS):
     """moonshot-v1-16b-a3b at full width, depth cut from 48 to
     ``MOE_LAYERS`` (64 routed experts top-6 + 2 shared, d 2048, 16/16
     heads of 128; 29.6 GB of bf16 weights at 24 layers), run first in
@@ -3641,13 +4037,17 @@ def phase_moe(torch, dev, card):
     device time of attention, GEMMs and routing), and a contiguous serve
     whose tokens must equal the paged serve's bit for bit. The expert FFN
     is the reference's single-device lowering: every expert runs over its
-    capacity buffer, so a step reads every expert's weights."""
+    capacity buffer, so a step reads every expert's weights. ``arch`` and
+    ``n_layers`` serve another moe config the same way:
+    qwen3-moe-235b-a22b at ``QWEN_LAYERS`` (its G = 16 through the 16-row
+    decode bodies), after moonshot, alone on the card too; the profile must
+    hold flash's and the fused decode's bodies at the arch's geometry."""
     from repro_torch.configs.registry import ARCHS
     from repro_torch.kernels import build
     from repro_torch.launch.serve import check_weights_fit
     from repro_torch.models import build_model
     from repro_torch.serving.engine import Request, ServingEngine
-    base = dataclasses.replace(ARCHS[MOE_ARCH], n_layers=MOE_LAYERS)
+    base = dataclasses.replace(ARCHS[arch], n_layers=n_layers)
     cfg = base.for_device(dev)
     check(cfg.attention_impl == "cuda", "config did not select the kernels")
     check_weights_fit(cfg, torch.cuda.get_device_properties(dev).total_memory,
@@ -3658,36 +4058,37 @@ def phase_moe(torch, dev, card):
     params = model.init(SEED)
     torch.cuda.synchronize(dev)
     weights_gb = torch.cuda.memory_allocated(dev) / 1e9
-    print(f"  {MOE_ARCH}: {base.n_layers} layers, "
+    print(f"  {arch}: {base.n_layers} layers, "
           f"{base.param_count() / 1e9:.3f} B params "
           f"({base.active_param_count() / 1e9:.3f} B active a token), bf16: "
           f"{weights_gb:.2f} GB allocated, init {time.perf_counter() - t0:.1f}"
           f" s, init peak {torch.cuda.max_memory_allocated(dev) / 1e9:.2f} GB"
           f" on {card}")
     stream = make_stream(cfg.vocab)
-    pf = check_prefill_graphs(torch, dev, model, params, stream, MOE_ARCH,
+    pf = check_prefill_graphs(torch, dev, model, params, stream, arch,
                               card, geometry=MOE_GEOMETRY)
     eng = pf.pop("engine")
     check({nb for nb, _ in pf["keys"]} == {1}
           and {nb for nb, _ in eng._prefill_fns} == {1},
-          f"{MOE_ARCH}: prefill keys {sorted(eng._prefill_fns)}")
-    res = serve_variant(torch, dev, model, params, stream, MOE_ARCH,
-                        SERVE_REPEATS[MOE_ARCH], geometry=MOE_GEOMETRY,
+          f"{arch}: prefill keys {sorted(eng._prefill_fns)}")
+    res = serve_variant(torch, dev, model, params, stream, arch,
+                        SERVE_REPEATS[arch], geometry=MOE_GEOMETRY,
                         eng=eng)
     res["prefill"] = pf
     s = res["stats"]
     check(s["prefill_dispatches"] == s["admitted"] == len(stream),
-          f"{MOE_ARCH}: {s['prefill_dispatches']} prefill dispatches for "
+          f"{arch}: {s['prefill_dispatches']} prefill dispatches for "
           f"{s['admitted']} admitted of {len(stream)}")
     # 4 requests: a profile of 8 held 711 k device events, and one flash
     # record of 384 was missing from each of 5 profiles
-    prof = profile_variant(torch, dev, model, params, stream, MOE_ARCH,
-                           geometry=MOE_GEOMETRY, eng=eng, n_reqs=4)
+    prof = profile_variant(torch, dev, model, params, stream, arch,
+                           geometry=MOE_GEOMETRY, eng=eng, n_reqs=4,
+                           bodies=wide_bodies(cfg.q_per_kv, cfg.head_dim))
     del eng
     shares, busy = moe_shares(prof["by_name"])
     prof["shares"] = shares
     res["profile"] = prof
-    print(f"  {MOE_ARCH} profile: {busy / 1e3:.1f} ms of device time over "
+    print(f"  {arch} profile: {busy / 1e3:.1f} ms of device time over "
           f"{prof['steps']} decode steps and 4 prefill dispatches: "
           + ", ".join(f"{k} {v:.3f}" for k, v in shares.items())
           + f"; launches {prof['launches']} on {card}")
@@ -3704,27 +4105,27 @@ def phase_moe(torch, dev, card):
     st = eng.stats
     check(st["decode_traces"] == 1
           and st["graph_replays"] == st["decode_steps"] > 0,
-          f"{MOE_ARCH} contiguous: {st['graph_replays']} replays for "
+          f"{arch} contiguous: {st['graph_replays']} replays for "
           f"{st['decode_steps']} steps")
     check(all(np.array_equal(r.tokens, t)
               for r, t in zip(reqs, res["served"])),
-          f"{MOE_ARCH}: contiguous tokens differ from the paged serve's")
+          f"{arch}: contiguous tokens differ from the paged serve's")
     check(cont["decode_attention"] > 0
           and cont["fused_paged_decode_attention"] == 0
           and cont["flash_attention"] > 0,
-          f"{MOE_ARCH} contiguous: launches {cont}")
+          f"{arch} contiguous: launches {cont}")
     del eng
     torch.cuda.empty_cache()
     for k, n in cont.items():
         res["launches"][k] = res["launches"].get(k, 0) + n
-    print(f"  {MOE_ARCH} contiguous (page_size None): tokens equal the "
+    print(f"  {arch} contiguous (page_size None): tokens equal the "
           f"paged serve's bit for bit; launches {cont}")
     for name in ("flash_attention", "fused_paged_decode_attention",
                  "decode_attention"):
         check(res["launches"][name] > 0,
-              f"{name} was not launched on the {MOE_ARCH} path")
+              f"{name} was not launched on the {arch} path")
     res["peak_gb"] = torch.cuda.max_memory_allocated(dev) / 1e9
-    print(f"  {MOE_ARCH}: torch.cuda.max_memory_allocated "
+    print(f"  {arch}: torch.cuda.max_memory_allocated "
           f"{res['peak_gb']:.2f} GB over the path on {card}")
     del params
     torch.cuda.empty_cache()
@@ -4822,15 +5223,35 @@ def main() -> int:
               # on span edges
               phase_fused_decode(torch, dev, gen, K=16, G=1, D=128,
                                  pos_list=FUSED_SPAN_POS)]
+    # phi3-mini's D = 96 and qwen3-moe's G = 16, the write row on span
+    # edges
+    others += [phase_fused_decode(torch, dev, gen, K=K, G=G, D=D,
+                                  pos_list=FUSED_SPAN_POS)
+               for K, G, D in WIDE_GEOMETRIES.values()]
     fused["other_shapes"] = [{k: o[k] for k in (
         "shape", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
         "host_us")} for o in others]
     fused["max_abs_err"] = max(o["max_abs_err"] for o in [fused, *others])
+    paged = phase_paged_decode(torch, dev, gen)
+    for K, G, D in WIDE_GEOMETRIES.values():
+        wide = phase_paged_decode(torch, dev, gen, K=K, G=G, D=D)
+        paged["other_shapes"] += [wide.pop("other_shapes")[0], {
+            k: wide[k] for k in ("shape", "ms", "plain_ms", "bound_ms",
+                                 "bound_by", "library_ms", "host_us")}]
+        paged["max_abs_err"] = max(paged["max_abs_err"], wide["max_abs_err"])
     kernels = [dict(phase_flash(torch, dev, gen), **flash_build),
                dict(fused, **decode_build),
                dict(phase_int8(torch, dev, gen), **int8_build),
-               dict(phase_paged_decode(torch, dev, gen), **decode_build),
+               dict(paged, **decode_build),
                dict(phase_decode(torch, dev, gen), **decode_build)]
+    # the SIMT bodies (f32) at the two geometries; the worst error of
+    # each kernel's rows
+    for label, (K, G, D) in WIDE_GEOMETRIES.items():
+        errs = phase_geometry_f32(torch, dev, gen, label, K, G, D)
+        for k in kernels:
+            if k["name"] in errs:
+                k["max_abs_err_f32"] = max(k.get("max_abs_err_f32", 0.0),
+                                           errs[k["name"]])
     print(f"  phase 2 took {time.perf_counter() - t0:.1f} s")
 
     t0 = time.perf_counter()
@@ -4846,6 +5267,11 @@ def main() -> int:
         return out
 
     moe = timed(MOE_ARCH, phase_moe, torch, dev, card)
+    # qwen3-moe's G = 16 and phi3-mini's head_dim 96, each alone on the
+    # card after moonshot
+    qwen = timed(QWEN_ARCH, phase_moe, torch, dev, card, QWEN_ARCH,
+                 QWEN_LAYERS)
+    phi3 = timed(PHI3_ARCH, phase_dense_arch, torch, dev, PHI3_ARCH, card)
     bf16, int8 = timed("llama3.2-1b", phase_main_path, torch, dev, card)
     whisper = timed("whisper-base", phase_family, torch, dev,
                     "whisper-base", card)
@@ -4853,7 +5279,8 @@ def main() -> int:
                    "llama-3.2-vision-90b", card, VISION_LAYERS)
     hybrid = timed(HYBRID_ARCH, phase_hybrid, torch, dev, card)
     ssm = timed(SSM_ARCH, phase_ssm, torch, dev, card)
-    paths = [moe, bf16, bf16["chunked"], int8, whisper, vision, hybrid, ssm]
+    paths = [moe, qwen, phi3["bf16"], phi3["int8"], bf16, bf16["chunked"],
+             int8, whisper, vision, hybrid, ssm]
     for k in kernels:
         k["launches"] = sum(r["launches"].get(k["name"], 0) for r in paths)
     for label, r in (("llama3.2-1b bf16", bf16),
@@ -4862,7 +5289,10 @@ def main() -> int:
                      ("llama3.2-1b int8", int8), ("whisper-base", whisper),
                      (f"llama-3.2-vision-90b ({VISION_LAYERS} layers)",
                       vision), (HYBRID_ARCH, hybrid), (SSM_ARCH, ssm),
-                     (MOE_ARCH, moe)):
+                     (MOE_ARCH, moe),
+                     (f"{QWEN_ARCH} ({QWEN_LAYERS} layers)", qwen),
+                     (f"{PHI3_ARCH} bf16", phi3["bf16"]),
+                     (f"{PHI3_ARCH} int8", phi3["int8"])):
         p = r.get("profile")
         busy = (f"device {p['device_ms']:.1f} / wall {p['wall_ms']:.1f} ms, "
                 f"busy share {p['busy_share']:.3f}" if p else "not profiled")
@@ -4974,6 +5404,16 @@ def main() -> int:
     for k in kernels:
         k["launches"] += base["launches"].get(k["name"], 0)
     print(f"  phase 14 took {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    print(f"phase 15: the model-less API over {', '.join(ML_ARCHS)} at "
+          f"their published sizes on one card")
+    gc.collect()
+    torch.cuda.empty_cache()
+    ml = phase_model_less(torch, dev, card)
+    torch.cuda.empty_cache()
+    for k in kernels:
+        k["launches"] += ml["launches"].get(k["name"], 0)
+    print(f"  phase 15 took {time.perf_counter() - t0:.1f} s")
     print(f"all phases passed in {time.perf_counter() - t_start:.1f} s")
     for k in kernels:
         print(f"kernel {k['name']}: {k['launches']} main-path launches, "

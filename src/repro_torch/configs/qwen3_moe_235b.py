@@ -1,9 +1,9 @@
 """qwen3-moe-235b-a22b [moe] — 128 experts top-8. [hf:Qwen/Qwen3-30B-A3B; hf]
 
 235 B parameters (470 GB in bf16): no single card holds it, so the
-launcher refuses it there (``launch.serve.check_weights_fit``), and its
-G = 16 query heads per KV head exceed the decode kernels' G <= 8, which
-``build_model`` refuses under the CUDA impls. It is registered for the
+launcher refuses it there (``launch.serve.check_weights_fit``). Its G = 16
+query heads per KV head take the decode kernels' 16-row bodies; the card
+serves it at full width with its depth cut. It is registered for the
 control plane and the CPU tests.
 """
 from repro_torch.configs.base import ArchConfig

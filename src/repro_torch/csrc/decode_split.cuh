@@ -5,7 +5,9 @@
 // of decode_mma.cuh.
 //
 // The body: one block per (span, KV head, slot). The block serves all G
-// query heads of its KV head over its own span of the slot's logical rows
+// query heads of its KV head (G <= R, the body's row count: 8, or 16 for
+// qwen3-moe's G = 16, so the G <= 8 paths keep their shared memory) over
+// its own span of the slot's logical rows
 // [t0, t1): q (G x D) sits in shared memory, and the block stages 32 rows
 // of K/V for this head at a time in shared memory as f32 (rows at or past
 // t1 are staged as zeros, never read, so stale or garbage rows cannot leak
@@ -39,7 +41,11 @@ namespace cg = cooperative_groups;
 
 constexpr int NT = 128;   // threads per block (4 warps)
 constexpr int TC = 32;    // rows staged per step: one per lane
-constexpr int GMAX = 8;   // query heads per KV head
+constexpr int GMAX = 16;  // query heads per KV head, at most
+
+// The row count of the bodies that serve G query heads per KV head: 8, or
+// 16 for G of 9 to 16. Every body, partial and fold is templated on it.
+inline int rows_for(int G) { return G <= 8 ? 8 : 16; }
 
 // Logical row t of one (slot, KV head) of a page pool (n_phys, ps, K, D):
 // page bt_row[t / ps], clamped into [0, n_phys - 1] as the Pallas wrappers
@@ -62,9 +68,9 @@ struct PagedRows {
   }
 };
 
-// Partial attention of the G heads of q_head over rows [t0, t1) of one
-// (slot, KV head); writes m, l (G each) and acc (G x D).
-template <typename T, int D, typename RowOffset, bool kNewRow = false>
+// Partial attention of the G <= R heads of q_head over rows [t0, t1) of
+// one (slot, KV head); writes m, l (G each) and acc (G x D).
+template <typename T, int D, int R, typename RowOffset, bool kNewRow = false>
 __device__ __forceinline__ void attend_span(
     const T* __restrict__ q_head, const T* __restrict__ k,
     const T* __restrict__ v, const RowOffset& row_offset, int G, int t0,
@@ -73,14 +79,14 @@ __device__ __forceinline__ void attend_span(
     int t_new = -1,
     const T* __restrict__ k_new = nullptr,
     const T* __restrict__ v_new = nullptr) {
-  constexpr int ACC = (GMAX * D + NT - 1) / NT;
-  __shared__ float qs[GMAX][D];
+  constexpr int ACC = (R * D + NT - 1) / NT;
+  __shared__ float qs[R][D];
   __shared__ float ks[TC][D + 1];  // padded: lanes read distinct banks
   __shared__ float vs[TC][D];
-  __shared__ float prob[GMAX][TC];
-  __shared__ float alpha_s[GMAX];
-  __shared__ float m_s[GMAX];
-  __shared__ float l_s[GMAX];
+  __shared__ float prob[R][TC];
+  __shared__ float alpha_s[R];
+  __shared__ float m_s[R];
+  __shared__ float l_s[R];
 
   const int tid = threadIdx.x;
   const int lane = tid & 31;
@@ -183,19 +189,29 @@ __device__ __forceinline__ void attend_span(
 // no acc, and its slice is never read.
 constexpr int MAX_SPLIT = 8;  // spans per (slot, head): a portable cluster
 
-template <int D>
+template <int D, int R>
 struct Partial {
-  float m[GMAX];
-  float l[GMAX];
-  float acc[GMAX * D];
+  float m[R];
+  float l[R];
+  float acc[R * D];
 };
 
-template <int D>
+template <int D, int R>
 struct Inbox {
-  float m[MAX_SPLIT][GMAX];
-  float l[MAX_SPLIT][GMAX];
-  float acc[GMAX * D + MAX_SPLIT];  // span r's slice at r * slice
+  float m[MAX_SPLIT][R];
+  float l[MAX_SPLIT][R];
+  float acc[R * D + MAX_SPLIT];  // span r's slice at r * slice
 };
+
+// The SIMT body's static shared memory with the fold's: under the 48 KB a
+// kernel may declare statically. It holds at R = 16 up to D = 96; f32 at G
+// 9-16 and D = 128 has no body (the wrapper raises first).
+template <int D, int R>
+constexpr bool simt_fits() {
+  return 4 * (R * D + TC * (D + 1) + TC * D + R * TC + 3 * R) +
+             sizeof(Partial<D, R>) + sizeof(Inbox<D, R>) +
+             4 * (MAX_SPLIT * R + R) <= 48 * 1024;
+}
 
 __device__ __forceinline__ void cluster_arrive_relaxed() {
   asm volatile("barrier.cluster.arrive.relaxed.aligned;\n" ::: "memory");
@@ -211,12 +227,12 @@ __device__ __forceinline__ void cluster_wait() {
 // wait completes, so that no block writes into another before it runs.
 __device__ __forceinline__ void cluster_started() { cluster_arrive_relaxed(); }
 
-template <typename T, int D>
-__device__ __forceinline__ void fold_cluster(const Partial<D>& part,
-                                             Inbox<D>& inbox, int G,
+template <typename T, int D, int R>
+__device__ __forceinline__ void fold_cluster(const Partial<D, R>& part,
+                                             Inbox<D, R>& inbox, int G,
                                              T* __restrict__ out) {
-  __shared__ float w_s[MAX_SPLIT][GMAX];  // span r's weight for head g
-  __shared__ float l_s[GMAX];             // the folded sum
+  __shared__ float w_s[MAX_SPLIT][R];  // span r's weight for head g
+  __shared__ float l_s[R];             // the folded sum
   cg::cluster_group cluster = cg::this_cluster();
   const int rank = static_cast<int>(cluster.block_rank());
   const int n = static_cast<int>(cluster.num_blocks());
@@ -227,7 +243,7 @@ __device__ __forceinline__ void fold_cluster(const Partial<D>& part,
   if (tid < n * G) {
     const int j = tid / G;
     const int g = tid % G;
-    Inbox<D>* to = cluster.map_shared_rank(&inbox, j);
+    Inbox<D, R>* to = cluster.map_shared_rank(&inbox, j);
     to->m[rank][g] = part.m[g];
     to->l[rank][g] = part.l[g];
   }

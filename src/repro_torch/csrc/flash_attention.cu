@@ -14,7 +14,7 @@
 //
 // Two bodies, chosen by dtype and head dim (no fallback between them):
 //
-// * bf16, D in {64, 128}: flash_fwd_wgmma, on the tensor cores. One block
+// * bf16, D in {64, 96, 128}: flash_fwd_wgmma, on the tensor cores. One block
 //   per (64-row query tile, q head, batch): one consumer warpgroup owns the
 //   64 rows, one producer warp keeps TMA loads of 64-key K and V tiles in
 //   flight through a 2-stage ring of 128-byte-swizzled shared memory (full
@@ -25,6 +25,12 @@
 //   from shared memory through a transposed (MN-major) descriptor. Tiles
 //   wholly past valid_len or above the causal diagonal are never loaded;
 //   only edge and diagonal tiles apply the per-element mask.
+//
+//   D = 96 (phi3-mini) has no whole number of 64-column boxes: a row is two
+//   boxes, the second one's columns 96-127 past the tensor map's inner
+//   extent, which TMA fills with zeros (and still counts in the
+//   transaction bytes). Q.K^T runs over the 96 real columns only (6 k
+//   steps); P.V runs at N = 128, and the epilogue stores columns < 96.
 //
 //   Why P is split: chip_smoke.py's check_f32_ulps holds the bf16 result to
 //   the plain version run in f32, within one bf16 ulp of each element plus
@@ -40,14 +46,14 @@
 //   cross prefill (D = 128, G = 8, T = 1601) operations (0.109 ms at 989
 //   TFLOP/s bf16, 0.163 ms with the split's third product).
 //
-// * f32, any D in {16, 32, 64, 128}: flash_fwd_simt, f32 products on the
+// * f32, any D in {16, 32, 64, 96, 128}: flash_fwd_simt, f32 products on the
 //   CUDA cores (f32 is what the teacher-forced check and the reduced
 //   configs send). Two threads own a
 //   query row, each holding half of its D dims in registers with the f32
 //   accumulator; the block walks KV tiles staged in shared memory.
 //
-// bf16 at D in {16, 32} is refused (cudaErrorInvalidValue; the wrapper
-// raises first).
+// bf16 at any other D (16, 32, 80, ...) is refused (cudaErrorInvalidValue;
+// the wrapper raises first).
 #include <cuda.h>
 #include <dlfcn.h>
 
@@ -184,11 +190,12 @@ constexpr int NTHREADS = NCONS + 32;  // + one producer warp
 constexpr int ROW_BYTES = 128;      // one 64-column bf16 TMA box row
 
 // Shared memory of the D-wide body: Q, then the K ring, then the V ring,
-// each a row of D/64 boxes of 64 columns (128-byte rows, 128-byte
-// swizzle), each box 1024-byte aligned; the mbarriers last.
+// each a row of ceil(D/64) boxes of 64 columns (128-byte rows, 128-byte
+// swizzle; columns at or past D zero-filled), each box 1024-byte aligned;
+// the mbarriers last.
 template <int D>
 struct Smem {
-  static constexpr int NB = D / 64;                     // boxes per row
+  static constexpr int NB = (D + 63) / 64;              // boxes per row
   static constexpr int Q_BOX = BQ * ROW_BYTES;          // 8 KB
   static constexpr int KV_BOX = BK * ROW_BYTES;         // 8 KB
   static constexpr int Q = 0;
@@ -400,7 +407,8 @@ __global__ void __launch_bounds__(NTHREADS) flash_fwd_wgmma(
     const int k0 = it * BK;
     mbar_wait(bar_full + 8 * st, (it / NSTAGE) & 1);
 
-    // S = Q . K^T over D in steps of 16 (32 bytes inside a 128-byte row)
+    // S = Q . K^T over D in steps of 16 (32 bytes inside a 128-byte row);
+    // the zero-filled columns past D are never read
     float sc[32];
     wg_fence();
 #pragma unroll
@@ -495,7 +503,8 @@ __global__ void __launch_bounds__(NTHREADS) flash_fwd_wgmma(
     mbar_arrive(bar_empty + 8 * st);
   }
 
-  // epilogue: o = acc / max(l, 1e-30), rows past S never stored
+  // epilogue: o = acc / max(l, 1e-30), rows past S and columns past D
+  // never stored
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
     float lr = l[r];
@@ -510,6 +519,7 @@ __global__ void __launch_bounds__(NTHREADS) flash_fwd_wgmma(
 #pragma unroll
       for (int j8 = 0; j8 < 8; ++j8) {
         const int d = 64 * j + 8 * j8 + 2 * c;
+        if (d >= D) continue;  // D % 8 == 0: a pair lies on one side
         *reinterpret_cast<__nv_bfloat162*>(orow + d) = __floats2bfloat162_rn(
             acc[j][4 * j8 + 2 * r] / lsum, acc[j][4 * j8 + 2 * r + 1] / lsum);
       }
@@ -590,6 +600,7 @@ extern "C" int flash_attention_fwd(const void* q, const void* k,
   if (dtype == kBFloat16) {
     switch (D) {
       case 64: return launch_wgmma<64>(q, k, v, o, B, S, T_len, K, G, q_offset, valid_len, causal, st);
+      case 96: return launch_wgmma<96>(q, k, v, o, B, S, T_len, K, G, q_offset, valid_len, causal, st);
       case 128: return launch_wgmma<128>(q, k, v, o, B, S, T_len, K, G, q_offset, valid_len, causal, st);
       default: return static_cast<int>(cudaErrorInvalidValue);
     }
@@ -599,6 +610,7 @@ extern "C" int flash_attention_fwd(const void* q, const void* k,
     case 16: launch_simt<16>(q, k, v, o, B, S, T_len, K, G, q_offset, valid_len, causal, st); break;
     case 32: launch_simt<32>(q, k, v, o, B, S, T_len, K, G, q_offset, valid_len, causal, st); break;
     case 64: launch_simt<64>(q, k, v, o, B, S, T_len, K, G, q_offset, valid_len, causal, st); break;
+    case 96: launch_simt<96>(q, k, v, o, B, S, T_len, K, G, q_offset, valid_len, causal, st); break;
     case 128: launch_simt<128>(q, k, v, o, B, S, T_len, K, G, q_offset, valid_len, causal, st); break;
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -610,6 +622,7 @@ extern "C" int flash_attention_fwd(const void* q, const void* k,
 extern "C" int flash_attention_wgmma_smem_bytes(int D) {
   switch (D) {
     case 64: return Smem<64>::ALLOC;
+    case 96: return Smem<96>::ALLOC;
     case 128: return Smem<128>::ALLOC;
     default: return 0;
   }

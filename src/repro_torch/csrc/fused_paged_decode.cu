@@ -22,10 +22,12 @@
 // bit copy of the new k/v row into its page) and takes that row from
 // k_new / v_new for its own scores, never reading it back through the
 // pool; no other span covers it. Two bodies:
-// - bf16 at D in {64, 128}: the tensor-core body (decode_mma.cuh):
+// - bf16 at D in {64, 96, 128}: the tensor-core body (decode_mma.cuh):
 //   cp.async ring of 64-row bf16 tiles, S and P.V on mma.sync.
-// - f32 at D in {16, 32, 64, 128}: the SIMT body (decode_split.cuh).
-// bf16 at D in {16, 32} has no body: the wrapper raises before a launch.
+// - f32 at D in {16, 32, 64, 96, 128}: the SIMT body (decode_split.cuh).
+// Each at R = 8 rows (G <= 8) and R = 16 (G 9-16), but f32 at D = 128,
+// which has R = 8 only. Any other (dtype, G, D) has no body: the wrapper
+// raises before a launch.
 //
 // Pool contract (the serving engine's kernel layout, as for the Pallas
 // kernel): the pool carries one trash page at index n_phys - 1, equal to the
@@ -97,28 +99,28 @@ __device__ __forceinline__ Span span_and_write(
 }
 
 // f32: the SIMT body
-template <int D>
+template <int D, int R>
 __global__ void __launch_bounds__(NT) fused_decode_simt_kernel(
     const float* __restrict__ q, const float* __restrict__ k_new,
     const float* __restrict__ v_new, float* k_pool, float* v_pool,
     const int* __restrict__ bt, const int* __restrict__ pos_arr,
     float* __restrict__ out, int K, int G, int n_phys, int ps, int P,
     int split_rows, float sm_scale) {
-  __shared__ Partial<D> part;
-  __shared__ Inbox<D> inbox;
+  __shared__ Partial<D, R> part;
+  __shared__ Inbox<D, R> inbox;
   cluster_started();
   const Span sp = span_and_write<float>(k_new, v_new, k_pool, v_pool, bt,
                                         pos_arr, K, D, n_phys, ps, P,
                                         split_rows);
   const size_t bk = (size_t)blockIdx.z * K + blockIdx.y;
-  attend_span<float, D, PagedRows, true>(
+  attend_span<float, D, R, PagedRows, true>(
       q + bk * G * D, k_pool, v_pool, sp.rows, G, sp.t0, sp.t1, sm_scale,
       part.m, part.l, part.acc, sp.t_w, k_new + bk * D, v_new + bk * D);
-  fold_cluster<float, D>(part, inbox, G, out + bk * G * D);
+  fold_cluster<float, D, R>(part, inbox, G, out + bk * G * D);
 }
 
 // bf16: the tensor-core body
-template <int D>
+template <int D, int R>
 __global__ void __launch_bounds__(decode_mma::NT) fused_decode_mma_kernel(
     const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* k_new,
     const __nv_bfloat16* v_new, __nv_bfloat16* k_pool,
@@ -126,22 +128,21 @@ __global__ void __launch_bounds__(decode_mma::NT) fused_decode_mma_kernel(
     const int* __restrict__ pos_arr, __nv_bfloat16* __restrict__ out, int K,
     int G, int n_phys, int ps, int P, int split_rows, float sm_scale) {
   extern __shared__ __align__(128) unsigned char smem[];
-  __shared__ Partial<D> part;
-  __shared__ Inbox<D> inbox;
+  __shared__ Partial<D, R> part;
+  __shared__ Inbox<D, R> inbox;
   cluster_started();
   const Span sp = span_and_write<__nv_bfloat16>(
       k_new, v_new, k_pool, v_pool, bt, pos_arr, K, D, n_phys, ps, P,
       split_rows);
   const size_t bk = (size_t)blockIdx.z * K + blockIdx.y;
-  decode_mma::attend_span_mma<D>(q + bk * G * D, k_pool, v_pool, sp.rows, G,
-                                 sp.t0, sp.t1, sm_scale, part.m, part.l,
-                                 part.acc, smem, sp.t_w, k_new + bk * D,
-                                 v_new + bk * D);
-  fold_cluster<__nv_bfloat16, D>(part, inbox, G,
-                                             out + bk * G * D);
+  decode_mma::attend_span_mma<D, R>(q + bk * G * D, k_pool, v_pool, sp.rows,
+                                    G, sp.t0, sp.t1, sm_scale, part.m,
+                                    part.l, part.acc, smem, sp.t_w,
+                                    k_new + bk * D, v_new + bk * D);
+  fold_cluster<__nv_bfloat16, D, R>(part, inbox, G, out + bk * G * D);
 }
 
-template <typename T, int D>
+template <typename T, int D, int R>
 cudaError_t launch(const void* q, const void* k_new, const void* v_new,
                    void* k_pool, void* v_pool, const void* bt,
                    const void* pos, void* out, int B, int K, int G,
@@ -158,15 +159,15 @@ cudaError_t launch(const void* q, const void* k_new, const void* v_new,
   T* o = static_cast<T*>(out);
   if constexpr (std::is_same_v<T, float>) {
     return launch_clusters(
-        fused_decode_simt_kernel<D>, n_split, K, B, NT, 0, stream, qq, kn,
-        vn, kp, vp, bti, pi, o, K, G, n_phys, ps, P, split_rows, scale);
+        fused_decode_simt_kernel<D, R>, n_split, K, B, NT, 0, stream, qq,
+        kn, vn, kp, vp, bti, pi, o, K, G, n_phys, ps, P, split_rows, scale);
   } else {
     constexpr int smem = decode_mma::Layout<D>::kBytes;
     const cudaError_t e =
-        decode_mma::allow_smem<fused_decode_mma_kernel<D>>(smem);
+        decode_mma::allow_smem<fused_decode_mma_kernel<D, R>>(smem);
     if (e != cudaSuccess) return e;
     return launch_clusters(
-        fused_decode_mma_kernel<D>, n_split, K, B, decode_mma::NT, smem,
+        fused_decode_mma_kernel<D, R>, n_split, K, B, decode_mma::NT, smem,
         stream, qq, kn, vn, kp, vp, bti, pi, o, K, G, n_phys, ps, P,
         split_rows, scale);
   }
@@ -175,6 +176,20 @@ cudaError_t launch(const void* q, const void* k_new, const void* v_new,
 #define FUSED_ARGS q, k_new, v_new, k_pool, v_pool, bt, pos, out, B, K, G, \
     n_phys, ps, P, n_split, split_rows, st
 
+// The body of G's row count (decode_split.cuh rows_for)
+template <typename T, int D>
+cudaError_t launch_rows(const void* q, const void* k_new, const void* v_new,
+                        void* k_pool, void* v_pool, const void* bt,
+                        const void* pos, void* out, int B, int K, int G,
+                        int n_phys, int ps, int P, int n_split,
+                        int split_rows, cudaStream_t st) {
+  if (rows_for(G) == 8) return launch<T, D, 8>(FUSED_ARGS);
+  if constexpr (std::is_same_v<T, float> && !simt_fits<D, 16>())
+    return cudaErrorInvalidValue;
+  else
+    return launch<T, D, 16>(FUSED_ARGS);
+}
+
 cudaError_t dispatch(const void* q, const void* k_new, const void* v_new,
                      void* k_pool, void* v_pool, const void* bt,
                      const void* pos, void* out, int B, int K, int G, int D,
@@ -182,15 +197,17 @@ cudaError_t dispatch(const void* q, const void* k_new, const void* v_new,
                      int dtype, cudaStream_t st) {
   if (dtype == kBFloat16) {
     switch (D) {
-      case 64: return launch<__nv_bfloat16, 64>(FUSED_ARGS);
-      case 128: return launch<__nv_bfloat16, 128>(FUSED_ARGS);
+      case 64: return launch_rows<__nv_bfloat16, 64>(FUSED_ARGS);
+      case 96: return launch_rows<__nv_bfloat16, 96>(FUSED_ARGS);
+      case 128: return launch_rows<__nv_bfloat16, 128>(FUSED_ARGS);
     }
   } else if (dtype == kFloat32) {
     switch (D) {
-      case 16: return launch<float, 16>(FUSED_ARGS);
-      case 32: return launch<float, 32>(FUSED_ARGS);
-      case 64: return launch<float, 64>(FUSED_ARGS);
-      case 128: return launch<float, 128>(FUSED_ARGS);
+      case 16: return launch_rows<float, 16>(FUSED_ARGS);
+      case 32: return launch_rows<float, 32>(FUSED_ARGS);
+      case 64: return launch_rows<float, 64>(FUSED_ARGS);
+      case 96: return launch_rows<float, 96>(FUSED_ARGS);
+      case 128: return launch_rows<float, 128>(FUSED_ARGS);
     }
   }
   return cudaErrorInvalidValue;

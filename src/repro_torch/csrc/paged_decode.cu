@@ -30,11 +30,12 @@
 //   cluster and fold their partials in span order through distributed
 //   shared memory (decode_split.cuh fold_cluster), with no float atomics,
 //   so two calls give the same bits.
-// - Two bodies. bf16 at D in {64, 128}: the tensor-core body
+// - Two bodies. bf16 at D in {64, 96, 128}: the tensor-core body
 //   (decode_mma.cuh), 64-row bf16 tiles through a cp.async ring of 16-byte
-//   copies, S and P.V on mma.sync. f32 at D in {16, 32, 64, 128}: the SIMT
-//   body (decode_split.cuh). bf16 at D in {16, 32} has no body: the wrapper
-//   raises before a launch.
+//   copies, S and P.V on mma.sync. f32 at D in {16, 32, 64, 96, 128}: the
+//   SIMT body (decode_split.cuh). Each at R = 8 rows (G <= 8) and R = 16
+//   (G 9-16), but f32 at D = 128, which has R = 8 only. Any other (dtype,
+//   G, D) has no body: the wrapper raises before a launch.
 // Each live row is read once, in rows of D contiguous elements, and the
 // gathered (B, P * ps, K, D) view that the plain version builds is never
 // materialised.
@@ -56,46 +57,46 @@ __device__ __forceinline__ int2 live_span(const int* __restrict__ vlen,
 }
 
 // f32: the SIMT body
-template <int D>
+template <int D, int R>
 __global__ void __launch_bounds__(NT) paged_decode_simt_kernel(
     const float* __restrict__ q, const float* __restrict__ k_pool,
     const float* __restrict__ v_pool, const int* __restrict__ bt,
     const int* __restrict__ vlen, float* __restrict__ out, int K, int G,
     int n_phys, int ps, int P, int split_rows, float sm_scale) {
-  __shared__ Partial<D> part;
-  __shared__ Inbox<D> inbox;
+  __shared__ Partial<D, R> part;
+  __shared__ Inbox<D, R> inbox;
   cluster_started();
   const int2 sp = live_span(vlen, ps, P, split_rows);
   const size_t bk = (size_t)blockIdx.z * K + blockIdx.y;
   const PagedRows rows =
       PagedRows::of(bt, blockIdx.z, blockIdx.y, K, D, n_phys, ps, P);
-  attend_span<float, D>(q + bk * G * D, k_pool, v_pool, rows, G, sp.x, sp.y,
-                        sm_scale, part.m, part.l, part.acc);
-  fold_cluster<float, D>(part, inbox, G, out + bk * G * D);
+  attend_span<float, D, R>(q + bk * G * D, k_pool, v_pool, rows, G, sp.x,
+                           sp.y, sm_scale, part.m, part.l, part.acc);
+  fold_cluster<float, D, R>(part, inbox, G, out + bk * G * D);
 }
 
 // bf16: the tensor-core body
-template <int D>
+template <int D, int R>
 __global__ void __launch_bounds__(decode_mma::NT) paged_decode_mma_kernel(
     const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* k_pool,
     const __nv_bfloat16* v_pool, const int* __restrict__ bt,
     const int* __restrict__ vlen, __nv_bfloat16* __restrict__ out, int K,
     int G, int n_phys, int ps, int P, int split_rows, float sm_scale) {
   extern __shared__ __align__(128) unsigned char smem[];
-  __shared__ Partial<D> part;
-  __shared__ Inbox<D> inbox;
+  __shared__ Partial<D, R> part;
+  __shared__ Inbox<D, R> inbox;
   cluster_started();
   const int2 sp = live_span(vlen, ps, P, split_rows);
   const size_t bk = (size_t)blockIdx.z * K + blockIdx.y;
   const PagedRows rows =
       PagedRows::of(bt, blockIdx.z, blockIdx.y, K, D, n_phys, ps, P);
-  decode_mma::attend_span_mma<D>(q + bk * G * D, k_pool, v_pool, rows, G,
-                                 sp.x, sp.y, sm_scale, part.m, part.l,
-                                 part.acc, smem, -1, nullptr, nullptr);
-  fold_cluster<__nv_bfloat16, D>(part, inbox, G, out + bk * G * D);
+  decode_mma::attend_span_mma<D, R>(q + bk * G * D, k_pool, v_pool, rows,
+                                    G, sp.x, sp.y, sm_scale, part.m, part.l,
+                                    part.acc, smem, -1, nullptr, nullptr);
+  fold_cluster<__nv_bfloat16, D, R>(part, inbox, G, out + bk * G * D);
 }
 
-template <typename T, int D>
+template <typename T, int D, int R>
 cudaError_t launch(const void* q, const void* k_pool, const void* v_pool,
                    const void* bt, const void* vlen, void* out, int B, int K,
                    int G, int n_phys, int ps, int P, int n_split,
@@ -108,15 +109,15 @@ cudaError_t launch(const void* q, const void* k_pool, const void* v_pool,
   const int* vl = static_cast<const int*>(vlen);
   T* o = static_cast<T*>(out);
   if constexpr (std::is_same_v<T, float>) {
-    return launch_clusters(paged_decode_simt_kernel<D>, n_split, K, B, NT,
+    return launch_clusters(paged_decode_simt_kernel<D, R>, n_split, K, B, NT,
                            0, stream, qq, kp, vp, bti, vl, o, K, G, n_phys,
                            ps, P, split_rows, scale);
   } else {
     constexpr int smem = decode_mma::Layout<D>::kBytes;
     const cudaError_t e =
-        decode_mma::allow_smem<paged_decode_mma_kernel<D>>(smem);
+        decode_mma::allow_smem<paged_decode_mma_kernel<D, R>>(smem);
     if (e != cudaSuccess) return e;
-    return launch_clusters(paged_decode_mma_kernel<D>, n_split, K, B,
+    return launch_clusters(paged_decode_mma_kernel<D, R>, n_split, K, B,
                            decode_mma::NT, smem, stream, qq, kp, vp, bti, vl,
                            o, K, G, n_phys, ps, P, split_rows, scale);
   }
@@ -125,6 +126,19 @@ cudaError_t launch(const void* q, const void* k_pool, const void* v_pool,
 #define PAGED_ARGS q, k_pool, v_pool, bt, vlen, out, B, K, G, n_phys, ps, \
     P, n_split, split_rows, st
 
+// The body of G's row count (decode_split.cuh rows_for)
+template <typename T, int D>
+cudaError_t launch_rows(const void* q, const void* k_pool,
+                        const void* v_pool, const void* bt, const void* vlen,
+                        void* out, int B, int K, int G, int n_phys, int ps,
+                        int P, int n_split, int split_rows, cudaStream_t st) {
+  if (rows_for(G) == 8) return launch<T, D, 8>(PAGED_ARGS);
+  if constexpr (std::is_same_v<T, float> && !simt_fits<D, 16>())
+    return cudaErrorInvalidValue;
+  else
+    return launch<T, D, 16>(PAGED_ARGS);
+}
+
 cudaError_t dispatch(const void* q, const void* k_pool, const void* v_pool,
                      const void* bt, const void* vlen, void* out, int B,
                      int K, int G, int D, int n_phys, int ps, int P,
@@ -132,15 +146,17 @@ cudaError_t dispatch(const void* q, const void* k_pool, const void* v_pool,
                      cudaStream_t st) {
   if (dtype == kBFloat16) {
     switch (D) {
-      case 64: return launch<__nv_bfloat16, 64>(PAGED_ARGS);
-      case 128: return launch<__nv_bfloat16, 128>(PAGED_ARGS);
+      case 64: return launch_rows<__nv_bfloat16, 64>(PAGED_ARGS);
+      case 96: return launch_rows<__nv_bfloat16, 96>(PAGED_ARGS);
+      case 128: return launch_rows<__nv_bfloat16, 128>(PAGED_ARGS);
     }
   } else if (dtype == kFloat32) {
     switch (D) {
-      case 16: return launch<float, 16>(PAGED_ARGS);
-      case 32: return launch<float, 32>(PAGED_ARGS);
-      case 64: return launch<float, 64>(PAGED_ARGS);
-      case 128: return launch<float, 128>(PAGED_ARGS);
+      case 16: return launch_rows<float, 16>(PAGED_ARGS);
+      case 32: return launch_rows<float, 32>(PAGED_ARGS);
+      case 64: return launch_rows<float, 64>(PAGED_ARGS);
+      case 96: return launch_rows<float, 96>(PAGED_ARGS);
+      case 128: return launch_rows<float, 128>(PAGED_ARGS);
     }
   }
   return cudaErrorInvalidValue;

@@ -23,10 +23,12 @@ fold them in the same launch: the spans of one slot and KV head fold their
 partials as one cluster of blocks, with no workspace.
 
 Each kernel has two bodies, picked by ``decode_body`` from the dtype, the
-query heads per KV head and the head dim: bf16 at D in {64, 128} runs on
-the tensor cores (``csrc/decode_mma.cuh``), f32 at D in {16, 32, 64, 128}
-on the SIMT body (``csrc/decode_split.cuh``); any other triple raises, and
-no call falls back from one body to the other.
+query heads per KV head and the head dim: bf16 at D in {64, 96, 128} runs
+on the tensor cores (``csrc/decode_mma.cuh``), f32 at D in {16, 32, 64, 96,
+128} on the SIMT body (``csrc/decode_split.cuh``), each at G up to
+``GMAX`` = 16 (a body of 8 fragment rows for G <= 8, of 16 above), but the
+f32 body at D 128, which takes G <= 8 (``SIMT_G16_DIMS``); any other triple
+raises, and no call falls back from one body to the other.
 
 On a CPU tensor a wrapper computes the plain version (``ref``); on a CUDA
 tensor it launches the kernel or raises.
@@ -41,10 +43,14 @@ from repro_torch.kernels.ref import (decode_attention_ref,
                                      fused_paged_decode_attention_ref,
                                      paged_decode_attention_ref)
 
-GMAX = 8          # query heads per KV head that one block serves
+GMAX = 16         # query heads per KV head that one block serves
 # (body, head dims) of the decode kernels for each dtype
-BODIES = {torch.bfloat16: ("mma", (64, 128)),
+BODIES = {torch.bfloat16: ("mma", (64, 96, 128)),
           torch.float32: ("simt", HEAD_DIMS)}
+# head dims at which the SIMT body takes G of 9 to 16: at D 128 its shared
+# memory would pass the 48 KB a kernel may declare statically
+# (``csrc/decode_split.cuh`` ``simt_fits``)
+SIMT_G16_DIMS = (16, 32, 64, 96)
 # Rows of a slot's sequence one block attends over: the rows are cut into
 # at most MAX_SPLIT spans, one block each, one cluster of blocks per (slot,
 # KV head) that folds them in the same launch: SPLIT_ROWS each for the SIMT
@@ -86,6 +92,9 @@ def decode_body(dtype: torch.dtype, G: int, head_dim: int) -> str:
     if head_dim not in dims:
         raise ValueError(f"decode attention: the {body} body takes {dtype} "
                          f"at head_dim {dims}, not {head_dim}")
+    if body == "simt" and G > 8 and head_dim not in SIMT_G16_DIMS:
+        raise ValueError(f"decode attention: the simt body takes G={G} "
+                         f"at head_dim {SIMT_G16_DIMS}, not {head_dim}")
     return body
 
 

@@ -7,11 +7,12 @@ wrapper takes that layout directly (the Pallas adapter transposes to
 ``(B, H, S, D)`` first).
 
 The source has two bodies, picked by ``flash_body`` from the dtype and the
-head dim: bf16 at D in {64, 128} runs on the tensor cores (wgmma fed by
-TMA, probabilities split into two bf16 halves for the PV product); f32
-runs the SIMT body at D in {16, 32, 64, 128}. Any other pair raises; no
-call falls back from one body to the other. See the source's note for what
-bounds each.
+head dim: bf16 at D in {64, 96, 128} runs on the tensor cores (wgmma fed
+by TMA, probabilities split into two bf16 halves for the PV product; D 96
+as two 64-column boxes, the columns past 96 zero-filled by TMA); f32 runs
+the SIMT body at D in {16, 32, 64, 96, 128}. Any other pair raises; no
+call falls back from one body to the other. The query heads per KV head
+take any count. See the source's note for what bounds each.
 
 On a CPU tensor the wrapper computes the plain version
 (``ref.flash_attention_ref``); on a CUDA tensor it launches the kernel or
@@ -27,9 +28,9 @@ from repro_torch.kernels import build
 from repro_torch.kernels.ref import flash_attention_ref
 
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
-HEAD_DIMS = (16, 32, 64, 128)
+HEAD_DIMS = (16, 32, 64, 96, 128)
 # (body, head dims) of the CUDA source for each dtype
-BODIES = {torch.bfloat16: ("wgmma", (64, 128)),
+BODIES = {torch.bfloat16: ("wgmma", (64, 96, 128)),
           torch.float32: ("simt", HEAD_DIMS)}
 
 

@@ -57,8 +57,7 @@ decode kernels of the cross-attention and, with ``--quantize int8``, the
 int8 GEMM; int8 is dense-only, as in ``repro``). A config whose weights do
 not fit the card is refused before anything is allocated: the published
 100-layer llama-3.2-vision-90b takes 175 GB in bf16, qwen3-moe-235b-a22b
-463 GB (its G = 16 would be refused by ``build_model`` next: the decode
-kernels take G <= 8). moonshot-v1-16b-a3b's 57.8 GB fit one 80 GB card. Weights are
+463 GB. moonshot-v1-16b-a3b's 57.8 GB fit one 80 GB card. Weights are
 random, made from a fixed seed on the device. The paged layout with pages
 of 16 is the default; ``--page-size 0`` serves the contiguous KV layout.
 With ``--prefix-cache`` half the requests of the engine demo open with one

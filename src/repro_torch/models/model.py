@@ -189,8 +189,9 @@ def build_model(cfg: ArchConfig, device="cuda", parallel=None) -> Model:
             "a whole tensor (use attention_impl='torch_chunked')")
     if cfg.attention_impl == "cuda" and cfg.family != "ssm":
         # no quiet fall back to the plain path: a geometry that no kernel
-        # body takes (phi3-mini's head_dim 96, qwen3-moe's G = 16) is
-        # refused here; the ssm family (xLSTM) has no attention
+        # body takes (head_dim 80, G = 32, bf16 at head_dim 16/32, f32 at
+        # G > 8 with head_dim 128) is refused here; every config of the
+        # registry has its bodies. The ssm family (xLSTM) has no attention
         dtype = T.DTYPES[cfg.dtype]
         try:
             flash_body(dtype, cfg.head_dim)

@@ -1406,15 +1406,67 @@ def test_dense_configs_copied_field_for_field():
 
 
 def test_phi3_mini_cuda_build_raises_naming_head_dim_96():
+    """phi3-mini's head_dim 96 and qwen3-moe's G = 16 pass the body checks
+    of ``build_model`` under the CUDA impls (here it then stops at the
+    missing device, not at the geometry); a geometry still without a body,
+    head_dim 80 or G = 32, is refused by name."""
+    from repro_torch.kernels.decode_attention import decode_body
+    from repro_torch.kernels.flash_attention import flash_body
     from repro_torch.models import build_model
     cfg = ARCHS["phi3-mini-3.8b"]
-    with pytest.raises(ValueError, match="head_dim 96"):
-        build_model(cfg.for_device("cuda"), device="cuda")
+    qwen = ARCHS["qwen3-moe-235b-a22b"]
+    for c in (cfg, qwen):
+        assert flash_body(torch.bfloat16, c.head_dim) == "wgmma"
+        assert decode_body(torch.bfloat16, c.q_per_kv, c.head_dim) == "mma"
+    assert (cfg.head_dim, qwen.q_per_kv) == (96, 16)
+    if not torch.cuda.is_available():
+        for c in (cfg, qwen):
+            with pytest.raises(Exception) as info:
+                build_model(c.for_device("cuda"), device="cuda")
+            assert "no CUDA attention body" not in str(info.value)
+    with pytest.raises(ValueError, match="head_dim 80"):
+        build_model(dataclasses.replace(cfg, head_dim=80).for_device("cuda"),
+                    device="cuda")
+    with pytest.raises(ValueError, match="G=32"):
+        build_model(dataclasses.replace(qwen, n_kv_heads=2).for_device(
+            "cuda"), device="cuda")
     # the plain impls take it on the CPU (reduced width)
     build_model(dataclasses.replace(cfg, head_dim=96, d_model=192,
                                     n_heads=2, n_kv_heads=2, n_layers=1,
                                     d_ff=64, vocab=64, dtype="float32",
                                     param_dtype="float32"), device="cpu")
+
+
+def test_usecase_over_the_dense_archs_selects_phi3_mini():
+    """``chip_smoke.py`` phase 15's queries rehearsed through the same
+    ``Master`` on the sim backend, on a fresh one-worker cluster over the
+    four dense archs: the use case (above llama3.2-1b's accuracy, an SLO
+    that rules out every cpu-host variant) selects phi3-mini-3.8b's bf16
+    variant, and the ArchTarget queries then select phi3-mini's running
+    variant and minitron-8b's and yi-9b's int8 ones, all on h100-1."""
+    import importlib.util
+    from pathlib import Path
+    path = Path(__file__).resolve().parents[1] / "chip_smoke.py"
+    spec = importlib.util.spec_from_file_location("chip_smoke", path)
+    cs = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(cs)
+    c = make_cluster(n_accel=1, archs=[ARCHS[a] for a in cs.ML_ARCHS],
+                     autoscale=False,
+                     cfg=MasterConfig(worker_autoscale=False))
+    variants = c.store.registry.variants
+    prompts = [[3, 1, 4]] * 8
+    specs, slo = cs.model_less_specs(variants, prompts, cs.CP_MAX_NEW)
+    assert all(v.profile.latency(8) > slo for v in variants.values()
+               if v.hardware == "cpu-host")
+    assert not any(v.accuracy >= cs.ML_MIN_ACCURACY
+                   for v in variants.values() if v.arch == "llama3.2-1b")
+    got = [c.api.submit(q).result(timeout=3600.0) for _, q in specs]
+    assert all(r.ok and r.worker == "worker-accel-0" for r in got)
+    assert got[0].variant == cs.ML_USECASE_VARIANT \
+        == "phi3-mini-3.8b/h100-1/bf16-b16"
+    assert [r.variant for r in got[1:]] == [
+        "phi3-mini-3.8b/h100-1/bf16-b16", "minitron-8b/h100-1/int8-b16",
+        "yi-9b/h100-1/int8-b16"]
 
 
 def test_wall_clock_cluster_is_not_ported():

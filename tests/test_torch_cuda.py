@@ -76,6 +76,15 @@ FLASH_BF16_CASES = [
     # moonshot-v1-16b-a3b: K = 16 KV heads, G = 1, D = 128
     (2, 256, 256, 16, 1, 128, True, 0, None),   # grouped causal prefill
     (1, 300, 300, 16, 1, 128, True, 0, 250),    # ragged S, valid_len < T
+    # phi3-mini-3.8b: K = 32, G = 1, D = 96 (two boxes, the second
+    # zero-filled past column 96)
+    (2, 256, 256, 32, 1, 96, True, 0, None),
+    (1, 300, 320, 32, 1, 96, True, 0, 250),
+    (1, 64, 512, 32, 1, 96, True, 448, None),
+    (1, 200, 333, 32, 1, 96, False, 0, None),
+    # qwen3-moe-235b-a22b: K = 4, G = 16, D = 64
+    (1, 512, 512, 4, 16, 64, True, 0, None),
+    (1, 300, 300, 4, 16, 64, True, 0, 250),
 ]
 
 
@@ -241,8 +250,8 @@ def test_cuda_decode_attention_matches_plain(dtype):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("D", [64, 128])
-@pytest.mark.parametrize("G", [1, 4, 8])
+@pytest.mark.parametrize("D", [64, 128, 96])
+@pytest.mark.parametrize("G", [1, 4, 8, 16])
 @pytest.mark.parametrize("P", [24, 256])
 def test_cuda_fused_decode_mma_bf16(P, G, D):
     """The fused kernel's tensor-core body in bf16, over 24 pages of 16
@@ -1423,6 +1432,102 @@ def test_cuda_decode_kernels_at_moonshot_k16(dtype):
         np.testing.assert_allclose(contiguous.cpu().numpy(),
                                    want32.cpu().numpy(), rtol=1e-4,
                                    atol=1e-4)
+
+
+# (K, G, D): phi3-mini-3.8b, qwen3-moe-235b-a22b, and the other widened
+# bodies (G 16 at D 128 in bf16, G 12 at D 96)
+REGISTRY_GEOMETRIES = [(32, 1, 96), (4, 16, 64), (2, 16, 128), (4, 12, 96)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+@pytest.mark.parametrize("K,G,D", REGISTRY_GEOMETRIES)
+def test_cuda_decode_kernels_at_registry_geometries(dtype, K, G, D):
+    """The three decode kernels at head_dim 96 and at G up to 16: the fused
+    paged kernel (B1, the write row on span edges), the contiguous
+    kernel's per-slot form (B5, which must give B1's bits on the same
+    rows) and scalar form, and the attend-only paged kernel (B4), against
+    their plain versions (bf16: the f32 ulp rule; f32: 1e-4), two calls
+    the same bits. f32 at G > 8 with D 128 has no body and raises."""
+    from repro_torch.kernels.decode_attention import decode_body
+    dev = _need_cuda()
+    dt = getattr(torch, dtype)
+    if dt == torch.float32 and G > 8 and D == 128:
+        with pytest.raises(ValueError, match="simt body takes G=16"):
+            decode_body(dt, G, D)
+        return
+    B, ps, P = 8, 16, 32
+    T = P * ps
+    gen = torch.Generator(device=dev).manual_seed(K * G + D)
+    q = torch.randn((B, K, G, D), generator=gen, device=dev).to(dt)
+    k = torch.randn((B, T, K, D), generator=gen, device=dev).to(dt)
+    v = torch.randn((B, T, K, D), generator=gen, device=dev).to(dt)
+    pos = torch.tensor([0, 1, 63, 64, 127, 128, 300, T - 1],
+                       dtype=torch.int32, device=dev)
+    kp = torch.zeros((B * P + 1, ps, K, D), dtype=dt, device=dev)
+    vp = torch.zeros_like(kp)
+    kp[:B * P] = k.reshape(B * P, ps, K, D)
+    vp[:B * P] = v.reshape(B * P, ps, K, D)
+    bt = torch.arange(B * P, dtype=torch.int32, device=dev).reshape(B, P)
+    rows = torch.arange(B, device=dev)
+    kn = k[rows, pos.long()].contiguous()
+    vn = v[rows, pos.long()].contiguous()
+    paged, _, _ = fused_paged_decode_attention(q, kn, vn, kp.clone(),
+                                               vp.clone(), bt, pos)
+    again, _, _ = fused_paged_decode_attention(q, kn, vn, kp.clone(),
+                                               vp.clone(), bt, pos)
+    contiguous = decode_attention(q, k, v, pos + 1)
+    scalar = decode_attention(q, k, v, 300)
+    attend = paged_decode_attention(q, kp, vp, bt, pos + 1)
+    want32 = decode_attention_plain(q.float(), k.float(), v.float(), pos + 1)
+    scalar32 = decode_attention_plain(q.float(), k.float(), v.float(), 300)
+    torch.cuda.synchronize()
+    assert torch.equal(paged, again)
+    assert torch.equal(paged, contiguous)
+    for got, want in ((contiguous, want32), (attend, want32),
+                      (scalar, scalar32)):
+        if dt == torch.bfloat16:
+            assert ref.bf16_ulp_ratio(got, want) <= 1.0
+        else:
+            np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(),
+                                       rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.cuda
+def test_cuda_flash_f32_at_head_dim_96():
+    """The f32 SIMT flash body at phi3-mini's head_dim 96, causal with a
+    ragged S, valid_len < T and q_offset > 0, and at G = 16."""
+    dev = _need_cuda()
+    gen = torch.Generator(device=dev).manual_seed(96)
+    for B, S, T, K, G, D, kw in ((2, 37, 37, 4, 1, 96, dict(causal=True)),
+                                 (1, 64, 200, 2, 1, 96,
+                                  dict(causal=True, q_offset=136,
+                                       valid_len=180)),
+                                 (1, 40, 40, 2, 16, 64, dict(causal=True))):
+        q = torch.randn((B, S, K, G, D), generator=gen, device=dev)
+        k = torch.randn((B, T, K, D), generator=gen, device=dev)
+        v = torch.randn((B, T, K, D), generator=gen, device=dev)
+        np.testing.assert_allclose(
+            flash_attention(q, k, v, **kw).cpu().numpy(),
+            flash_attention_plain(q, k, v, **kw).cpu().numpy(),
+            rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,G,D", [("bfloat16", 17, 64),
+                                       ("bfloat16", 4, 80),
+                                       ("float32", 16, 128)])
+def test_cuda_decode_geometries_without_a_body_raise(dtype, G, D):
+    """G past 16, head_dim 80 and f32 at G 16 with D 128 have no decode
+    body: the wrappers raise by name and launch nothing."""
+    dev = _need_cuda()
+    dt = getattr(torch, dtype)
+    q = torch.zeros((1, 1, G, D), device=dev, dtype=dt)
+    before = dict(build.launch_counts)
+    with pytest.raises(ValueError, match="decode attention"):
+        decode_attention(q, torch.zeros((1, 8, 1, D), device=dev, dtype=dt),
+                         torch.zeros((1, 8, 1, D), device=dev, dtype=dt))
+    assert build.launch_counts == before
 
 
 @pytest.mark.cuda

@@ -144,11 +144,13 @@ def _bf16_flash_inputs(D, causal, S=128, T=200, K=2, G=2):
 
 
 @pytest.mark.parametrize("causal", [True, False])
-@pytest.mark.parametrize("D", [64, 128])
+@pytest.mark.parametrize("D", [64, 128, 96])
 def test_flash_wgmma_arithmetic_meets_the_f32_ulp_rule(D, causal):
     """With P split into bf16 hi + lo the tensor-core body's arithmetic is
     within the f32 rule of the plain version, and of the JAX reference, in
-    f32 on the same inputs."""
+    f32 on the same inputs. At D 96 the body's padded columns 96-127 are
+    zeros: they add nothing to Q.K^T and are never stored from P.V, so its
+    arithmetic is the same walk."""
     q, k, v, kw = _bf16_flash_inputs(D, causal)
     got = _emulate_wgmma_body(q, k, v, **kw)
     want = flash_attention(q, k, v, **kw)       # plain on the CPU, f32
@@ -165,7 +167,7 @@ def test_flash_wgmma_arithmetic_meets_the_f32_ulp_rule(D, causal):
     assert tref.bf16_ulp_ratio(got, _t(want_j)) <= 1.0
 
 
-@pytest.mark.parametrize("D", [64, 128])
+@pytest.mark.parametrize("D", [64, 128, 96])
 def test_flash_wgmma_without_p_lo_misses_the_f32_ulp_rule(D):
     """The reason for the split: rounding P to bf16 alone (the textbook
     tensor-core flash) breaks the rule by far more than its limit."""
@@ -178,10 +180,13 @@ def test_flash_wgmma_without_p_lo_misses_the_f32_ulp_rule(D):
     (torch.bfloat16, 64, "wgmma"), (torch.bfloat16, 128, "wgmma"),
     (torch.float32, 16, "simt"), (torch.float32, 128, "simt"),
     (torch.bfloat16, 16, None), (torch.bfloat16, 32, None),
-    (torch.float16, 64, None)])
+    (torch.float16, 64, None), (torch.bfloat16, 96, "wgmma"),
+    (torch.float32, 96, "simt"), (torch.bfloat16, 80, None),
+    (torch.float32, 80, None)])
 def test_flash_body_dispatch_by_dtype_and_head_dim(dtype, D, body):
-    """bf16 runs the tensor-core body at D in {64, 128} only, f32 the SIMT
-    body; any other pair raises (no fallback between the bodies)."""
+    """bf16 runs the tensor-core body at D in {64, 96, 128} only, f32 the
+    SIMT body at D in {16, 32, 64, 96, 128}; any other pair raises (no
+    fallback between the bodies)."""
     if body is None:
         with pytest.raises((ValueError, TypeError)):
             flash_body(dtype, D)
@@ -397,10 +402,12 @@ def _emulate_decode_mma(q, k, v, valid, split, *, split_p=True, tile=64):
 
     Rows [0, valid) are cut into spans of ``split`` rows (one block each),
     each span into 64-row tiles, and each tile's rows into 4 warps of 16;
-    each warp keeps its own running (m, l) and two f32 accumulators, hi.V
-    and lo.V, with p split into bf16 hi = bf16(p) and lo = bf16(p - hi)
-    (``split_p=False`` drops lo). A block folds its warps in warp order, and
-    the combine folds the spans in order, skipping empty ones (l = 0); the
+    each warp keeps its own running (m, l) and, at G <= 8 (the body of 8
+    fragment rows), two f32 accumulators, hi.V and lo.V, with p split into
+    bf16 hi = bf16(p) and lo = bf16(p - hi) (``split_p=False`` drops lo);
+    at G > 8 (16 rows, every row a head) hi.V and lo.V go into one
+    accumulator, hi first. A block folds its warps in warp order, and the
+    combine folds the spans in order, skipping empty ones (l = 0); the
     result is acc / max(l, 1e-30) rounded to bf16."""
     B, K, G, D = q.shape
     R = k.shape[1]
@@ -435,8 +442,12 @@ def _emulate_decode_mma(q, k, v, valid, split, *, split_p=True, tile=64):
                 hi = p.bfloat16().float()
                 lo = (p - hi).bfloat16().float() if split_p else \
                     torch.zeros_like(p)
-                o_hi = o_hi * alpha + hi @ vf[:, :, rows]
-                o_lo = o_lo * alpha + lo @ vf[:, :, rows]
+                if G > 8:
+                    o_hi = o_hi * alpha + hi @ vf[:, :, rows]
+                    o_hi = o_hi + lo @ vf[:, :, rows]
+                else:
+                    o_hi = o_hi * alpha + hi @ vf[:, :, rows]
+                    o_lo = o_lo * alpha + lo @ vf[:, :, rows]
                 m = m_new
             warps.append((m, l, o_hi + o_lo))
         mx = torch.stack([w[0] for w in warps]).amax(0)
@@ -464,7 +475,9 @@ def _bf(rng, *shape):
 # span's last and first row, in a later span, on the table's last row, and
 # an all-sentinel slot last
 FUSED_MMA_CASES = [(5, 2, 4, 64, 16, 24), (5, 1, 8, 128, 16, 24),
-                   (5, 2, 1, 64, 8, 48)]
+                   (5, 2, 1, 64, 8, 48),
+                   # phi3-mini's head_dim 96; qwen3-moe's G = 16
+                   (5, 2, 1, 96, 16, 24), (5, 1, 16, 64, 16, 24)]
 
 
 def _fused_mma_inputs(case):
@@ -520,7 +533,8 @@ def test_fused_decode_mma_arithmetic_meets_the_f32_ulp_rule(case):
 
 # (B, K, G, D, T, valid_len): ragged T, valid_len < T on and off a span
 DECODE_MMA_CASES = [(2, 2, 8, 128, 301, None), (3, 2, 4, 64, 200, 129),
-                    (2, 1, 1, 64, 37, 30)]
+                    (2, 1, 1, 64, 37, 30), (2, 2, 1, 96, 301, 200),
+                    (2, 1, 16, 64, 200, 129), (1, 1, 12, 96, 150, None)]
 
 
 def _decode_mma_inputs(case):
@@ -600,12 +614,18 @@ def test_decode_span_plan(monkeypatch, name, body, rows, pairs, plan):
     (torch.bfloat16, 1, 64, "mma"), (torch.bfloat16, 4, 64, "mma"),
     (torch.bfloat16, 8, 128, "mma"), (torch.float32, 1, 16, "simt"),
     (torch.float32, 8, 128, "simt"), (torch.bfloat16, 4, 16, None),
-    (torch.bfloat16, 4, 32, None), (torch.bfloat16, 9, 64, None),
-    (torch.float32, 4, 48, None), (torch.float16, 4, 64, None)])
+    (torch.bfloat16, 4, 32, None), (torch.bfloat16, 9, 64, "mma"),
+    (torch.float32, 4, 48, None), (torch.float16, 4, 64, None),
+    (torch.bfloat16, 1, 96, "mma"), (torch.bfloat16, 16, 64, "mma"),
+    (torch.bfloat16, 16, 128, "mma"), (torch.float32, 1, 96, "simt"),
+    (torch.float32, 16, 96, "simt"), (torch.float32, 16, 128, None),
+    (torch.bfloat16, 17, 64, None), (torch.bfloat16, 32, 64, None),
+    (torch.bfloat16, 4, 80, None)])
 def test_decode_body_dispatch_by_dtype_heads_and_head_dim(dtype, G, D, body):
-    """bf16 runs the tensor-core body at D in {64, 128} only, f32 the SIMT
-    body at D in {16, 32, 64, 128}, G at most 8; any other triple raises
-    (no fallback between the bodies)."""
+    """bf16 runs the tensor-core body at D in {64, 96, 128} only, f32 the
+    SIMT body at D in {16, 32, 64, 96, 128}, G at most 16 (at most 8 for
+    f32 at D 128); any other triple raises (no fallback between the
+    bodies)."""
     from repro_torch.kernels.decode_attention import decode_body
     if body is None:
         with pytest.raises((ValueError, TypeError)):

@@ -21,8 +21,8 @@ and the moe half of ``test_preemption.py::test_admission_knob_validation``;
 the prefix cache and speculation refused. Above it: an executor payload
 query on an xlstm and a moonshot variant returns a direct engine's tokens,
 the launcher serves both with ``--device cpu --reduced``, and qwen3 is
-refused on one card by its weight bytes and by ``build_model`` under the
-CUDA impls, without CUDA.
+refused on one card by its weight bytes, without CUDA (its G = 16 takes
+the decode kernels' 16-row bodies).
 """
 import dataclasses
 
@@ -248,14 +248,26 @@ def test_configs_and_counts_equal_repro(arch):
 
 def test_qwen3_refused_on_one_card_without_cuda():
     """qwen3-moe-235b-a22b's 463.5 GB of bf16 weights exceed one 80 GB
-    card (the launcher's check, by bytes), and its G = 16 exceeds the
-    decode kernels' G <= 8 (``build_model`` under the CUDA impls, by
-    name); moonshot's 57.8 GB fit."""
+    card (the launcher's check, by bytes); moonshot's 57.8 GB fit. Its G
+    = 16 takes the decode kernels' 16-row bodies, so ``build_model``
+    under the CUDA impls passes the body checks (here it then stops at
+    the missing device), and qwen3 at a depth that fits passes the
+    weight check; G = 32 (2 KV heads) has no body and is refused by
+    name."""
+    from repro_torch.kernels.decode_attention import decode_body
     with pytest.raises(ValueError, match=r"463\.5 GB .* 80\.0 GB"):
         check_weights_fit(T_ARCHS[QWEN], 80 * 10**9, "an 80 GB card")
     check_weights_fit(T_ARCHS[ARCH], 80 * 10**9, "an 80 GB card")
-    with pytest.raises(ValueError, match="G=16"):
-        t_build(T_ARCHS[QWEN].for_device("cuda"), device="cuda")
+    check_weights_fit(dataclasses.replace(T_ARCHS[QWEN], n_layers=4),
+                      80 * 10**9, "an 80 GB card")
+    assert decode_body(torch.bfloat16, T_ARCHS[QWEN].q_per_kv, 64) == "mma"
+    if not torch.cuda.is_available():
+        with pytest.raises(Exception) as info:
+            t_build(T_ARCHS[QWEN].for_device("cuda"), device="cuda")
+        assert "no CUDA attention body" not in str(info.value)
+    with pytest.raises(ValueError, match="G=32"):
+        t_build(dataclasses.replace(T_ARCHS[QWEN], n_kv_heads=2).for_device(
+            "cuda"), device="cuda")
 
 
 # ---------------------------------------------------------------------------
