@@ -24,6 +24,7 @@ from __future__ import annotations
 
 import dataclasses
 import functools
+import itertools
 import threading
 from collections import deque
 from typing import (Any, Callable, Deque, Dict, List, Optional, Protocol,
@@ -102,6 +103,8 @@ class Query:
     # wall time of the query's first streamed tokens (-1 until then);
     # first_token - arrival is the query's TTFT
     first_token: float = -1.0
+    # id of the worker's job this query last rode in (-1 until dispatched)
+    job: int = -1
 
     @property
     def latency(self) -> float:
@@ -151,6 +154,12 @@ class ExecRequest:
     # streaming sink: (input_idx, new_tokens, t_wall) per harvested
     # segment, in emission order; only streaming executors call it
     on_tokens: Optional[Callable[[int, List[int], float], None]] = None
+    # the query's id, the worker's job it rides in, and its arrival at
+    # the control plane on ``time.monotonic()``'s clock (-1: none, as
+    # under the virtual clock); the engine counts queue wait from it
+    qid: int = -1
+    job: int = -1
+    arrival: float = -1.0
 
 
 @runtime_checkable
@@ -291,6 +300,7 @@ class Worker:
         self.executor: Executor = executor if executor is not None \
             else SimExecutor(service_time_fn)
         self.devices: Dict[str, _Device] = {}
+        self._jid = itertools.count()
         for hname in self.hardware:
             hw = HW.HARDWARE[hname]
             slots = 1 if hw.kind == "accel" else max(
@@ -398,8 +408,9 @@ class Worker:
         query carries a payload (outputs land back on ``q.outputs``),
         synthetic accounting otherwise — tokens decoded from synthetic
         stand-ins are not answers, so no sink is attached. Either way the
-        query's SLO rides along (the engine's preemption policy is
-        slack-based) and any degradation report lands back on the query."""
+        query's SLO, id and job ride along (the engine's preemption policy
+        is slack-based) and any degradation report lands back on the
+        query."""
 
         def report(rep, qq=q):
             qq.preemptions += int(rep.get("preemptions", 0))
@@ -428,15 +439,17 @@ class Worker:
             if qq.on_tokens is not None and not qq.cancelled:
                 qq.on_tokens(idx, toks, t, start)
 
+        ids = dict(qid=q.qid, job=q.job)
         if q.payload is not None:
             return ExecRequest(
                 n_inputs=q.n_inputs, prompts=q.payload.prompts,
                 max_new_tokens=q.payload.max_new_tokens,
                 on_outputs=lambda outs, qq=q: setattr(qq, "outputs", outs),
                 slo=q.slo, on_report=report,
-                on_tokens=tokens if q.on_tokens is not None else None)
+                on_tokens=tokens if q.on_tokens is not None else None,
+                **ids)
         return ExecRequest(n_inputs=q.n_inputs, slo=q.slo,
-                           on_report=report)
+                           on_report=report, **ids)
 
     @_locked
     def _try_dispatch(self, vname: str) -> None:
@@ -461,8 +474,14 @@ class Worker:
                 batch += q.n_inputs
             if not queries:
                 return
-            job = _Job(li, queries, batch,
-                       requests=[self._exec_request(q) for q in queries])
+            jid = next(self._jid)
+            requests = []
+            for q in queries:
+                q.job = jid
+                er = self._exec_request(q)
+                er.arrival = self.loop.to_monotonic(q.arrival)
+                requests.append(er)
+            job = _Job(li, queries, batch, requests=requests)
             li.outstanding += 1
             self._submit(dev, job)
 
@@ -647,13 +666,14 @@ class Worker:
                 continue
             chunk = min(job.total_inputs - job.processed,
                         li.variant.profile.max_batch)
+            jid = next(self._jid)
             reqs = []
             if job.payload is not None:
                 # slice this chunk's real prompts from the staged payload
                 # (one chunk in flight per device: dev.idle gate above)
                 sl = job.payload.prompts[job.processed:job.processed + chunk]
                 reqs = [ExecRequest(
-                    n_inputs=chunk, prompts=sl,
+                    n_inputs=chunk, prompts=sl, job=jid,
                     max_new_tokens=job.payload.max_new_tokens,
                     on_outputs=lambda outs, jj=job: jj.outputs.extend(outs),
                     on_report=lambda rep, jj=job: setattr(

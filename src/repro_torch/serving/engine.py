@@ -219,7 +219,7 @@ from typing import (Any, Dict, Iterator, List, NamedTuple, Optional,
 import numpy as np
 import torch
 
-from repro_torch import resolve_device
+from repro_torch import resolve_device, tracing
 from repro_torch.kernels import build
 from repro_torch.models import kvcache as KV
 from repro_torch.models.model import Model, build_model
@@ -249,6 +249,10 @@ class Request:
     first_token: float = -1.0
     # set by ``cancel``: ``tokens`` holds only what was generated by then
     cancelled: bool = False
+    # the query's arrival at the control plane on ``time.monotonic()``'s
+    # clock (-1 without one; ``arrival`` keeps its deadline and latency
+    # meaning): the first seat counts the wait from it
+    query_arrival: float = -1.0
 
 
 @dataclasses.dataclass
@@ -1074,13 +1078,20 @@ class ServingEngine:
             "swap_bytes": 0, "graph_replays": 0,
             "spec_rounds": 0, "spec_proposed": 0, "spec_accepted": 0,
             "verify_traces": 0,
+            # requests first seated that carry a control-plane arrival
+            # (``Request.query_arrival``), and the prompt tokens prefill
+            # dispatches took live and padded (nbatch x bucket)
+            "first_seats": 0, "prefill_tokens": 0,
+            "prefill_tokens_padded": 0,
         }
         # host wall seconds spent in prefill dispatches, decode segments
         # and speculative rounds (propose and verify), each ending in its
         # host sync, and in the graph replay calls of the segments (their
-        # enqueue alone)
+        # enqueue alone); and the waits of the ``first_seats`` from the
+        # control plane's arrival to their seats
         self.timing: Dict[str, float] = {"prefill_s": 0.0, "decode_s": 0.0,
-                                         "replay_s": 0.0, "spec_s": 0.0}
+                                         "replay_s": 0.0, "spec_s": 0.0,
+                                         "queue_wait_s": 0.0}
         self._pending: deque = deque()
         self._slot_req: List[Optional[Request]] = [None] * max_batch
         self._gen: Dict[int, List[int]] = {}
@@ -1553,6 +1564,8 @@ class ServingEngine:
         m = len(rs)
         nb = 1 if m == 1 else self.max_batch
         prog = self._get_prefill(bucket, nb)
+        self.stats["prefill_tokens"] += sum(len(r.prompt) for r in rs)
+        self.stats["prefill_tokens_padded"] += nb * bucket
         tokens = np.zeros((nb, bucket), np.int64)
         lengths = np.ones((nb,), np.int64)
         for j, r in enumerate(rs):
@@ -1717,6 +1730,16 @@ class ServingEngine:
             r.arrival = time.perf_counter()
         self._pending.append(r)
 
+    def _first_seat(self, r: Request, now: float) -> None:
+        """Stamp ``r``'s seat (prefill, chunked or prefix-hit seat, or
+        in-segment promotion; a re-admission after a preemption is not
+        one) and count its wait from its arrival at the control plane,
+        where it carries one."""
+        r.admitted = now
+        if r.query_arrival >= 0.0:
+            self.stats["first_seats"] += 1
+            self.timing["queue_wait_s"] += now - r.query_arrival
+
     def _admit_pending(self) -> None:
         """Fill free slots, then top up the staging ring.
 
@@ -1783,7 +1806,7 @@ class ServingEngine:
                 alloc.rekey(ticket, slot)
                 self._bt[slot, :] = bt_row
                 self._bt_stale = True
-            r.admitted = now
+            self._first_seat(r, now)
             self._seat_prefix(slot, np.asarray(r.prompt, np.int32),
                               r.max_new_tokens)
             self.stats["admitted"] += 1
@@ -1823,7 +1846,7 @@ class ServingEngine:
                     if start is not None:
                         first = min(npos, start + self.decode_block)
                     self._grow_slot(slot, first)
-            r.admitted = now
+            self._first_seat(r, now)
             if start is not None:
                 # a cache hit skips the covered prompt: the seat feeds from
                 # the first uncached token
@@ -2340,6 +2363,15 @@ class ServingEngine:
         self.stats["busy_slot_steps"] += plan.busy
         self.stats["bubble_slot_steps"] += \
             plan.n_steps * self.max_batch - plan.busy
+        with tracing.span("engine.harvest"):
+            self._harvest(plan, out, log)
+        return plan.n_steps
+
+    def _harvest(self, plan: SegmentPlan, out: np.ndarray,
+                 log: np.ndarray) -> None:
+        """Take a segment's emitted tokens and completion log to the host
+        state: retire what finished, seat staged requests where the log
+        says, flush streams, and index the prompt pages it wrote."""
         now = time.perf_counter()
         # the completion log in segment order: each record closes the
         # slot's occupant over its slice of out; an admitted record then
@@ -2357,7 +2389,7 @@ class ServingEngine:
                     self._alloc.rekey(ticket, s)
                     self._bt[s, :] = bt_row
                     self._bt_stale = True
-                nr.admitted = now
+                self._first_seat(nr, now)
                 self._slot_req[s] = nr
                 self._gen[s] = []
                 self._slot_prefix[s] = np.asarray(nr.prompt, np.int32)
@@ -2382,7 +2414,6 @@ class ServingEngine:
                 self._retire_slot(s, r, now)
                 self._free.append(s)
         self._register_prefix_pages()
-        return plan.n_steps
 
     def _register_prefix_pages(self) -> None:
         """Index every prompt page the last segment fully wrote (the slot's

@@ -52,8 +52,9 @@ engine ``Request``, for the slack policy's victim choice; each run's
 record in ``occupancy_log`` (the executor's decision log) carries its
 slot-busy fraction, in-segment admissions per segment, preemptions,
 pressure stalls, prefix hits, reused pages, copies on write, evictions
-and swap counts; ``on_report`` says whether a query's work was preempted
-or cut short; with ``stream`` set, each step's partial outputs go to the
+and swap counts, and names the run by the worker's job id and its
+queries' ids; ``on_report`` says whether a query's work was preempted or
+cut short; with ``stream`` set, each step's partial outputs go to the
 queries' ``on_tokens`` sinks. ``deadline_enforce`` and ``faults`` are read
 by the wall-clock runtime's stepper (``repro_torch.serving.runtime``),
 which cancels overdue slots between steps and consults the fault sites.
@@ -289,17 +290,17 @@ class EngineExecutor:
 
     def _make_requests(self, er: ExecRequest, vocab: int,
                        t0: float) -> List[Request]:
-        """One engine Request per payload prompt (or synthetic stand-in)."""
+        """One engine Request per payload prompt (or synthetic stand-in),
+        carrying the query's control-plane arrival."""
+        ids = dict(arrival=t0, slo=er.slo, query_arrival=er.arrival)
         if er.prompts:
             return [Request(rid=next(self._rid),
                             prompt=np.asarray(p, np.int32),
-                            max_new_tokens=max(er.max_new_tokens, 1),
-                            arrival=t0, slo=er.slo)
+                            max_new_tokens=max(er.max_new_tokens, 1), **ids)
                     for p in er.prompts]
         return [Request(rid=next(self._rid),
                         prompt=self._synthetic_prompt(vocab),
-                        max_new_tokens=self.cfg.max_new, arrival=t0,
-                        slo=er.slo)
+                        max_new_tokens=self.cfg.max_new, **ids)
                 for _ in range(max(er.n_inputs, 1))]
 
     @staticmethod
@@ -321,22 +322,26 @@ class EngineExecutor:
         return n
 
     def _record_occupancy(self, variant: Variant, batch: int, dt: float,
-                          occ0: Dict[str, int],
-                          eng: ServingEngine) -> None:
+                          occ0: Dict[str, int], eng: ServingEngine,
+                          requests: List[ExecRequest]) -> None:
         # decision-log entry: per-run occupancy of the decode segments and
         # what the packing cost in preempted work
         d = {k: eng.stats.get(k, 0) - occ0[k] for k in occ0}
-        self._record_occupancy_delta(variant, batch, dt, d)
+        self._record_occupancy_delta(variant, batch, dt, d, requests)
 
     def _record_occupancy_delta(self, variant: Variant, batch: int,
-                                dt: float, d: Dict[str, float]) -> None:
+                                dt: float, d: Dict[str, float],
+                                requests: List[ExecRequest]) -> None:
         """Append one decision-log entry from a stats delta already taken
         (the threaded runtime accumulates each job's fractional share of
-        co-batched segments instead of diffing raw counters)."""
+        co-batched segments instead of diffing raw counters), for the run
+        that served ``requests``."""
         total = d["busy_slot_steps"] + d["bubble_slot_steps"]
         segs = d["decode_dispatches"]
         self.occupancy_log.append({
             "variant": variant.name, "batch": int(batch),
+            "job": requests[0].job,
+            "qids": [er.qid for er in requests],
             "service_s": dt, "segments": segs,
             "slot_busy_frac":
                 d["busy_slot_steps"] / total if total else 0.0,
@@ -426,7 +431,7 @@ class EngineExecutor:
                 self._pump_stream(eng, sinks)
             eng.drain_completions()
             dt = time.perf_counter() - t0
-            self._record_occupancy(variant, batch, dt, occ0, eng)
+            self._record_occupancy(variant, batch, dt, occ0, eng, requests)
             for er, ers in groups:
                 self._deliver(er, ers)
             # only synthetic runs calibrate t(b): they share one fixed

@@ -58,6 +58,7 @@ import threading
 import time
 from typing import Any, Callable, Dict, List, Optional, Tuple
 
+from repro_torch import tracing
 from repro_torch.core.worker import ExecRequest
 from repro_torch.serving.engine import Request
 from repro_torch.serving.executor import EngineExecutor, EngineExecutorConfig
@@ -145,7 +146,12 @@ class ThreadedEngineExecutor(EngineExecutor):
 
     # ------------------------------------------------------------------
     def _admit_job(self, item: tuple) -> None:
-        variant, batch, requests, on_done = item
+        requests = item[2]
+        with tracing.span("stepper.admit",
+                          job=requests[0].job if requests else None):
+            self._admit(*item)
+
+    def _admit(self, variant, batch, requests, on_done) -> None:
         try:
             if self._faults is not None:
                 self._faults.check("dispatch")
@@ -189,19 +195,22 @@ class ThreadedEngineExecutor(EngineExecutor):
         job.outstanding -= 1
         if job.outstanding > 0:
             return
-        dt = time.perf_counter() - job.t0
-        self._active.remove(job)
-        # co-batched jobs overlap on one engine; `job.occ` holds this
-        # job's live-slot share of every shared segment (accumulated in
-        # `_split_occupancy`), so the log entry bills each job its own
-        # fraction instead of double-counting shared work
-        self._record_occupancy_delta(job.variant, job.batch, dt, job.occ)
-        for er, ers in job.groups:
-            self._deliver(er, ers)
-        if job.synthetic:
-            n = max(sum(len(ers) for _, ers in job.groups), 1)
-            self._observe(job.variant, n, dt)
-        job.on_done(dt)
+        requests = [er for er, _ in job.groups]
+        with tracing.span("stepper.finish", job=requests[0].job):
+            dt = time.perf_counter() - job.t0
+            self._active.remove(job)
+            # co-batched jobs overlap on one engine; `job.occ` holds this
+            # job's live-slot share of every shared segment (accumulated
+            # in `_split_occupancy`), so the log entry bills each job its
+            # own fraction instead of double-counting shared work
+            self._record_occupancy_delta(job.variant, job.batch, dt,
+                                         job.occ, requests)
+            for er, ers in job.groups:
+                self._deliver(er, ers)
+            if job.synthetic:
+                n = max(sum(len(ers) for _, ers in job.groups), 1)
+                self._observe(job.variant, n, dt)
+            job.on_done(dt)
 
     def _step_loop(self) -> None:
         # Crash containment: any exception out of the stepping body —
@@ -244,8 +253,11 @@ class ThreadedEngineExecutor(EngineExecutor):
             # idle executor doesn't spin and a busy one doesn't stall
             block = not self._active
             try:
-                item = self._queue.get(timeout=0.05) if block \
-                    else self._queue.get_nowait()
+                if block:
+                    with tracing.span("stepper.wait"):
+                        item = self._queue.get(timeout=0.05)
+                else:
+                    item = self._queue.get_nowait()
                 while item is not None:
                     self._admit_job(item)
                     item = self._queue.get_nowait()
@@ -274,7 +286,8 @@ class ThreadedEngineExecutor(EngineExecutor):
                         seated0 = {id(r) for r in eng._slot_req
                                    if r is not None}
                         eng.step()
-                        self._pump_stream(eng, self._sinks)
+                        with tracing.span("stepper.stream"):
+                            self._pump_stream(eng, self._sinks)
                         self._split_occupancy(eng, occ0, seated0)
                     for r in eng.drain_completions():
                         self._finish_request(r)

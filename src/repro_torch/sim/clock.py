@@ -30,6 +30,11 @@ class Clock:
     def now(self) -> float:
         raise NotImplementedError
 
+    def to_monotonic(self, t: float) -> float:
+        """Clock time ``t`` on ``time.monotonic()``'s clock; -1.0 where
+        the clock has none (virtual time)."""
+        return -1.0
+
     def schedule_at(self, t: float, fn: Callable) -> None:
         raise NotImplementedError
 
@@ -82,6 +87,9 @@ class RealClock(Clock):
 
     def now(self) -> float:
         return time.monotonic() - self._t0
+
+    def to_monotonic(self, t: float) -> float:
+        return t + self._t0
 
     def schedule_at(self, t: float, fn: Callable) -> None:
         with self._cv:
